@@ -1,0 +1,55 @@
+"""Bridge from the JAX package's parameter tree to the port's.
+
+``params_from_jax`` takes the reference's parameter tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``; this module imports no JAX) and
+returns the port's parameter dict. The layouts are identical, stacked
+layers included, so the conversion is a copy; shapes are checked against
+a freshly laid-out port tree so a mismatched config fails loudly.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import registry
+
+
+def _to_tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own; reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def _expected_shapes(cfg) -> Dict:
+    """The port's parameter tree on the meta device (shapes only)."""
+    return registry.init_params(cfg, device="meta")
+
+
+def params_from_jax(cfg, tree, device, dtype: Optional[torch.dtype] = None):
+    """JAX parameter tree (numpy leaves) -> port parameter dict on
+    ``device`` in ``dtype`` (default: the config's dtype)."""
+    dt = L.torch_dtype(dtype or cfg.dtype)
+    want = _expected_shapes(cfg)
+
+    def conv(node, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(node, dict) or set(node) != set(ref):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"{path or 'params'}: keys {got} != "
+                                 f"{sorted(ref)}")
+            return {k: conv(node[k], ref[k], f"{path}/{k}") for k in ref}
+        t = _to_tensor(node, device, dt)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{tuple(ref.shape)}")
+        return t
+
+    return conv(tree, want, "")

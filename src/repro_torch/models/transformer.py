@@ -1,0 +1,120 @@
+"""Decoder-only transformer LM, dense family (qwen2-style GQA).
+
+PyTorch counterpart of ``repro.models.transformer`` for ``family="dense"``.
+Parameters are a plain dict laid out exactly like the reference's tree:
+every leaf under ``"layers"`` carries a leading L axis, so weights move
+between the packages by copy alone (``repro_torch.convert``). A Python
+loop over layers takes the place of the reference's ``lax.scan``; caches
+are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attn_apply, attn_init
+
+
+def _layer_init(cfg, gen, dtype, device) -> Dict:
+    return {"attn": attn_init(cfg, gen, dtype, device),
+            "ln1": L.norm_init(cfg, dtype, device),
+            "ln2": L.norm_init(cfg, dtype, device),
+            "ffn": L.mlp_init(cfg, gen, dtype, device)}
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
+    """Random weights in ``cfg.dtype`` on ``device``, drawn from a
+    ``torch.Generator`` seeded with ``seed`` (on the card for CUDA)."""
+    device = L.resolve_device(device)
+    gen = torch.Generator(device="cuda" if device.type == "cuda" else "cpu")
+    gen.manual_seed(seed)
+    dtype = L.torch_dtype(cfg.dtype)
+    emb = L.embed_init(cfg, gen, dtype, device)
+    layers = _stack_trees([_layer_init(cfg, gen, dtype, device)
+                           for _ in range(cfg.n_layers)])
+    return {"embed": emb, "layers": layers,
+            "final_norm": L.norm_init(cfg, dtype, device)}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict:
+    """Dense request cache {"k","v"} [L,B,max_len,N,hd]."""
+    dt = L.torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
+           page_table=None, write_floor=None):
+    """Loop over layers; each layer's cache view is updated in place.
+    Returns (x, stats) with stats leaves stacked over layers."""
+    stats = []
+    for li in range(cfg.n_layers):
+        lp = _index(params["layers"], li)
+        lc = None if cache is None else {k: v[li] for k, v in cache.items()}
+        h = L.rms_norm(x, lp["ln1"]["w"])
+        a, _, st = attn_apply(cfg, lp["attn"], h, mode=mode,
+                              positions=positions, cache=lc,
+                              collect_stats=collect_stats,
+                              page_table=page_table,
+                              write_floor=write_floor)
+        x = x + a
+        h = L.rms_norm(x, lp["ln2"]["w"])
+        x = x + L.mlp_apply(cfg, lp["ffn"], h)
+        stats.append(st)
+    if not collect_stats:
+        return x, None
+    return x, {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+
+
+def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False):
+    """Run the prompt; fills the request ``cache`` in place (K/V snapped
+    to the int8 pool grid) and returns (last-position logits [B,1,V]
+    fp32, cache, stats)."""
+    tokens = batch["tokens"]
+    x = L.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, stats = _stack(cfg, params, x, mode="prefill", positions=positions,
+                      cache=cache, collect_stats=collect_stats)
+    x = L.rms_norm(x[:, -1:], params["final_norm"]["w"])
+    return L.lm_logits(params["embed"], x), cache, stats
+
+
+def apply_decode(cfg, params, token, cache, pos, *,
+                 collect_stats: bool = False, page_table=None,
+                 write_floor=None):
+    """One decode step over the paged pool. token [B,1]; pos [B,1] int
+    positions; ``cache`` the pool dict with [L,...] leaves (updated in
+    place); page_table [B,nP] int32. Returns (logits [B,1,V] fp32,
+    cache, stats)."""
+    x = L.embed_tokens(params["embed"], token)
+    x, stats = _stack(cfg, params, x, mode="decode", positions=pos,
+                      cache=cache, collect_stats=collect_stats,
+                      page_table=page_table, write_floor=write_floor)
+    x = L.rms_norm(x, params["final_norm"]["w"])
+    return L.lm_logits(params["embed"], x), cache, stats
+
+
+def param_count(cfg) -> int:
+    d, f, v, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+    attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd \
+        + cfg.n_heads * hd * d
+    ffn = 3 * d * f
+    per_layer = attn + ffn + 2 * d
+    emb = v * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * per_layer + emb + d

@@ -1,0 +1,170 @@
+"""Port parity of the dense model stack on reduced qwen2-1.5b: the same
+weights (moved with ``params_from_jax``) and token ids give the same
+prefill logits, the same int8 pool codes and the same paged-decode
+logits as the JAX package, at fp32 within atol 1e-4 (matrix products
+sum in another order in the two frameworks)."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.attention import AttnSpec
+from repro.configs import get_config as jax_get_config
+from repro.configs.base import reduced as jax_reduced
+from repro.models import registry as jregistry
+from repro.serving.kv_cache import PagedKVCache as JPagedKVCache
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.models import registry
+from repro_torch.serving.kv_cache import PagedKVCache
+
+ATOL = 1e-4
+PLENS = (13, 9)
+BUCKET = 16
+MAX_LEN = 32
+
+
+def _cfgs(calib="none"):
+    jcfg = jax_reduced(jax_get_config("qwen2-1.5b"))
+    jcfg = jcfg.replace(hdp=jcfg.hdp.replace(calib=calib))
+    cfg = reduced(get_config("qwen2-1.5b"))
+    return cfg.replace(hdp=cfg.hdp.replace(calib=calib)), jcfg
+
+
+def _tokens(seed=0):
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(PLENS), BUCKET), np.int32)
+    for r, n in enumerate(PLENS):
+        toks[r, :n] = rng.integers(1, 250, n)
+        toks[r, n:] = toks[r, n - 1]          # the engine's right padding
+    return toks
+
+
+@pytest.fixture(scope="module")
+def weights():
+    _, jcfg = _cfgs()
+    jparams, _ = jregistry.init_params(jcfg, jax.random.PRNGKey(0))
+    return jparams, jax.tree.map(np.asarray, jparams)
+
+
+def test_params_from_jax_copies_every_leaf(weights):
+    jparams, tree = weights
+    cfg, _ = _cfgs()
+    params = params_from_jax(cfg, tree, "cpu")
+    flat_t = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            flat_t[path] = node
+    walk(params, ())
+    flat_j = {tuple(getattr(k, "key", k) for k in path): np.asarray(leaf)
+              for path, leaf in jax.tree_util.tree_leaves_with_path(jparams)}
+    assert set(flat_t) == set(flat_j)
+    for path, leaf in flat_j.items():
+        np.testing.assert_array_equal(flat_t[path].numpy(), leaf,
+                                      err_msg="/".join(path))
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(cfg.replace(d_ff=96), tree, "cpu")
+
+
+def test_params_from_jax_bfloat16_bits():
+    jcfg = jax_reduced(jax_get_config("qwen2-1.5b")).replace(dtype="bfloat16")
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="bfloat16")
+    jparams, _ = jregistry.init_params(jcfg, jax.random.PRNGKey(1))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    w = params["layers"]["attn"]["wq"]
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        w.float().numpy(),
+        np.asarray(jparams["layers"]["attn"]["wq"].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("calib,seed", [("none", 0), ("max", 0),
+                                        ("none", 2)])
+def test_prefill_logits_match(weights, calib, seed):
+    """Prefill into a request cache of an int8-pool engine: K/V snapped
+    to the pool grid, under both the static and the "max" calibration."""
+    _, tree = weights
+    cfg, jcfg = _cfgs(calib)
+    toks = _tokens(seed)
+    spec = AttnSpec(backend="xla", kv_dtype="int8")
+    jl, jc, jst = jregistry.apply_prefill(
+        jcfg, jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(toks)},
+        jregistry.init_cache(jcfg, len(PLENS), BUCKET), attn=spec,
+        collect_stats=True)
+    params = params_from_jax(cfg, tree, "cpu")
+    with torch.no_grad():
+        tl, tc, tst = registry.apply_prefill(
+            cfg, params, {"tokens": torch.from_numpy(toks).long()},
+            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"),
+            collect_stats=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   atol=ATOL, rtol=0)
+    for name in ("block_sparsity", "head_sparsity"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   atol=1e-6, rtol=0)
+
+
+def test_paged_decode_logits_and_pool_match(weights):
+    """Prefill, insert into the int8 pool, then two paged decode steps
+    (the engine's resume replay, then a fresh token): pool codes equal
+    exactly, logits within atol."""
+    _, tree = weights
+    cfg, jcfg = _cfgs()
+    toks = _tokens(1)
+    spec = AttnSpec(backend="xla", kv_dtype="int8")
+    jparams = jax.tree.map(jnp.asarray, tree)
+    _, jc, _ = jregistry.apply_prefill(
+        jcfg, jparams, {"tokens": jnp.asarray(toks)},
+        jregistry.init_cache(jcfg, len(PLENS), BUCKET), attn=spec)
+    params = params_from_jax(cfg, tree, "cpu")
+    with torch.no_grad():
+        _, tc, _ = registry.apply_prefill(
+            cfg, params, {"tokens": torch.from_numpy(toks).long()},
+            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"))
+    jpages = JPagedKVCache(jcfg, len(PLENS), MAX_LEN, kv_dtype="int8")
+    pages = PagedKVCache(cfg, len(PLENS), MAX_LEN, device="cpu")
+    for slot, n in enumerate(PLENS):
+        jpages.alloc(slot, n + 6)
+        jpages.insert(jc, slot, row=slot)
+        pages.alloc(slot, n + 6)
+        pages.insert(tc, slot, row=slot)
+    np.testing.assert_array_equal(pages.table().numpy(),
+                                  np.asarray(jpages.table()))
+    for name in pages.cache:
+        np.testing.assert_array_equal(pages.cache[name].numpy(),
+                                      np.asarray(jpages.cache[name]),
+                                      err_msg=name)
+
+    tok = np.asarray([[toks[r, n - 1]] for r, n in enumerate(PLENS)], np.int32)
+    pos = np.asarray([[n - 1] for n in PLENS], np.int32)
+    for step in range(2):
+        jl, jcache, jst = jregistry.apply_decode(
+            jcfg, jparams, jnp.asarray(tok), jpages.cache, jnp.asarray(pos),
+            page_table=jpages.table(), attn=spec, collect_stats=True)
+        jpages.cache = jcache
+        with torch.no_grad():
+            tl, _, tst = registry.apply_decode(
+                cfg, params, torch.from_numpy(tok).long(), pages.cache,
+                torch.from_numpy(pos).long(), page_table=pages.table(),
+                collect_stats=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=0, err_msg=f"step {step}")
+        for name in ("k_pages", "v_pages"):
+            np.testing.assert_array_equal(pages.cache[name].numpy(),
+                                          np.asarray(jcache[name]),
+                                          err_msg=f"{name} step {step}")
+        for name in ("block_sparsity", "head_sparsity", "page_sparsity"):
+            np.testing.assert_array_equal(tst[name].numpy(),
+                                          np.asarray(jst[name]),
+                                          err_msg=f"{name} step {step}")
+        tok = np.array(jl[:, -1].argmax(-1), np.int32)[:, None]
+        pos = pos + 1

@@ -6,16 +6,29 @@ CUDA device and nvcc, and imports only the port (``src/repro_torch``),
 never JAX nor the JAX package. Phases:
 
 1. environment — card name and power limit (nvidia-smi);
-2. build — every CUDA source of the serving path, one nvcc each;
+2. build — every CUDA source (four kernels), one nvcc each, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the reference tests' small shapes and at qwen2-1.5b's full decode
-   shape, on int8 and fp32 pools, with the no-read poison checks;
-4. serving — qwen2-1.5b at full width (bf16, seeded random weights,
-   int8 pool) serves 8 requests through ``Engine.submit``/``run``; the
-   FUM kernel must have launched once per layer per decode step; a
-   reduced config served on the card must give the CPU's tokens;
-5. timing — each kernel and its plain version at the main path's shape
-   (CUDA events, L2 flushed between launches) beside its bound.
+   at the reference tests' small shapes (2x2 blocks and ragged S
+   included) and at qwen2-1.5b's full-width shapes: the paged FUM
+   decode on int8 and fp32 pools; the integer scout (theta and
+   theta_head to rtol 1e-5, keep equal but for theta within that
+   rounding of the threshold); the block-sparse FUM attention on the
+   prefill and the paged-decode routes and flash attention (atol = rtol
+   = 1e-4 with fp32 V, 2e-2 with bf16 V); the no-read poison checks;
+4. aligned prefill — qwen2-1.5b at full width (bf16, seeded weights),
+   B 2, S 4096, through ``registry.apply_prefill(..., None)``: HDP on
+   resolves to ``pallas_hdp_block`` and launches the scout and block
+   kernels once per layer, HDP off resolves to ``pallas_flash`` and
+   launches flash once per layer; kernel vs plain at the path's own
+   inputs; the reduced config's logits on the card equal the CPU's;
+5. serving — the same weights serve 8 requests through
+   ``Engine.submit``/``run``: the default engine launches the FUM kernel
+   once per layer per decode step, ``Engine(attn="pallas_hdp_block")``
+   the block kernel; a reduced config served on the card must give the
+   CPU's tokens;
+6. timing — each kernel and its plain version at the main path's shape
+   (CUDA events, L2 flushed between launches) beside its bound and,
+   where one PyTorch call computes the same function, that call.
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -35,8 +48,24 @@ SRC = ROOT / "src"
 #: NVIDIA H100 SXM data-sheet peaks (dense, at the full 700 W limit)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+INT8_OPS_S = 1979e12
 ATOL = RTOL = 1e-4   # fp32 accumulation in both; only the sum order differs
+TOL_BF16 = 2e-2      # p is rounded to bf16 before P.V in both
+THETA_RTOL = 1e-5
 N_LAYERS_QWEN = 28
+SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_block_attn",
+           "flash_attention")
+PREFILL_B, PREFILL_S = 2, 4096
+#: why a kernel has no library_ms: no single PyTorch call computes it
+NO_LIBRARY_CALL = {
+    "hdp_paged_fum_decode": "no PyTorch call attends over a paged pool's "
+                            "listed pages with the FUM scores",
+    "hdp_scout": "no PyTorch call pools |IQ.IK^T| per block and applies "
+                 "the row threshold",
+    "hdp_block_sparse_attention": "no PyTorch call attends over listed "
+                                  "blocks with the FUM scores QK^T - FQ.FK^T",
+}
 
 
 class SmokeError(RuntimeError):
@@ -72,7 +101,7 @@ def phase_env(torch):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build_all(["hdp_paged_decode"])
+    built = build.build_all(SOURCES)
     log(f"[build] {time.perf_counter() - t0:.2f} s for all sources")
     for name, rec in built.items():
         log(f"[build] {name}: {rec['seconds']:.2f} s")
@@ -201,22 +230,354 @@ def phase_kernels(torch):
     return worst, main_case
 
 
-# ------------------------------------------------------------ phase 4
-def phase_serving(torch):
+# ----------------------------------------------- phase 3: the new kernels
+def _randn(torch, shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g)).cuda()
+
+
+def fixed_grid_split(torch, x):
+    """(qq, iq) of x the way hdp_attention_tpu makes them ("max"
+    calibration onto the Q4.12 grid): integer parts in [-16, 15]."""
+    from repro_torch.core.quant import calib_scale, quantize_fixed
+    xq = quantize_fixed(x.float() * calib_scale(x, 4, "max"))
+    return xq, torch.trunc(xq)
+
+
+def check_scout(torch, label, iq, ik, **kw):
+    """Scout kernel vs plain: theta and theta_head to rtol 1e-5; keep
+    equal except where theta lies within that rounding of the row's
+    threshold (counted). Returns (max |theta error|, rows whose keep
+    differs within rounding)."""
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.kernels.ref import (hdp_scout_plain, scout_block_valid,
+                                         scout_row_threshold)
+    th, kp, hh = hdp_scout(iq, ik, **kw)
+    pth, pkp, phh = hdp_scout_plain(iq, ik, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(th).all() and torch.isfinite(hh).all()),
+          f"{label}: non-finite theta")
+    err = (th - pth).abs().max().item()
+    rel = ((th - pth).abs() / pth.abs().clamp(min=1.0)).max().item()
+    check(torch.allclose(th, pth, rtol=THETA_RTOL, atol=0),
+          f"{label}: theta kernel vs plain max rel err {rel:.3e}")
+    check(torch.allclose(hh, phh, rtol=THETA_RTOL, atol=0),
+          f"{label}: theta_head kernel vs plain differ")
+    nq, nk = th.shape[-2:]
+    bvalid = scout_block_valid(nq, nk, kw["block_q"], kw["block_k"],
+                               ik.shape[2], kw["causal"], device=th.device)
+    thr = scout_row_threshold(pth, bvalid, kw["rho_b"])[..., None]
+    diff = kp != pkp
+    near = (pth - thr).abs() <= THETA_RTOL * thr.abs()
+    check(bool((near | ~diff).all()),
+          f"{label}: keep differs away from the threshold")
+    n_near = int(diff.any(-1).sum())
+    log(f"[kernels] {label}: theta max |err| {err:.3e} (rel {rel:.3e}), "
+        f"{n_near} rows with keep flips within rounding")
+    return err, n_near
+
+
+def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True):
+    """Block-kernel inputs as the pipeline makes them: fixed-grid qq/kq,
+    the scout's keep on the card, its lists, one head gated."""
+    from repro_torch.kernels.ref import hdp_scout_plain, keep_mask_to_indices
+    qq, iq = fixed_grid_split(torch, _randn(torch, (B, H, S, hd), seed))
+    kq, ik = fixed_grid_split(torch, _randn(torch, (B, H, S, hd), seed + 1))
+    v = _randn(torch, (B, H, S, hd), seed + 2)
+    if v_bf16:
+        v = v.to(torch.bfloat16)
+    theta, keep, _ = hdp_scout_plain(iq, ik, rho_b=0.5, block_q=bq,
+                                     block_k=bk, causal=True)
+    idx, cnt = keep_mask_to_indices(keep, theta, keep.shape[-1])
+    hk = torch.ones(B, H, dtype=torch.bool, device="cuda")
+    if gate:
+        hk[0, -1] = False
+    return dict(q=qq, k=kq, v=v, kv_idx=idx, counts=cnt, head_kept=hk,
+                causal=True, block_q=bq, block_k=bk, score_scale=None,
+                kv_len=None)
+
+
+def decode_route_case(torch, seed):
+    """The paged decode's block-kernel call at qwen2-1.5b's shape: one
+    query row per (b, h) in an 8-row tile, 9 pages of 128 densified, a
+    page keep mask, per-row kv_len, non-causal."""
+    from repro_torch.core.quant import quantize_fixed
+    from repro_torch.kernels.ref import keep_mask_to_indices
+    B, H, hd, ps, nP = 8, 12, 128, 128, 9
+    qq = quantize_fixed(_randn(torch, (B, H, 1, hd), seed, 2.0))
+    kq = quantize_fixed(_randn(torch, (B, H, nP * ps, hd), seed + 1, 2.0))
+    v = _randn(torch, (B, H, nP * ps, hd), seed + 2)
+    g = torch.Generator().manual_seed(seed)
+    keep = (torch.rand(B, H, 1, nP, generator=g) < 0.5).cuda()
+    keep[..., 0] = True
+    theta = torch.rand(B, H, 1, nP, generator=g).cuda()
+    idx, cnt = keep_mask_to_indices(keep, theta, nP)
+    lens = torch.randint(nP * ps // 2, nP * ps + 1, (B, 1), generator=g)
+    hk = torch.rand(B, H, generator=g) < 0.8
+    return dict(q=qq, k=kq, v=v, kv_idx=idx, counts=cnt,
+                head_kept=hk.cuda(), causal=False, block_q=8, block_k=ps,
+                score_scale=1.0, kv_len=lens.expand(B, H).int().cuda())
+
+
+def block_args(c):
+    return ((c["q"], c["k"], c["v"], c["kv_idx"], c["counts"],
+             c["head_kept"]),
+            {"approx": c.get("approx", True),
+             **{k: c[k] for k in ("causal", "block_q", "block_k",
+                                  "score_scale", "kv_len")}})
+
+
+def check_block(torch, label, c, poison=True):
+    """Block kernel vs plain; with ``poison`` NaN in every K/V block no
+    q tile lists (and all of a gated head's) leaves the output
+    bit-identical. Returns max |err|."""
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.ref import hdp_block_sparse_attention_plain
+    args, kw = block_args(c)
+    out = hdp_block_sparse_attention(*args, **kw)
+    ref = hdp_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = TOL_BF16 if c["v"].dtype == torch.bfloat16 else ATOL
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, atol=tol, rtol=tol),
+          f"{label}: kernel vs plain max |err| {err:.3e}")
+    n_unlisted = 0
+    if poison:
+        B, H, Sk, hd = c["k"].shape
+        bk = c["block_k"]
+        nk = -(-Sk // bk)
+        mk = c["kv_idx"].shape[-1]
+        listed = torch.zeros(B, H, nk + 1, dtype=torch.bool, device="cuda")
+        live = (torch.arange(mk, device="cuda") < c["counts"][..., None]) \
+            & c["head_kept"][..., None, None]
+        blk = torch.where(live, c["kv_idx"].long(), nk)
+        listed.scatter_(2, blk.flatten(2), True)
+        col_listed = listed[..., :nk].repeat_interleave(bk, -1)[..., :Sk]
+        n_unlisted = int((~listed[..., :nk]).sum())
+        check(n_unlisted > 0, f"{label}: every block is listed")
+        kp = torch.where(col_listed[..., None], c["k"], float("nan"))
+        vp = torch.where(col_listed[..., None], c["v"],
+                         torch.tensor(float("nan"), dtype=c["v"].dtype,
+                                      device="cuda"))
+        out_bad = hdp_block_sparse_attention(args[0], kp, vp, *args[3:], **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out_bad),
+              f"{label}: NaN in unlisted K/V blocks changed the output")
+    log(f"[kernels] {label}: max |kernel - plain| {err:.3e}"
+        + (f", {n_unlisted} unlisted blocks poisoned: output bit-identical"
+           if poison else ""))
+    return err
+
+
+def check_flash(torch, label, q, k, v, causal, bq, bk):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    ref = flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                block_k=bk)
+    torch.cuda.synchronize()
+    tol = TOL_BF16 if q.dtype == torch.bfloat16 else ATOL
+    check(out.dtype == q.dtype and bool(torch.isfinite(out).all()),
+          f"{label}: wrong dtype or non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+          f"{label}: kernel vs plain max |err| {err:.3e}")
+    log(f"[kernels] {label}: max |kernel - plain| {err:.3e}")
+    return err
+
+
+def phase_new_kernels(torch):
+    """Scout, block and flash kernels vs their plain versions. Returns
+    {kernel: worst max error}."""
+    worst = {"hdp_scout": 0.0, "hdp_block_sparse_attention": 0.0,
+             "flash_attention": 0.0}
+    small = [((1, 2, 128, 64), (64, 64)), ((1, 2, 18, 8), (2, 2)),
+             ((1, 1, 100, 16), (32, 16))]
+    near_rows = 0
+    for shape, (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S, 128),
+                                     (128, 128))]:
+        for rho in (0.5, -0.5):
+            for causal in (True, False):
+                if shape[2] == PREFILL_S and not causal:
+                    continue
+                _, iq = fixed_grid_split(torch, _randn(torch, shape, 7))
+                _, ik = fixed_grid_split(torch, _randn(torch, shape, 8))
+                label = (f"hdp_scout {shape} blocks {bq}x{bk} rho {rho} "
+                         f"{'causal' if causal else 'full'}")
+                err, n = check_scout(torch, label, iq, ik, rho_b=rho,
+                                     block_q=bq, block_k=bk, causal=causal)
+                near_rows += n
+                worst["hdp_scout"] = max(worst["hdp_scout"], err)
+    log(f"[kernels] hdp_scout: {near_rows} rows in all differ in keep "
+        "within theta's rounding of the threshold")
+    for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
+                                              128), (128, 128))]:
+        for v_bf16 in (False, True):
+            c = block_case(torch, B=B, H=H, S=S, hd=hd, bq=bq, bk=bk,
+                           v_bf16=v_bf16, seed=11, gate=H > 1)
+            label = (f"hdp_block_sparse_attention {(B, H, S, hd)} blocks "
+                     f"{bq}x{bk} v {'bf16' if v_bf16 else 'fp32'}")
+            worst["hdp_block_sparse_attention"] = max(
+                worst["hdp_block_sparse_attention"],
+                check_block(torch, label, c))
+    c = decode_route_case(torch, 21)
+    worst["hdp_block_sparse_attention"] = max(
+        worst["hdp_block_sparse_attention"],
+        check_block(torch, "hdp_block_sparse_attention decode route "
+                    "[8,12,1,128] x [8,12,1152,128] blocks 8x128", c))
+    for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
+                                              128), (128, 128))]:
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                if S == PREFILL_S and (dt == torch.float32 or not causal):
+                    continue
+                q, k, v = (_randn(torch, (B, H, S, hd), s, 2.0).to(dt)
+                           for s in (1, 2, 3))
+                label = (f"flash_attention {(B, H, S, hd)} blocks {bq}x{bk} "
+                         f"{str(dt)[6:]} {'causal' if causal else 'full'}")
+                worst["flash_attention"] = max(
+                    worst["flash_attention"],
+                    check_flash(torch, label, q, k, v, causal, bq, bk))
+    return worst
+
+
+# ------------------------------------------------ phase 4: aligned prefill
+class Recorder:
+    """Wraps a kernel wrapper; keeps the inputs of the call with the
+    largest ``key`` (the last call when key is None)."""
+
+    def __init__(self, fn, key=None):
+        self.fn, self.key = fn, key
+        self.best, self.score = None, None
+
+    def __call__(self, *args, **kw):
+        score = 0 if self.key is None else self.key(args)
+        if self.score is None or score >= self.score:
+            self.best, self.score = (args, kw), score
+        return self.fn(*args, **kw)
+
+
+def _resolved(cfg, **kw):
+    from repro_torch.attention import resolve_backend
+    from repro_torch.models.attention import build_attn_call
+    return resolve_backend(build_attn_call(cfg, **kw)).name
+
+
+def phase_aligned_prefill(torch, cfg, params):
+    """qwen2-1.5b at full width, B 2, S 4096: HDP on through the scout and
+    block kernels, HDP off through flash, each launched once per layer;
+    kernel vs plain at the path's own inputs; the reduced config's
+    aligned-prefill logits on the card vs the CPU."""
+    import numpy as np
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.models import registry
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    out = {}
+    rec = {"scout": Recorder(hdp_scout),
+           "block": Recorder(hdp_block_sparse_attention,
+                             key=lambda a: int(a[4].sum())),
+           "flash": Recorder(flash_attention)}
+    ops.hdp_scout, ops.hdp_block_sparse_attention, ops.flash_attention = \
+        rec["scout"], rec["block"], rec["flash"]
+    try:
+        for hdp_on in (True, False):
+            c = cfg.replace(hdp=cfg.hdp.replace(enabled=hdp_on))
+            backend = _resolved(c, mode="prefill", self_aligned=True)
+            check(backend == ("pallas_hdp_block" if hdp_on else
+                              "pallas_flash"),
+                  f"aligned prefill (HDP {hdp_on}) resolved to {backend}")
+            torch.cuda.synchronize()
+            hdp_scout.launches = hdp_block_sparse_attention.launches = 0
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            logits, cache, st = registry.apply_prefill(
+                c, params, {"tokens": toks}, None, collect_stats=hdp_on)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {"hdp_scout": hdp_scout.launches,
+                 "hdp_block_sparse_attention":
+                     hdp_block_sparse_attention.launches,
+                 "flash_attention": flash_attention.launches}
+            check(cache is None and tuple(logits.shape) ==
+                  (PREFILL_B, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()),
+                  f"aligned prefill (HDP {hdp_on}): bad logits")
+            want = ({"hdp_scout": N_LAYERS_QWEN,
+                     "hdp_block_sparse_attention": N_LAYERS_QWEN,
+                     "flash_attention": 0} if hdp_on else
+                    {"hdp_scout": 0, "hdp_block_sparse_attention": 0,
+                     "flash_attention": N_LAYERS_QWEN})
+            check(n == want, f"aligned prefill (HDP {hdp_on}) launches {n}, "
+                  f"expected {want}")
+            msg = ""
+            if hdp_on:
+                msg = (f", block/head sparsity "
+                       f"{st['block_sparsity'].mean().item():.4f}/"
+                       f"{st['head_sparsity'].mean().item():.4f}")
+            log(f"[prefill] qwen2-1.5b B{PREFILL_B} S{PREFILL_S} HDP "
+                f"{'on' if hdp_on else 'off'} -> {backend}: {wall:.3f} s, "
+                f"launches {n}{msg}")
+            out.update({k: v for k, v in n.items() if v})
+    finally:
+        ops.hdp_scout = hdp_scout
+        ops.hdp_block_sparse_attention = hdp_block_sparse_attention
+        ops.flash_attention = flash_attention
+    calls = {k: r.best for k, r in rec.items()}
+    # the kernels against their plain versions at the path's own inputs
+    (iq, ik), kw = calls["scout"]
+    path_err = {}
+    path_err["hdp_scout"], n_near = check_scout(
+        torch, "hdp_scout at the path's last call", iq, ik, **kw)
+    args, kw = calls["block"]
+    c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
+             **{"kv_len": None, "score_scale": None, **kw})
+    path_err["hdp_block_sparse_attention"] = check_block(
+        torch, f"hdp_block_sparse_attention at the path's call that kept "
+        f"the most blocks ({int(args[4].sum())})", c)
+    (q, k, v), kw = calls["flash"]
+    path_err["flash_attention"] = check_flash(
+        torch, "flash_attention at the path's last call", q, k, v,
+        kw["causal"], kw["block_q"], kw["block_k"])
+
+    # the reduced config's aligned prefill: card (kernels) vs CPU (plain)
+    small = reduced(cfg)
+    sp = registry.init_params(small, 1, "cuda")
+    sp_cpu = _tree_to(sp, "cpu")
+    stoks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, small.vocab_size, (2, 18)))
+    for hdp_on in (True, False):
+        c = small.replace(hdp=small.hdp.replace(enabled=hdp_on))
+        lg, _, _ = registry.apply_prefill(c, sp, {"tokens": stoks.cuda()},
+                                          None)
+        lc, _, _ = registry.apply_prefill(c, sp_cpu, {"tokens": stoks}, None)
+        err = (lg.cpu() - lc).abs().max().item()
+        check(torch.allclose(lg.cpu(), lc, atol=ATOL, rtol=0),
+              f"reduced aligned prefill (HDP {hdp_on}): card vs CPU logits "
+              f"max |err| {err:.3e}")
+        log(f"[prefill] reduced qwen2-1.5b aligned prefill HDP "
+            f"{'on' if hdp_on else 'off'}: card vs CPU logits max |err| "
+            f"{err:.3e}")
+    return out, path_err, calls
+
+
+# ------------------------------------------------------------ phase 5
+def phase_serving(torch, cfg, params):
     import numpy as np
     import repro_torch.models.attention as attention
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     from repro_torch.serving import Engine, Request
-    cfg = get_config("qwen2-1.5b")
-    check(cfg.n_layers == N_LAYERS_QWEN, "unexpected qwen2-1.5b depth")
-    t0 = time.perf_counter()
-    eng = Engine(cfg, device="cuda", seed=0, max_batch=8, max_len=1056,
-                 prefill_buckets=(256, 512, 1024), collect_stats=True)
-    torch.cuda.synchronize()
-    log(f"[serve] qwen2-1.5b bf16 weights ({cfg.param_count() / 1e9:.2f} B "
-        f"params) initialised in {time.perf_counter() - t0:.1f} s")
+    serve_kw = dict(max_batch=8, max_len=1056,
+                    prefill_buckets=(256, 512, 1024), collect_stats=True)
+    eng = Engine(cfg, params, device="cuda", **serve_kw)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(200, 1001, size=8)]
@@ -301,7 +662,53 @@ def phase_serving(torch):
     check(toks[0] == toks[1], f"reduced qwen2 tokens differ card vs CPU: "
           f"{toks[0]} vs {toks[1]}")
     log("[serve] reduced qwen2-1.5b: card tokens == CPU plain-path tokens")
-    return launches, path_err
+
+    # the paged decode through the block-sparse kernel on a densified
+    # gather: once per layer per decode step, FUM kernel not at all
+    beng = Engine(cfg, params, device="cuda", attn="pallas_hdp_block",
+                  **serve_kw)
+    check(beng.resolved_backend("decode") == "pallas_hdp_block",
+          f"attn=pallas_hdp_block decode resolved to "
+          f"{beng.resolved_backend('decode')}")
+    rec = Recorder(hdp_block_sparse_attention, key=lambda a: int(a[4].sum()))
+    attention.hdp_block_sparse_attention = rec
+    hdp_block_sparse_attention.launches = hdp_paged_fum_decode.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for uid, p in enumerate(prompts):
+            beng.submit(Request(uid, p, max_new_tokens=16))
+        bres = beng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        blaunches = hdp_block_sparse_attention.launches
+        fum_after = hdp_paged_fum_decode.launches
+    finally:
+        attention.hdp_block_sparse_attention = hdp_block_sparse_attention
+    bs = beng.summary()
+    check(len(bres) == 8 and all(r.complete and r.status == "ok"
+                                 and len(r.tokens) == 16
+                                 for r in bres.values()),
+          f"attn=pallas_hdp_block: not every request completed: "
+          f"{[(u, r.status, r.error) for u, r in bres.items()]}")
+    check(bs["attn_decode_stage3"] == "cuda:hdp_block_sparse_attention",
+          f"decode stage 3 resolved to {bs['attn_decode_stage3']}")
+    check(blaunches == N_LAYERS_QWEN * bs["decode_steps"] and blaunches > 0
+          and fum_after == 0,
+          f"block kernel launched {blaunches} times (FUM {fum_after}), "
+          f"expected {N_LAYERS_QWEN} x {bs['decode_steps']} decode steps")
+    log(f"[serve] attn=pallas_hdp_block: wall {wall:.2f} s, decode_tok_s "
+        f"{bs['decode_tok_s']:.1f}, block kernel launches {blaunches} = "
+        f"{N_LAYERS_QWEN} layers x {bs['decode_steps']} decode steps, "
+        f"block/head/page sparsity {bs['block_sparsity']:.4f}/"
+        f"{bs['head_sparsity']:.4f}/{bs['page_sparsity']:.4f}")
+    args, kw = rec.best
+    c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
+             **kw)
+    block_err = check_block(
+        torch, f"hdp_block_sparse_attention at the decode route's call that "
+        f"kept the most blocks ({rec.score}; q {tuple(args[0].shape)}, "
+        f"k/v {tuple(args[1].shape)})", c)
+    return launches, path_err, blaunches, block_err
 
 
 def _tree_to(tree, dev):
@@ -310,7 +717,7 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-# ------------------------------------------------------------ phase 5
+# ------------------------------------------------------------ phase 6
 def time_ms(torch, fn, iters, flush):
     """Median device time of fn over `iters` runs, L2 flushed before each
     (the decode finds a layer's pages cold: 28 layers of pool exceed L2)."""
@@ -373,6 +780,123 @@ def phase_timing(torch, c):
     return k_ms, p_ms, bound, bound_by
 
 
+def scout_bound(torch, iq, ik, kw):
+    """Least time for the scout's work on these inputs: IQ and IK read
+    once, theta and keep written once, against one int8 multiply-add per
+    (valid row, valid col, d) at the card's int8 rate."""
+    B, H, Sq, hd = iq.shape
+    Sk = ik.shape[2]
+    nq, nk = -(-Sq // kw["block_q"]), -(-Sk // kw["block_k"])
+    rows = torch.arange(Sq, dtype=torch.float64)
+    pairs = float(torch.clamp(rows + 1, max=Sk).sum()) if kw["causal"] \
+        else float(Sq * Sk)
+    nbytes = (iq.numel() + ik.numel()) * 4 + B * H * nq * nk * 5 + B * H * 4
+    ops = B * H * pairs * hd * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def block_bound(torch, args, kw):
+    """Least time for the block kernel's work on these inputs: the valid
+    (row, col) pairs of every listed block of a kept head, 6 fp32 flops
+    per pair and d (q.k, fq.fk, p.v) at the fp32 rate, against Q read
+    once, every listed K/V block read once and the output written."""
+    q, k, v, idx, cnt, hk = args
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    bq, bk = kw["block_q"], kw["block_k"]
+    nq, mk = idx.shape[2], idx.shape[3]
+    live = (torch.arange(mk, device=idx.device) < cnt[..., None]) \
+        & hk[..., None, None].bool()
+    ent = torch.nonzero(live)                           # [E, 4] b,h,i,j
+    blk = idx[ent[:, 0], ent[:, 1], ent[:, 2], ent[:, 3]].long()
+    row = ent[:, 2:3] * bq + torch.arange(bq, device=idx.device)   # [E,bq]
+    c_lo = (blk * bk)[:, None]
+    c_hi = torch.clamp((blk + 1) * bk, max=Sk)[:, None]
+    if kw.get("kv_len") is not None:
+        lens = kw["kv_len"][ent[:, 0], ent[:, 1]].long()[:, None]
+        c_hi = torch.minimum(c_hi, lens)
+    hi = torch.minimum(c_hi, row + 1) if kw.get("causal", True) else \
+        c_hi.expand_as(row)
+    pairs = float(torch.where(row < Sq, torch.clamp(hi - c_lo, min=0),
+                              0).sum())
+    flops = pairs * hd * (6 if kw.get("approx", True) else 4)
+    listed = torch.zeros(B, H, -(-Sk // bk), dtype=torch.bool,
+                         device=idx.device)
+    listed[ent[:, 0], ent[:, 1], blk] = True
+    nbytes = q.numel() * 4 * 2 + int(listed.sum()) * bk * hd * (
+        k.element_size() + v.element_size()) \
+        + (idx.numel() + cnt.numel() + hk.numel()) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def flash_bound(torch, q, k, v, causal):
+    """Least time for flash on these inputs: q, k, v read once and the
+    output written, against 4 flops per valid (row, col) pair and d
+    (q.k and p.v) at the bf16 tensor-core rate (fp32 inputs: the fp32
+    rate)."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    rows = torch.arange(Sq, dtype=torch.float64)
+    pairs = float(torch.clamp(rows + 1, max=Sk).sum()) if causal \
+        else float(Sq * Sk)
+    flops = B * H * pairs * hd * 4
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_FLOP_S if q.dtype == torch.bfloat16 else FP32_FLOP_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_timing_prefill(torch, calls):
+    """The scout, block and flash kernels at the aligned prefill's own
+    inputs: kernel, plain version, bound and (flash) the PyTorch SDPA
+    call as a yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         hdp_block_sparse_attention_plain,
+                                         hdp_scout_plain)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    saved = (hdp_scout.launches, hdp_block_sparse_attention.launches,
+             flash_attention.launches)
+    res = {}
+    (iq, ik), kw = calls["scout"]
+    res["hdp_scout"] = (
+        time_ms(torch, lambda: hdp_scout(iq, ik, **kw), 20, flush),
+        time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3, flush),
+        *scout_bound(torch, iq, ik, kw), None)
+    args, kw = calls["block"]
+    res["hdp_block_sparse_attention"] = (
+        time_ms(torch, lambda: hdp_block_sparse_attention(*args, **kw), 10,
+                flush),
+        time_ms(torch, lambda: hdp_block_sparse_attention_plain(*args, **kw),
+                3, flush),
+        *block_bound(torch, args, kw), None)
+    (q, k, v), kw = calls["flash"]
+    res["flash_attention"] = (
+        time_ms(torch, lambda: flash_attention(q, k, v, **kw), 10, flush),
+        time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 3,
+                flush),
+        *flash_bound(torch, q, k, v, kw["causal"]),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kw["causal"]), 20, flush))
+    (hdp_scout.launches, hdp_block_sparse_attention.launches,
+     flash_attention.launches) = saved     # timing launches do not count
+    for name, (k_ms, p_ms, bound, by, nbytes, ops, lib) in res.items():
+        log(f"[timing] {name} at the aligned prefill's inputs: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} ms "
+            f"({by}: {nbytes} B, {ops:.4g} ops)"
+            + (f", scaled_dot_product_attention {lib:.4f} ms"
+               if lib is not None else ""))
+    return res
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -394,8 +918,23 @@ def main() -> int:
             name, smi_line = phase_env(torch)
             phase_build()
             err, main_case = phase_kernels(torch)
-            launches, path_err = phase_serving(torch)
+            new_err = phase_new_kernels(torch)
+            from repro_torch.configs import get_config
+            from repro_torch.models import registry
+            cfg = get_config("qwen2-1.5b")
+            check(cfg.n_layers == N_LAYERS_QWEN, "unexpected qwen2-1.5b depth")
+            t0 = time.perf_counter()
+            params = registry.init_params(cfg, 0, "cuda")
+            torch.cuda.synchronize()
+            log(f"[model] qwen2-1.5b bf16 weights "
+                f"({cfg.param_count() / 1e9:.2f} B params) initialised in "
+                f"{time.perf_counter() - t0:.1f} s")
+            prefill_launches, prefill_err, calls = phase_aligned_prefill(
+                torch, cfg, params)
+            launches, path_err, block_engine_launches, block_err = \
+                phase_serving(torch, cfg, params)
             k_ms, p_ms, bound, bound_by = phase_timing(torch, main_case)
+            timed = phase_timing_prefill(torch, calls)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -412,7 +951,30 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
+        "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
     }]
+    new = {"hdp_scout": ("hdp_scout.cu", "hdp_scout.py:75"),
+           "hdp_block_sparse_attention": ("hdp_block_attn.cu",
+                                          "hdp_block_attn.py:91"),
+           "flash_attention": ("flash_attention.cu",
+                               "flash_attention.py:69")}
+    for kname, (src, tpu) in new.items():
+        k_ms, p_ms, bound, bound_by, _, _, lib_ms = timed[kname]
+        errs = [new_err[kname], prefill_err[kname]]
+        if kname == "hdp_block_sparse_attention":
+            errs.append(block_err)
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": prefill_launches[kname],
+            "max_abs_err": max(errs),
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+        if kname in NO_LIBRARY_CALL:
+            kernels[-1]["library_note"] = NO_LIBRARY_CALL[kname]
+    kernels[2]["launches_paged_decode_route"] = block_engine_launches
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

@@ -65,3 +65,44 @@ def block_keep_mask(theta: torch.Tensor, threshold: torch.Tensor,
     if valid is not None:
         keep = keep & valid
     return keep
+
+
+def block_abs_sum(scores: torch.Tensor, block_q: int,
+                  block_k: int) -> torch.Tensor:
+    """theta_j = sum |x| over each block -> [..., Lq/bq, Lk/bk]."""
+    *lead, lq, lk = scores.shape
+    if lq % block_q or lk % block_k:
+        raise ValueError(f"({lq},{lk}) not divisible by block "
+                         f"({block_q},{block_k})")
+    r = scores.reshape(*lead, lq // block_q, block_q, lk // block_k, block_k)
+    return r.abs().sum(dim=(-3, -1))
+
+
+def expand_block_mask(mask: torch.Tensor, block_q: int,
+                      block_k: int) -> torch.Tensor:
+    """[..., R, C] block mask -> [..., R*bq, C*bk] element mask."""
+    return mask.repeat_interleave(block_q, dim=-2) \
+        .repeat_interleave(block_k, dim=-1)
+
+
+def causal_element_mask(lq: int, lk: int, q_offset: int = 0,
+                        device=None) -> torch.Tensor:
+    q = torch.arange(lq, device=device) + q_offset
+    k = torch.arange(lk, device=device)
+    return q[:, None] >= k[None, :]
+
+
+_NEG = -1e30   # instead of -inf, so a fully masked row stays NaN-free
+
+
+def masked_softmax(scores: torch.Tensor,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row softmax with exclusion; fully pruned rows give zeros."""
+    if keep is not None:
+        scores = torch.where(keep, scores, _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    if keep is not None:
+        e = torch.where(keep, e, 0.0)
+    s = e.sum(dim=-1, keepdim=True)
+    return e / torch.clamp(s, min=1e-30)

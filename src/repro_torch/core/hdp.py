@@ -19,7 +19,7 @@ def calibrated_split(x: torch.Tensor, cfg: HDPConfig):
 
 
 def decode_scout(int_scores: torch.Tensor, valid: torch.Tensor,
-                 cfg: HDPConfig):
+                 cfg: HDPConfig, per_query: bool = False):
     """Decode-shaped integer scout: one block row per head over KV pages.
 
     ``int_scores`` [..., Sq, Sk] are integer-part scores of a small
@@ -29,8 +29,15 @@ def decode_scout(int_scores: torch.Tensor, valid: torch.Tensor,
     page fetch list (Fetch-Upon-Mask). ``valid`` is a broadcastable bool
     mask [..., Sq, Sk].
 
+    ``per_query`` keeps the Sq axis instead of pooling it: each query
+    row gets its own block row and head gate (the speculative-verify
+    shape), and every output below gains a trailing Sq axis before nk.
+
     Returns (keep [..., nk], bvalid [..., nk], theta [..., nk],
     theta_head [...], head_kept [...])."""
+    if per_query:
+        int_scores = int_scores[..., :, None, :]
+        valid = valid[..., :, None, :]
     theta, bvalid = blocking.pooled_block_theta(int_scores, valid,
                                                 cfg.block_k)
     if cfg.block_pruning:

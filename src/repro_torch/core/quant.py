@@ -25,6 +25,10 @@ F32 = torch.float32
 #: ``encode_pool``; decodes to NaN, scout-views to 0).
 POISON_CODE = -128
 
+#: grid of the quantized-fraction scout copy a self-speculative draft
+#: scores with (fractions kept to 2^-6)
+FRAC_SCOUT_SCALE = 64.0
+
 
 def quantize_fixed(x: torch.Tensor, int_bits: int = 4,
                    frac_bits: int = 12) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so nvcc compiles it in seconds into ``build/repro_torch/lib<name>-<hash>.so``
-at the repository root (the hash covers the source and the flags, so an
-edited source never loads a stale library). The build happens at first
+at the repository root (the hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source never loads a stale
+library). The build happens at first
 use, never at import; ``build_all`` starts one nvcc per source at once.
 A failed build raises with nvcc's output.
 """
@@ -42,8 +43,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -5,8 +5,10 @@ summary as one JSON line.
 
 runs on the CUDA card (the default ``--device cuda`` raises without
 one); ``--device cpu --reduced`` serves the tiny test-size config
-through the plain kernel versions. Weights are random, drawn from
-``--seed``; prompt lengths are drawn from [bucket/4, bucket] of the
+through the plain kernel versions. ``--backend`` picks the attention
+backend (a registry name or family tag, e.g. ``pallas_hdp_block`` for
+the block-sparse kernel in decode; default ``auto``). Weights are
+random, drawn from ``--seed``; prompt lengths are drawn from [bucket/4, bucket] of the
 largest prefill bucket (1024, or 32 with ``--reduced``).
 """
 from __future__ import annotations
@@ -29,6 +31,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", default="auto",
+                    help="attention backend: a registry name, a family "
+                         "tag (pallas | xla | reference) or auto")
     return ap.parse_args(argv)
 
 
@@ -45,7 +50,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     lo = hi // 4
     eng = Engine(cfg, seed=args.seed, device=args.device,
                  max_batch=args.max_batch, max_len=hi + args.max_new,
-                 prefill_buckets=buckets, collect_stats=True)
+                 prefill_buckets=buckets, collect_stats=True,
+                 attn=args.backend)
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):
         n = int(rng.integers(lo, hi + 1))

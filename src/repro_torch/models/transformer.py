@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.attention.stats import stack_stats
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attn_apply, attn_init
 
@@ -60,9 +61,16 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None,
 
 
 def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
-           page_table=None, write_floor=None):
+           page_table=None, write_floor=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
-    Returns (x, stats) with stats leaves stacked over layers."""
+    Without a cache every layer is an aligned self-attention prefill.
+    Returns (x, stats) with stats leaves stacked over layers.
+
+    The residual stream stays in the model's dtype: a kernel whose
+    attention output is fp32 (the block-sparse kernel) makes the layer's
+    sum fp32, which is rounded back once. (The reference's ``lax.scan``
+    over layers rejects that dtype change for a bf16 model, see
+    ROADMAP.md section 3.)"""
     stats = []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
@@ -72,32 +80,33 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
                               positions=positions, cache=lc,
                               collect_stats=collect_stats,
                               page_table=page_table,
-                              write_floor=write_floor)
-        x = x + a
+                              write_floor=write_floor, attn=attn)
+        x = (x + a).to(x.dtype)
         h = L.rms_norm(x, lp["ln2"]["w"])
         x = x + L.mlp_apply(cfg, lp["ffn"], h)
         stats.append(st)
-    if not collect_stats:
-        return x, None
-    return x, {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+    return x, (stack_stats(stats) if collect_stats else None)
 
 
-def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False):
-    """Run the prompt; fills the request ``cache`` in place (K/V snapped
-    to the int8 pool grid) and returns (last-position logits [B,1,V]
-    fp32, cache, stats)."""
+def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
+                  attn=None):
+    """Run the prompt and return (last-position logits [B,1,V] fp32,
+    cache, stats). With a request ``cache`` it is filled in place (K/V
+    snapped to the int8 pool grid); with ``cache=None`` the prompt is an
+    aligned self-attention prefill, which the full-sequence kernels
+    serve. ``attn`` selects the attention backend (an ``AttnSpec``)."""
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, stats = _stack(cfg, params, x, mode="prefill", positions=positions,
-                      cache=cache, collect_stats=collect_stats)
+                      cache=cache, collect_stats=collect_stats, attn=attn)
     x = L.rms_norm(x[:, -1:], params["final_norm"]["w"])
     return L.lm_logits(params["embed"], x), cache, stats
 
 
 def apply_decode(cfg, params, token, cache, pos, *,
                  collect_stats: bool = False, page_table=None,
-                 write_floor=None):
+                 write_floor=None, attn=None):
     """One decode step over the paged pool. token [B,1]; pos [B,1] int
     positions; ``cache`` the pool dict with [L,...] leaves (updated in
     place); page_table [B,nP] int32. Returns (logits [B,1,V] fp32,
@@ -105,7 +114,8 @@ def apply_decode(cfg, params, token, cache, pos, *,
     x = L.embed_tokens(params["embed"], token)
     x, stats = _stack(cfg, params, x, mode="decode", positions=pos,
                       cache=cache, collect_stats=collect_stats,
-                      page_table=page_table, write_floor=write_floor)
+                      page_table=page_table, write_floor=write_floor,
+                      attn=attn)
     x = L.rms_norm(x, params["final_norm"]["w"])
     return L.lm_logits(params["embed"], x), cache, stats
 

@@ -10,8 +10,10 @@ dense transformer families:
 * **per-token greedy decode** — every step runs one decode over all
   ``max_batch`` slots; inactive slots get a zeroed table row, token 0
   and position 0, so their writes land in the scratch page. Each layer's
-  attention goes through the gather-free FUM kernel on the card
-  (``kernels.hdp_paged_decode``);
+  attention goes through the backend the registry resolves for the
+  engine's ``attn`` spec: by default the gather-free FUM kernel
+  (``pallas_paged_decode``), or the block-sparse kernel on a densified
+  gather (``attn="pallas_hdp_block"``);
 * EOS and budget handling; a finished request frees its pages at once.
 
 Not ported yet (ROADMAP.md section 1): chunked prefill for prompts
@@ -23,16 +25,29 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.attention import (AttnSpec, default_spec,
+                                   known_backend_names, resolve_backend)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
 from repro_torch.models import registry
+from repro_torch.models.attention import build_attn_call
 from repro_torch.models.layers import resolve_device
 from repro_torch.serving.kv_cache import KV_DTYPE, PagedKVCache
+
+
+#: decode backend -> its stage-3 implementation (on the card, on the CPU)
+_STAGE3_IMPL = {
+    "pallas_paged_decode": ("cuda:hdp_paged_fum_decode",
+                            "plain:hdp_paged_fum_decode_ref"),
+    "pallas_hdp_block": ("cuda:hdp_block_sparse_attention",
+                         "plain:hdp_block_sparse_attention_plain"),
+}
 
 
 @dataclasses.dataclass
@@ -70,12 +85,26 @@ class Engine:
     max_len: longest prompt + generation a slot holds.
     prefill_buckets: pad-to lengths of the batched prefill.
     collect_stats: aggregate HDP block/head/page sparsity.
+    attn: AttnSpec, or a backend name or family tag, selecting the
+        attention backend per phase; None uses the default spec (which
+        honors REPRO_ATTN_BACKEND).
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
                  device="cuda", max_batch: int = 4, max_len: int = 128,
                  prefill_buckets: Sequence[int] = (32, 64, 128),
-                 collect_stats: bool = False):
+                 collect_stats: bool = False,
+                 attn: Union[AttnSpec, str, None] = None):
+        if isinstance(attn, str):
+            attn = AttnSpec(backend=attn)
+        spec = attn if attn is not None else default_spec()
+        for phase in ("prefill", "decode"):
+            req = spec.requested_for(phase)
+            if req != "auto" and req not in known_backend_names():
+                raise ValueError(
+                    f"unknown attention backend {req!r} ({phase}); "
+                    f"known: {known_backend_names()}")
+        self.attn_spec = spec
         self.device = resolve_device(device)
         hdp = cfg.hdp
         if hdp is None or not hdp.enabled:
@@ -189,7 +218,7 @@ class Engine:
             _, cache, stats = registry.apply_prefill(
                 self.cfg, self.params,
                 {"tokens": torch.from_numpy(toks).to(self.device)}, cache,
-                collect_stats=self.collect_stats)
+                collect_stats=self.collect_stats, attn=self.attn_spec)
             for r, slot in enumerate(slots):
                 self.pages.insert(cache, slot, row=r)
             if self.device.type == "cuda":
@@ -231,7 +260,8 @@ class Engine:
         t0 = time.perf_counter()
         logits, _, stats = registry.apply_decode(
             self.cfg, self.params, tok, self.pages.cache, pos,
-            collect_stats=self.collect_stats, page_table=table)
+            collect_stats=self.collect_stats, page_table=table,
+            attn=self.attn_spec)
         last = logits[:, -1]
         nxt = torch.argmax(last, dim=-1)
         # per-slot tripwire: a non-finite logit row means this request's
@@ -300,6 +330,19 @@ class Engine:
         m["page_samples"] += "page_sparsity" in stats
         m["stat_samples"] += 1
 
+    def resolved_backend(self, phase: str) -> str:
+        """Name of the backend the registry resolves for a serving phase
+        ("prefill" | "decode"), from the same call constructor as
+        ``attn_apply``, so the report cannot drift from the dispatch."""
+        if phase not in ("prefill", "decode"):
+            raise ValueError(f"phase must be prefill or decode, got "
+                             f"{phase!r}")
+        decode = phase == "decode"
+        call = build_attn_call(self.cfg, mode=phase, paged=decode,
+                               per_slot=decode,
+                               collect_stats=self.collect_stats)
+        return resolve_backend(call, self.attn_spec).name
+
     def summary(self) -> Dict[str, Any]:
         m = dict(self.metrics)
         if m["decode_s"] > 0:
@@ -311,12 +354,14 @@ class Engine:
             m["page_sparsity"] /= m["page_samples"]
         m["completed"] = sum(r.complete for r in self._results.values())
         m["device"] = str(self.device)
-        # the decode stage-3 implementation the kernel wrapper resolves
-        # to for this engine's tensors
-        m["attn_decode_stage3"] = ("cuda:hdp_paged_fum_decode"
-                                   if self.device.type == "cuda"
-                                   else "plain:hdp_paged_fum_decode_ref")
+        m["attn_backend_prefill"] = self.resolved_backend("prefill")
+        m["attn_backend_decode"] = decode = self.resolved_backend("decode")
+        # the decode stage-3 implementation: the resolved backend's kernel
+        # on the card, its plain version for CPU tensors
+        m["attn_decode_stage3"] = _STAGE3_IMPL.get(decode, (decode,) * 2)[
+            self.device.type != "cuda"]
         m["fum_kernel_launches"] = hdp_paged_fum_decode.launches
+        m["block_kernel_launches"] = hdp_block_sparse_attention.launches
         m["kv_dtype"] = KV_DTYPE
         m["cache_bytes"] = self.pages.active_bytes(self.pages.peak_pages)
         m["cache_bytes_pool"] = self.pages.pool_bytes()

@@ -40,7 +40,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.convert, repro_torch.launch.serve, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.kernels.ops, "
+            "repro_torch.attention.backends, "
+            "repro_torch.attention.reference; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

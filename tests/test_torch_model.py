@@ -2,7 +2,9 @@
 weights (moved with ``params_from_jax``) and token ids give the same
 prefill logits, the same int8 pool codes and the same paged-decode
 logits as the JAX package, at fp32 within atol 1e-4 (matrix products
-sum in another order in the two frameworks)."""
+sum in another order in the two frameworks), and the aligned
+self-attention prefill gives the JAX package's logits and HDP stats on
+every backend that serves it."""
 from __future__ import annotations
 
 import jax
@@ -16,6 +18,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
 from repro.models import registry as jregistry
 from repro.serving.kv_cache import PagedKVCache as JPagedKVCache
+from repro_torch.attention import AttnSpec as TAttnSpec
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import registry
@@ -168,3 +171,91 @@ def test_paged_decode_logits_and_pool_match(weights):
                                           err_msg=f"{name} step {step}")
         tok = np.array(jl[:, -1].argmax(-1), np.int32)[:, None]
         pos = pos + 1
+
+
+# ------------------------------------------------ aligned self-attention
+ALIGNED = [("pallas_hdp_block", True), ("xla_hdp", True),
+           ("reference", True), ("pallas_flash", False),
+           ("xla_dense", False), ("reference", False)]
+
+
+@pytest.mark.parametrize("backend,hdp_on", ALIGNED,
+                         ids=[f"{b}-{'hdp' if h else 'dense'}"
+                              for b, h in ALIGNED])
+def test_aligned_prefill_matches_jax(weights, backend, hdp_on):
+    """``apply_prefill(..., cache=None)`` — the full-sequence call — on
+    each backend that serves it, pinned without fallback, under qwen2's
+    default "max" calibration: logits within atol 1e-4, sparsity stats
+    equal, theta_head within rtol 1e-5. The HDP-off cells convert the
+    weights with an HDP-off config."""
+    _, tree = weights
+    cfg, jcfg = _cfgs("max")
+    if not hdp_on:
+        cfg = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
+        jcfg = jcfg.replace(hdp=jcfg.hdp.replace(enabled=False))
+    toks = _tokens(4)
+    jl, _, jst = jregistry.apply_prefill(
+        jcfg, jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(toks)},
+        None, attn=AttnSpec(backend=backend, allow_fallback=False),
+        collect_stats=True)
+    params = params_from_jax(cfg, tree, "cpu")
+    with torch.no_grad():
+        tl, tc, tst = registry.apply_prefill(
+            cfg, params, {"tokens": torch.from_numpy(toks).long()}, None,
+            attn=TAttnSpec(backend=backend, allow_fallback=False),
+            collect_stats=True)
+    assert tc is None
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    if not hdp_on:
+        assert tst is None and jst is None
+        return
+    for name in ("block_sparsity", "head_sparsity"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    np.testing.assert_allclose(tst["theta_head"].numpy(),
+                               np.asarray(jst["theta_head"]), rtol=1e-5)
+
+
+def test_aligned_prefill_resolves_like_jax_on_tpu(monkeypatch):
+    """The default spec picks the full-sequence kernels for the aligned
+    call (the reference's TPU order) and xla_hdp for the request-cache
+    prefill."""
+    import repro.attention.registry as jreg_mod
+    from repro.models.attention import build_attn_call as jbuild
+    from repro_torch.attention import resolve_backend
+    from repro_torch.models.attention import build_attn_call
+    monkeypatch.setattr(jreg_mod, "_on_tpu", lambda: True)
+    monkeypatch.delenv("REPRO_ATTN_BACKEND", raising=False)
+    cfg, jcfg = _cfgs("max")
+    for on in (True, False):
+        c = cfg.replace(hdp=cfg.hdp.replace(enabled=on))
+        jc = jcfg.replace(hdp=jcfg.hdp.replace(enabled=on))
+        for aligned in (True, False):
+            got = resolve_backend(build_attn_call(
+                c, mode="prefill", self_aligned=aligned)).name
+            want = jreg_mod.resolve_backend(jbuild(
+                jc, mode="prefill", self_aligned=aligned)).name
+            assert got == want, (on, aligned)
+    assert resolve_backend(build_attn_call(
+        cfg, mode="prefill", self_aligned=True)).name == "pallas_hdp_block"
+
+
+def test_bf16_block_kernel_prefill_keeps_model_dtype(weights):
+    """The block kernel returns fp32 (qq's dtype), so a bf16 model's
+    attention output meets bf16 ``wo`` in fp32, as the reference
+    promotes it. The reference's ``lax.scan`` over layers then rejects
+    the fp32 carry (a fault of the reference, ROADMAP.md section 3); the
+    port rounds the residual sum back to bf16 and serves."""
+    jcfg = jax_reduced(jax_get_config("qwen2-1.5b")).replace(dtype="bfloat16")
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="bfloat16")
+    jparams, _ = jregistry.init_params(jcfg, jax.random.PRNGKey(1))
+    toks = _tokens(5)
+    with pytest.raises(TypeError, match="carry"):
+        jregistry.apply_prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                                None, attn=AttnSpec(backend="pallas_hdp_block"))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    with torch.no_grad():
+        tl, _, _ = registry.apply_prefill(
+            cfg, params, {"tokens": torch.from_numpy(toks).long()}, None,
+            attn=TAttnSpec(backend="pallas_hdp_block"))
+    assert tl.dtype == torch.float32 and bool(torch.isfinite(tl).all())

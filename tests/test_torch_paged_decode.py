@@ -181,7 +181,7 @@ def _pipeline_inputs(seed, head_pruning):
 def test_scout_and_fetch_list_exact(monkeypatch, head_pruning):
     q, kc, vc, scl, table, q_pos, k_pos, hdp, jhdp = _pipeline_inputs(
         11, head_pruning)
-    _, _, keep, bvalid, theta_head, head_kept, fetched = _paged_scout(
+    _, _, keep, bvalid, _, theta_head, head_kept, fetched = _paged_scout(
         _t(q), _t(kc), _t(table), q_pos=_t(q_pos), k_pos=_t(k_pos), hdp=hdp)
 
     # the reference's stage 1 + 2, as test_kv_quant reconstructs it
@@ -277,3 +277,43 @@ def test_fum_poison_contract():
         v_scale=_t(scl), **kw)
     assert torch.isnan(out_nan[0]).any(), \
         "NaN-scale poison on a fetched page did not surface"
+
+
+@pytest.mark.parametrize("head_pruning", [False, True])
+def test_block_stage3_matches_reference(head_pruning):
+    """``stage3="pallas_block"``: the block-sparse kernel's plain version
+    on a densified gather of the surviving pages equals the reference's
+    block-kernel stage (interpret mode) and its XLA stage; pruned pages
+    poisoned through V codes and both scales leave it bit-identical."""
+    q, kc, vc, scl, table, q_pos, k_pos, hdp, jhdp = _pipeline_inputs(
+        11, head_pruning)
+    kw = dict(q_pos=_t(q_pos), k_pos=_t(k_pos), hdp=hdp,
+              stage3="pallas_block", return_stats=True)
+    out, st = hdp_paged_decode_attention(
+        _t(q), _t(kc), _t(vc), _t(table), k_scale=_t(scl), v_scale=_t(scl),
+        **kw)
+    for jstage in ("pallas_block", "xla"):
+        jout, jst = j_paged_attention(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), None,
+            jnp.asarray(table), q_pos=jnp.asarray(q_pos),
+            k_pos=jnp.asarray(k_pos), hdp=jhdp, stage3=jstage,
+            k_scale=jnp.asarray(scl), v_scale=jnp.asarray(scl),
+            return_stats=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5,
+                                   rtol=0, err_msg=jstage)
+        for name in st:
+            np.testing.assert_array_equal(st[name].numpy(),
+                                          np.asarray(jst[name]),
+                                          err_msg=name)
+    *_, fetched = _paged_scout(_t(q), _t(kc), _t(table), q_pos=_t(q_pos),
+                               k_pos=_t(k_pos), hdp=hdp)
+    pruned = table[~fetched.numpy()]
+    assert pruned.size > 0, "test needs pruned pages"
+    vc_bad, ks_bad, vs_bad = vc.copy(), scl.copy(), scl.copy()
+    vc_bad[pruned] = POISON_CODE
+    ks_bad[pruned] = np.nan
+    vs_bad[pruned] = np.nan
+    out_bad, _ = hdp_paged_decode_attention(
+        _t(q), _t(kc), _t(vc_bad), _t(table), k_scale=_t(ks_bad),
+        v_scale=_t(vs_bad), **kw)
+    assert torch.equal(out, out_bad), "poison leaked: a pruned page was read"

@@ -16,6 +16,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
 from repro.serving import Engine as JEngine
 from repro.serving import Request as JRequest
+from repro_torch.attention import AttnSpec as TAttnSpec
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
@@ -130,3 +131,50 @@ def test_serve_cli_on_cpu(capsys):
     assert rc == 0
     out = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"completed": 3' in out and '"kv_dtype": "int8"' in out
+
+
+def test_block_kernel_engine_equals_jax_engine(served):
+    """``attn="pallas_hdp_block"`` routes the paged decode through the
+    block-sparse kernel on a densified gather (its plain version here,
+    the JAX kernel in interpret mode there): greedy tokens and sparsity
+    equal the JAX engine's under the same spec, and the resolved
+    backends agree (prefill into a request cache falls back to
+    xla_hdp in both)."""
+    spec = AttnSpec(backend="pallas_hdp_block", kv_dtype="int8")
+    jeng = JEngine(jax_reduced(jax_get_config("qwen2-1.5b")),
+                   params=served["jparams"], attn=spec, decode_horizon=1,
+                   prefix_cache=False, spec_decode=False, stream_sched=False,
+                   collect_stats=True, **KW)
+    eng = Engine(reduced(get_config("qwen2-1.5b")), served["params"],
+                 device="cpu", collect_stats=True, attn="pallas_hdp_block",
+                 **KW)
+    for e, R in ((jeng, JRequest), (eng, Request)):
+        for uid, p in enumerate(served["prompts"]):
+            e.submit(R(uid, p, max_new_tokens=5))
+    jtok = {u: r.tokens for u, r in jeng.run().items()}
+    tok = {u: r.tokens for u, r in eng.run().items()}
+    assert tok == jtok == served["jtok"]
+    js, ts = jeng.summary(), eng.summary()
+    for key in ("block_sparsity", "head_sparsity", "page_sparsity",
+                "attn_backend_prefill", "attn_backend_decode"):
+        assert ts[key] == js[key], key
+    assert ts["attn_backend_decode"] == "pallas_hdp_block"
+    assert ts["attn_decode_stage3"] == "plain:hdp_block_sparse_attention_plain"
+
+
+def test_default_engine_reports_resolved_backends(served):
+    s = served["eng"].summary()
+    assert s["attn_backend_prefill"] == "xla_hdp"
+    assert s["attn_backend_decode"] == "pallas_paged_decode"
+    with pytest.raises(ValueError, match="decode"):
+        Engine(reduced(get_config("qwen2-1.5b")), served["params"],
+               device="cpu", attn=TAttnSpec(decode="palas"), **KW)
+
+
+def test_serve_cli_backend_flag(capsys):
+    rc = serve.main(["--device", "cpu", "--reduced", "--requests", "2",
+                     "--max-new", "2", "--max-batch", "2", "--backend",
+                     "pallas_hdp_block"])
+    assert rc == 0
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"attn_backend_decode": "pallas_hdp_block"' in out

@@ -20,7 +20,8 @@ never JAX nor the JAX package. Phases:
    resolves to ``pallas_hdp_block`` and launches the scout and block
    kernels once per layer, HDP off resolves to ``pallas_flash`` and
    launches flash once per layer; kernel vs plain at the path's own
-   inputs; the reduced config's logits on the card equal the CPU's;
+   inputs; the reduced config's logits on the card equal the CPU's, in
+   fp32 and in bf16;
 5. serving — the same weights serve 8 requests through
    ``Engine.submit``/``run``: the default engine launches the FUM kernel
    once per layer per decode step, ``Engine(attn="pallas_hdp_block")``
@@ -545,24 +546,37 @@ def phase_aligned_prefill(torch, cfg, params):
         torch, "flash_attention at the path's last call", q, k, v,
         kw["causal"], kw["block_q"], kw["block_k"])
 
-    # the reduced config's aligned prefill: card (kernels) vs CPU (plain)
-    small = reduced(cfg)
-    sp = registry.init_params(small, 1, "cuda")
-    sp_cpu = _tree_to(sp, "cpu")
+    # the reduced config's aligned prefill: card (kernels) vs CPU (plain),
+    # in fp32 (atol 1e-4) and in bf16, where the block kernel's fp32
+    # output meets bf16 wo in fp32 and is rounded to bf16 (2e-2)
     stoks = torch.from_numpy(np.random.default_rng(6).integers(
-        1, small.vocab_size, (2, 18)))
-    for hdp_on in (True, False):
-        c = small.replace(hdp=small.hdp.replace(enabled=hdp_on))
-        lg, _, _ = registry.apply_prefill(c, sp, {"tokens": stoks.cuda()},
-                                          None)
-        lc, _, _ = registry.apply_prefill(c, sp_cpu, {"tokens": stoks}, None)
-        err = (lg.cpu() - lc).abs().max().item()
-        check(torch.allclose(lg.cpu(), lc, atol=ATOL, rtol=0),
-              f"reduced aligned prefill (HDP {hdp_on}): card vs CPU logits "
-              f"max |err| {err:.3e}")
-        log(f"[prefill] reduced qwen2-1.5b aligned prefill HDP "
-            f"{'on' if hdp_on else 'off'}: card vs CPU logits max |err| "
-            f"{err:.3e}")
+        1, reduced(cfg).vocab_size, (2, 18)))
+    for dtype, tol in (("float32", (ATOL, 0.0)),
+                       ("bfloat16", (TOL_BF16, TOL_BF16))):
+        small = reduced(cfg).replace(dtype=dtype)
+        sp = registry.init_params(small, 1, "cuda")
+        sp_cpu = _tree_to(sp, "cpu")
+        for hdp_on in (True, False):
+            c = small.replace(hdp=small.hdp.replace(enabled=hdp_on))
+            lg, _, sg = registry.apply_prefill(
+                c, sp, {"tokens": stoks.cuda()}, None, collect_stats=hdp_on)
+            lc, _, sc = registry.apply_prefill(
+                c, sp_cpu, {"tokens": stoks}, None, collect_stats=hdp_on)
+            err = (lg.cpu() - lc).abs().max().item()
+            backend = _resolved(c, mode="prefill", self_aligned=True)
+            msg = ""
+            if hdp_on:
+                msg = (", block sparsity card/CPU "
+                       f"{sg['block_sparsity'].mean().item():.4f}/"
+                       f"{sc['block_sparsity'].mean().item():.4f}")
+            check(lg.dtype == torch.float32 and torch.allclose(
+                lg.cpu(), lc, atol=tol[0], rtol=tol[1]),
+                f"reduced {dtype} aligned prefill (HDP {hdp_on}): card vs "
+                f"CPU logits max |err| {err:.3e}{msg}")
+            log(f"[prefill] reduced qwen2-1.5b {dtype} aligned prefill HDP "
+                f"{'on' if hdp_on else 'off'} ({backend}): card vs CPU "
+                f"logits max |err| {err:.3e} (max |logit| "
+                f"{lc.abs().max().item():.3e}){msg}")
     return out, path_err, calls
 
 
@@ -799,9 +813,11 @@ def scout_bound(torch, iq, ik, kw):
 
 def block_bound(torch, args, kw):
     """Least time for the block kernel's work on these inputs: the valid
-    (row, col) pairs of every listed block of a kept head, 6 fp32 flops
-    per pair and d (q.k, fq.fk, p.v) at the fp32 rate, against Q read
-    once, every listed K/V block read once and the output written."""
+    (row, col) pairs of every listed block of a kept head, 2 flops per
+    pair and d for each product, against Q read once, every listed K/V
+    block read once and the output written. q.k and fq.fk have fp32
+    operands (the fp32 rate); p.v has V's type, since p is rounded to it
+    (bf16 V: the bf16 tensor rate with fp32 accumulation)."""
     q, k, v, idx, cnt, hk = args
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
@@ -821,14 +837,18 @@ def block_bound(torch, args, kw):
         c_hi.expand_as(row)
     pairs = float(torch.where(row < Sq, torch.clamp(hi - c_lo, min=0),
                               0).sum())
-    flops = pairs * hd * (6 if kw.get("approx", True) else 4)
+    score_flops = pairs * hd * (4 if kw.get("approx", True) else 2)
+    pv_flops = pairs * hd * 2
+    pv_peak = BF16_FLOP_S if v.dtype == torch.bfloat16 else FP32_FLOP_S
+    flops = score_flops + pv_flops
     listed = torch.zeros(B, H, -(-Sk // bk), dtype=torch.bool,
                          device=idx.device)
     listed[ent[:, 0], ent[:, 1], blk] = True
     nbytes = q.numel() * 4 * 2 + int(listed.sum()) * bk * hd * (
         k.element_size() + v.element_size()) \
         + (idx.numel() + cnt.numel() + hk.numel()) * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = score_flops / FP32_FLOP_S + pv_flops / pv_peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 

@@ -14,10 +14,10 @@ reference's names), ``pallas_flash``, ``pallas_hdp_block`` and
 ``pallas_paged_decode`` (the hand-written CUDA kernels, under the names
 of the TPU kernels they replace).
 """
-from repro_torch.attention.registry import (BACKEND_ENV, POLICY_ENV, Backend,
+from repro_torch.attention.registry import (BACKEND_ENV, Backend,
                                             BackendUnsupported, attention,
-                                            default_spec, effective_policy,
-                                            get_backend, known_backend_names,
+                                            default_spec, get_backend,
+                                            known_backend_names,
                                             list_backends, register_backend,
                                             resolve_backend)
 from repro_torch.attention.spec import (AttnCall, AttnSpec, DraftProfile,
@@ -26,8 +26,8 @@ from repro_torch.attention.stats import AttnStats, normalize_stats
 
 __all__ = [
     "AttnCall", "AttnSpec", "AttnStats", "Backend", "BackendUnsupported",
-    "BACKEND_ENV", "POLICY_ENV", "DraftProfile", "attention", "default_spec",
-    "effective_policy", "get_backend", "known_backend_names", "list_backends",
+    "BACKEND_ENV", "DraftProfile", "attention", "default_spec",
+    "get_backend", "known_backend_names", "list_backends",
     "normalize_stats", "register_backend", "resolve_backend",
     "spec_from_legacy",
 ]

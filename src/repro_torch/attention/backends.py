@@ -1,9 +1,9 @@
 """The production backends, under the reference's names.
 
 PyTorch counterpart of ``repro.attention.backends``, with the same names,
-``supports`` predicates and priorities, so a call resolves to the backend
-of the same name in both packages (the port ranks by the reference's TPU
-order on every device, see ``registry``):
+``supports`` predicates and the reference's TPU priorities, so a call
+resolves to the backend of the same name in both packages (the port
+ranks by that order on every device, see ``registry``):
 
 | backend             | runs                                           | calls it supports                    |
 |---------------------|------------------------------------------------|--------------------------------------|
@@ -118,7 +118,7 @@ def _supports_pallas_flash(call: AttnCall) -> bool:
 
 
 @register_backend("pallas_flash", supports=_supports_pallas_flash,
-                  priority=5, tpu_priority=20, tags=("pallas",))
+                  priority=20, tags=("pallas",))
 def run_pallas_flash(q, k, v, call, *, q_pos, k_pos, cache=None,
                      page_table=None):
     from repro_torch.kernels.ops import flash
@@ -142,7 +142,7 @@ def _supports_pallas_hdp(call: AttnCall) -> bool:
 
 
 @register_backend("pallas_hdp_block", supports=_supports_pallas_hdp,
-                  priority=5, tpu_priority=20, tags=("pallas",))
+                  priority=20, tags=("pallas",))
 def run_pallas_hdp_block(q, k, v, call, *, q_pos, k_pos, cache=None,
                          page_table=None):
     if call.layout == "paged":
@@ -169,7 +169,7 @@ def _supports_pallas_paged(call: AttnCall) -> bool:
 
 
 @register_backend("pallas_paged_decode", supports=_supports_pallas_paged,
-                  priority=6, tpu_priority=25, tags=("pallas",))
+                  priority=25, tags=("pallas",))
 def run_pallas_paged_decode(q, k, v, call, *, q_pos, k_pos, cache=None,
                             page_table=None):
     return _run_paged(q, call, q_pos=q_pos, k_pos=k_pos, cache=cache,

@@ -5,19 +5,19 @@ registers a ``run`` callable, a ``supports(call)`` predicate and a
 priority; :func:`attention` is the single dispatch entry the model layer
 calls.
 
-* ``AttnSpec(backend="auto")`` picks the highest-ranked backend whose
-  ``supports(call)`` is True. The port ranks by the reference's *TPU*
-  order (``tpu_priority``) on every device: each hand-kernel backend has
-  its plain PyTorch version for CPU tensors, so the CPU runs the same
-  dispatch as the card, and the kernels rank above the plain PyTorch
-  paths; ``reference`` ranks last.
+* ``AttnSpec(backend="auto")`` picks the highest-priority backend whose
+  ``supports(call)`` is True. Each backend's priority is the reference's
+  *TPU* rank (its ``tpu_priority``), on every device: each hand-kernel
+  backend has its plain PyTorch version for CPU tensors, so the CPU runs
+  the same dispatch as the card, and the kernels rank above the plain
+  PyTorch paths; ``reference`` ranks last.
 * An exact name or a family tag requests that implementation; if it
   cannot serve the call the spec falls down the auto chain
   (``allow_fallback=True``) or raises ``BackendUnsupported``.
 * ``REPRO_ATTN_BACKEND`` overrides every "auto" request; explicit
   non-auto requests win over it.
-* The cost policy (``policy="cost"`` or ``REPRO_ATTN_POLICY=cost``) is
-  not ported yet and raises ``NotImplementedError``.
+* The cost policy is not ported yet: ``AttnSpec(policy="cost")`` raises
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,13 +28,10 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.attention.spec import COST_UNPORTED, AttnCall, AttnSpec
+from repro_torch.attention.spec import AttnCall, AttnSpec
 
 #: env var forcing every "auto" backend request (explicit requests win).
 BACKEND_ENV = "REPRO_ATTN_BACKEND"
-
-#: env var deciding how policy="auto" specs rank auto-selected backends.
-POLICY_ENV = "REPRO_ATTN_POLICY"
 
 _BACKEND_MODULES = ("repro_torch.attention.reference",
                     "repro_torch.attention.backends")
@@ -49,20 +46,14 @@ class Backend:
     """A registered attention implementation.
 
     ``run(q, k, v, call, *, q_pos, k_pos, cache, page_table)`` returns
-    ``(out, AttnStats | None)``. ``priority`` is the reference's off-TPU
-    rank, kept for comparison; ``tpu_priority`` is the rank the port
-    resolves by."""
+    ``(out, AttnStats | None)``; the highest ``priority`` wins among
+    the backends that support a call."""
 
     name: str
     run: Callable
     supports: Callable[[AttnCall], bool]
     priority: int
-    tpu_priority: int
     tags: frozenset
-
-    def rank(self, call: AttnCall) -> int:
-        del call  # ranking is not call-dependent
-        return self.tpu_priority
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -70,8 +61,7 @@ _LOADED = False
 
 
 def register_backend(name: str, *, supports: Callable[[AttnCall], bool],
-                     priority: int, tpu_priority: Optional[int] = None,
-                     tags=()):
+                     priority: int, tags=()):
     """Decorator registering ``fn`` as backend ``name``."""
 
     def deco(fn: Callable) -> Callable:
@@ -79,7 +69,6 @@ def register_backend(name: str, *, supports: Callable[[AttnCall], bool],
             raise ValueError(f"backend {name!r} already registered")
         _REGISTRY[name] = Backend(
             name=name, run=fn, supports=supports, priority=priority,
-            tpu_priority=priority if tpu_priority is None else tpu_priority,
             tags=frozenset(tags))
         return fn
 
@@ -98,7 +87,7 @@ def _ensure_backends() -> None:
 
 def list_backends() -> List[Backend]:
     _ensure_backends()
-    return sorted(_REGISTRY.values(), key=lambda b: (-b.tpu_priority, b.name))
+    return sorted(_REGISTRY.values(), key=lambda b: (-b.priority, b.name))
 
 
 def get_backend(name: str) -> Backend:
@@ -123,15 +112,6 @@ def default_spec() -> AttnSpec:
     return AttnSpec(backend=os.environ.get(BACKEND_ENV, "auto"))
 
 
-def effective_policy(spec: AttnSpec) -> str:
-    """The selection policy ``spec`` runs under: its own unless "auto",
-    in which case REPRO_ATTN_POLICY=cost opts the process in."""
-    if spec.policy != "auto":
-        return spec.policy
-    return ("cost" if os.environ.get(POLICY_ENV, "").strip() == "cost"
-            else "static")
-
-
 def resolve_backend(call: AttnCall,
                     spec: Optional[AttnSpec] = None) -> Backend:
     """Pick the backend serving ``call`` under ``spec``."""
@@ -142,15 +122,13 @@ def resolve_backend(call: AttnCall,
         raise BackendUnsupported(f"no registered backend supports {call}")
 
     def best(pool):
-        return max(pool, key=lambda b: (b.rank(call), b.name))
+        return max(pool, key=lambda b: (b.priority, b.name))
 
     req = spec.requested_for(call.mode)
     if req == "auto":
         # "auto" always consults the env override; explicit non-auto
         # requests still win
         req = os.environ.get(BACKEND_ENV, "auto")
-    if req == "auto" and effective_policy(spec) == "cost":
-        raise NotImplementedError(COST_UNPORTED)
     if req != "auto":
         known = {n for b in _REGISTRY.values() for n in (b.name, *b.tags)}
         if req not in known:

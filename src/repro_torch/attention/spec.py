@@ -197,8 +197,8 @@ class AttnSpec:
         * ``"static"``: registry priority order (the historical rule).
         * ``"cost"``: the cost model's ranking; not ported yet, so it
           raises ``NotImplementedError`` (ROADMAP.md section 1, item 7).
-        * ``"auto"`` (default): ``REPRO_ATTN_POLICY`` decides (``cost``
-          raises as above, anything else means static).
+        * ``"auto"`` (default): the static order, as long as the cost
+          policy is not ported.
     """
 
     backend: str = "auto"

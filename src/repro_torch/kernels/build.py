@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so nvcc compiles it in seconds into ``build/repro_torch/lib<name>-<hash>.so``
-at the repository root (the hash covers the source, the shared headers
-``csrc/*.cuh`` and the flags, so an edited source never loads a stale
-library). The build happens at first
+at the repository root (the hash covers the source, the ``csrc/``
+headers it includes and the flags, so an edited source never loads a
+stale library). The build happens at first
 use, never at import; ``build_all`` starts one nvcc per source at once.
 A failed build raises with nvcc's output.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +43,24 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels cannot be built here")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_includes(path: Path, seen: set) -> None:
+    """Add every ``csrc/`` header that ``path`` includes, transitively."""
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = CSRC / inc.decode()
+        if header.is_file() and header not in seen:
+            seen.add(header)
+            _local_includes(header, seen)
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha1(source.read_bytes())
+    headers = set()
+    _local_includes(source, headers)
+    for header in sorted(headers):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -460,8 +460,11 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     place (the K/V scatter) before attention reads it; ``write_floor``
     [B] fences shared prefix pages. ``attn`` selects the backend (None:
     the default spec, which honors REPRO_ATTN_BACKEND).
-    Returns (y, cache, stats|None); y is in the promoted type of the
-    attention output and ``wo`` (fp32 when a kernel returns fp32)."""
+    Returns (y, cache, stats|None); y is in x's dtype. An fp32
+    attention output (the block-sparse kernel's) meets a bf16 ``wo`` in
+    fp32, as the reference promotes it, and the product is rounded once
+    to x's dtype: the reference's layer scan rejects the fp32 residual
+    it would make (ROADMAP.md section 3)."""
     B, S, _ = x.shape
     H, N, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // N
@@ -520,8 +523,6 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
                          k_pos=k_pos, cache=cache if paged else None,
                          page_table=page_table)
     o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
-    # the reference's promotion: an fp32 attention output meets bf16 wo
-    # in fp32
     dt = torch.promote_types(o.dtype, p["wo"].dtype)
     y = torch.einsum("bshk,hkd->bsd", o.to(dt), p["wo"].to(dt))
-    return y, cache, stats
+    return y.to(x.dtype), cache, stats

@@ -64,13 +64,7 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
            page_table=None, write_floor=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
     Without a cache every layer is an aligned self-attention prefill.
-    Returns (x, stats) with stats leaves stacked over layers.
-
-    The residual stream stays in the model's dtype: a kernel whose
-    attention output is fp32 (the block-sparse kernel) makes the layer's
-    sum fp32, which is rounded back once. (The reference's ``lax.scan``
-    over layers rejects that dtype change for a bf16 model, see
-    ROADMAP.md section 3.)"""
+    Returns (x, stats) with stats leaves stacked over layers."""
     stats = []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
@@ -81,7 +75,7 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
                               collect_stats=collect_stats,
                               page_table=page_table,
                               write_floor=write_floor, attn=attn)
-        x = (x + a).to(x.dtype)
+        x = x + a
         h = L.rms_norm(x, lp["ln2"]["w"])
         x = x + L.mlp_apply(cfg, lp["ffn"], h)
         stats.append(st)

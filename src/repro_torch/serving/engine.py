@@ -30,8 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.attention import (AttnSpec, default_spec,
-                                   known_backend_names, resolve_backend)
+from repro_torch.attention import AttnSpec, default_spec, resolve_backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
@@ -97,14 +96,7 @@ class Engine:
                  attn: Union[AttnSpec, str, None] = None):
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
-        spec = attn if attn is not None else default_spec()
-        for phase in ("prefill", "decode"):
-            req = spec.requested_for(phase)
-            if req != "auto" and req not in known_backend_names():
-                raise ValueError(
-                    f"unknown attention backend {req!r} ({phase}); "
-                    f"known: {known_backend_names()}")
-        self.attn_spec = spec
+        self.attn_spec = attn if attn is not None else default_spec()
         self.device = resolve_device(device)
         hdp = cfg.hdp
         if hdp is None or not hdp.enabled:
@@ -121,6 +113,11 @@ class Engine:
         self.buckets = sorted(b for b in prefill_buckets if b <= max_len) \
             or [max_len]
         self.collect_stats = collect_stats
+        for phase in ("prefill", "decode"):
+            try:
+                self.resolved_backend(phase)
+            except KeyError as e:
+                raise ValueError(f"{phase}: {e.args[0]}") from None
         if params is None:
             params = registry.init_params(cfg, seed, self.device)
         self.params = params

@@ -240,22 +240,65 @@ def test_aligned_prefill_resolves_like_jax_on_tpu(monkeypatch):
         cfg, mode="prefill", self_aligned=True)).name == "pallas_hdp_block"
 
 
+def _jax_bf16_prefill_rounding_wo(jcfg, jparams, toks, spec):
+    """The reference's own layers, composed by hand with the port's rule
+    for a bf16 model: each layer's attention output (fp32 under the
+    block kernel) is rounded to bf16 before the residual sum."""
+    from repro.models import layers as JL
+    from repro.models.attention import attn_apply as jattn_apply
+    from repro.models.transformer import _embed_in
+    x = _embed_in(jcfg, jparams, jnp.asarray(toks))
+    positions = jnp.arange(toks.shape[1])
+    ys = []
+    for li in range(jcfg.n_layers):
+        lp = jax.tree.map(lambda a: a[li], jparams["layers"])
+        h = JL.apply_norm(jcfg, lp["ln1"], x)
+        y, _, _ = jattn_apply(jcfg, lp["attn"], h, mode="prefill",
+                              positions=positions, cache=None, attn=spec)
+        ys.append(y)
+        x = x + y.astype(x.dtype)
+        h = JL.apply_norm(jcfg, lp["ln2"], x)
+        x = x + JL.mlp_apply(jcfg, lp["ffn"], h)
+    x = JL.apply_norm(jcfg, jparams["final_norm"], x[:, -1:])
+    return JL.lm_logits_sharded(jparams["embed"], x), ys
+
+
 def test_bf16_block_kernel_prefill_keeps_model_dtype(weights):
     """The block kernel returns fp32 (qq's dtype), so a bf16 model's
     attention output meets bf16 ``wo`` in fp32, as the reference
     promotes it. The reference's ``lax.scan`` over layers then rejects
     the fp32 carry (a fault of the reference, ROADMAP.md section 3); the
-    port rounds the residual sum back to bf16 and serves."""
+    port rounds the projection to bf16 and serves. Pinned against the
+    reference's own layers composed with that rounding: the first
+    layer's projection within one bf16 step, the logits within the bf16
+    tolerance 2e-2."""
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models.layers import embed_tokens, rms_norm
     jcfg = jax_reduced(jax_get_config("qwen2-1.5b")).replace(dtype="bfloat16")
     cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="bfloat16")
     jparams, _ = jregistry.init_params(jcfg, jax.random.PRNGKey(1))
     toks = _tokens(5)
+    spec = AttnSpec(backend="pallas_hdp_block")
     with pytest.raises(TypeError, match="carry"):
         jregistry.apply_prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)},
-                                None, attn=AttnSpec(backend="pallas_hdp_block"))
+                                None, attn=spec)
+    want, jys = _jax_bf16_prefill_rounding_wo(jcfg, jparams, toks, spec)
+    assert jys[0].dtype == jnp.float32
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    t = torch.from_numpy(toks).long()
+    tspec = TAttnSpec(backend="pallas_hdp_block")
     with torch.no_grad():
-        tl, _, _ = registry.apply_prefill(
-            cfg, params, {"tokens": torch.from_numpy(toks).long()}, None,
-            attn=TAttnSpec(backend="pallas_hdp_block"))
+        lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+        h = rms_norm(embed_tokens(params["embed"], t),
+                     params["layers"]["ln1"]["w"][0])
+        y, _, _ = attn_apply(cfg, lp, h, mode="prefill",
+                             positions=torch.arange(t.shape[1]), attn=tspec)
+        tl, _, _ = registry.apply_prefill(cfg, params, {"tokens": t}, None,
+                                          attn=tspec)
+    assert y.dtype == torch.bfloat16
+    jy = jys[0].astype(jnp.bfloat16).astype(jnp.float32)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy),
+                               atol=2 ** -8, rtol=2 ** -7)
     assert tl.dtype == torch.float32 and bool(torch.isfinite(tl).all())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(want), atol=2e-2,
+                               rtol=2e-2)

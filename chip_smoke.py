@@ -6,7 +6,9 @@ CUDA device and nvcc, and imports only the port (``src/repro_torch``),
 never JAX nor the JAX package. Phases:
 
 1. environment — card name and power limit (nvidia-smi);
-2. build — every CUDA source (four kernels), one nvcc each, in parallel;
+2. build — every CUDA source (six: the FUM decode, the scout, and the
+   tensor-core and tile kernels of block-sparse and flash attention),
+   one nvcc each, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the reference tests' small shapes (2x2 blocks and ragged S
    included) and at qwen2-1.5b's full-width shapes: the paged FUM
@@ -14,22 +16,28 @@ never JAX nor the JAX package. Phases:
    theta_head to rtol 1e-5, keep equal but for theta within that
    rounding of the threshold); the block-sparse FUM attention on the
    prefill and the paged-decode routes and flash attention (atol = rtol
-   = 1e-4 with fp32 V, 2e-2 with bf16 V); the no-read poison checks;
+   = 1e-4 with fp32 V, 2e-2 with bf16 V) on both of their paths, the
+   tensor-core path also at S 4000, hd 64, non-causal, with a gated head
+   and with a q tile that lists no block (each call's path asserted);
+   the no-read poison checks;
 4. aligned prefill — qwen2-1.5b at full width (bf16, seeded weights),
    B 2, S 4096, through ``registry.apply_prefill(..., None)``: HDP on
    resolves to ``pallas_hdp_block`` and launches the scout and block
    kernels once per layer, HDP off resolves to ``pallas_flash`` and
-   launches flash once per layer; kernel vs plain at the path's own
+   launches flash once per layer, block and flash on the tensor-core
+   path; kernel vs plain at the path's own
    inputs; the reduced config's logits on the card equal the CPU's, in
    fp32 and in bf16;
 5. serving — the same weights serve 8 requests through
    ``Engine.submit``/``run``: the default engine launches the FUM kernel
    once per layer per decode step, ``Engine(attn="pallas_hdp_block")``
-   the block kernel; a reduced config served on the card must give the
-   CPU's tokens;
+   the block kernel on its tile path; a reduced config served on the
+   card must give the CPU's tokens;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events, L2 flushed between launches) beside its bound and,
-   where one PyTorch call computes the same function, that call.
+   where one PyTorch call computes the same function, that call; the
+   tile paths at the calls that take them (the decode route's block
+   call; flash in fp32 at the prefill's shape).
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -56,7 +64,7 @@ TOL_BF16 = 2e-2      # p is rounded to bf16 before P.V in both
 THETA_RTOL = 1e-5
 N_LAYERS_QWEN = 28
 SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_block_attn",
-           "flash_attention")
+           "hdp_block_attn_tc", "flash_attention", "flash_attention_tc")
 PREFILL_B, PREFILL_S = 2, 4096
 #: why a kernel has no library_ms: no single PyTorch call computes it
 NO_LIBRARY_CALL = {
@@ -67,6 +75,12 @@ NO_LIBRARY_CALL = {
     "hdp_block_sparse_attention": "no PyTorch call attends over listed "
                                   "blocks with the FUM scores QK^T - FQ.FK^T",
 }
+
+
+#: worst max |kernel - plain| of each attention kernel entry, filled by
+#: check_block and check_flash (entry: the wrapper's name, "[tile]" added
+#: for the tile path)
+ERRS = {}
 
 
 class SmokeError(RuntimeError):
@@ -278,7 +292,8 @@ def check_scout(torch, label, iq, ik, **kw):
     return err, n_near
 
 
-def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True):
+def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True,
+               causal=True):
     """Block-kernel inputs as the pipeline makes them: fixed-grid qq/kq,
     the scout's keep on the card, its lists, one head gated."""
     from repro_torch.kernels.ref import hdp_scout_plain, keep_mask_to_indices
@@ -288,13 +303,13 @@ def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True):
     if v_bf16:
         v = v.to(torch.bfloat16)
     theta, keep, _ = hdp_scout_plain(iq, ik, rho_b=0.5, block_q=bq,
-                                     block_k=bk, causal=True)
+                                     block_k=bk, causal=causal)
     idx, cnt = keep_mask_to_indices(keep, theta, keep.shape[-1])
     hk = torch.ones(B, H, dtype=torch.bool, device="cuda")
     if gate:
         hk[0, -1] = False
     return dict(q=qq, k=kq, v=v, kv_idx=idx, counts=cnt, head_kept=hk,
-                causal=True, block_q=bq, block_k=bk, score_scale=None,
+                causal=causal, block_q=bq, block_k=bk, score_scale=None,
                 kv_len=None)
 
 
@@ -328,14 +343,26 @@ def block_args(c):
                                   "score_scale", "kv_len")}})
 
 
-def check_block(torch, label, c, poison=True):
+def on_path(label, fn, call, path):
+    """Runs call() through the wrapper fn; checks that it launched one
+    kernel, on ``path`` when one is given. Returns (result, path)."""
+    before = dict(fn.launches_by_path)
+    out = call()
+    ran = [p for p, n in fn.launches_by_path.items() if n != before[p]]
+    check(len(ran) == 1 and path in (None, ran[0]),
+          f"{label}: launched on {ran}, expected {path or 'one path'}")
+    return out, ran[0]
+
+
+def check_block(torch, label, c, poison=True, path=None):
     """Block kernel vs plain; with ``poison`` NaN in every K/V block no
     q tile lists (and all of a gated head's) leaves the output
     bit-identical. Returns max |err|."""
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.ref import hdp_block_sparse_attention_plain
     args, kw = block_args(c)
-    out = hdp_block_sparse_attention(*args, **kw)
+    out, ran = on_path(label, hdp_block_sparse_attention,
+                       lambda: hdp_block_sparse_attention(*args, **kw), path)
     ref = hdp_block_sparse_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     tol = TOL_BF16 if c["v"].dtype == torch.bfloat16 else ATOL
@@ -365,16 +392,18 @@ def check_block(torch, label, c, poison=True):
         torch.cuda.synchronize()
         check(torch.equal(out, out_bad),
               f"{label}: NaN in unlisted K/V blocks changed the output")
-    log(f"[kernels] {label}: max |kernel - plain| {err:.3e}"
+    log(f"[kernels] {label} [{ran}]: max |kernel - plain| {err:.3e}"
         + (f", {n_unlisted} unlisted blocks poisoned: output bit-identical"
            if poison else ""))
+    note_err("hdp_block_sparse_attention", ran, err)
     return err
 
 
-def check_flash(torch, label, q, k, v, causal, bq, bk):
+def check_flash(torch, label, q, k, v, causal, bq, bk, path=None):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
-    out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    out, ran = on_path(label, flash_attention, lambda: flash_attention(
+        q, k, v, causal=causal, block_q=bq, block_k=bk), path)
     ref = flash_attention_plain(q, k, v, causal=causal, block_q=bq,
                                 block_k=bk)
     torch.cuda.synchronize()
@@ -384,15 +413,20 @@ def check_flash(torch, label, q, k, v, causal, bq, bk):
     err = (out.float() - ref.float()).abs().max().item()
     check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
           f"{label}: kernel vs plain max |err| {err:.3e}")
-    log(f"[kernels] {label}: max |kernel - plain| {err:.3e}")
+    log(f"[kernels] {label} [{ran}]: max |kernel - plain| {err:.3e}")
+    note_err("flash_attention", ran, err)
     return err
 
 
+def note_err(name, path, err):
+    entry = name if path == "tensor_core" else f"{name}[{path}]"
+    ERRS[entry] = max(ERRS.get(entry, 0.0), err)
+
+
 def phase_new_kernels(torch):
-    """Scout, block and flash kernels vs their plain versions. Returns
-    {kernel: worst max error}."""
-    worst = {"hdp_scout": 0.0, "hdp_block_sparse_attention": 0.0,
-             "flash_attention": 0.0}
+    """Scout, block and flash kernels vs their plain versions (block and
+    flash errors go to ERRS). Returns the scout's worst theta error."""
+    worst = 0.0
     small = [((1, 2, 128, 64), (64, 64)), ((1, 2, 18, 8), (2, 2)),
              ((1, 1, 100, 16), (32, 16))]
     near_rows = 0
@@ -409,7 +443,7 @@ def phase_new_kernels(torch):
                 err, n = check_scout(torch, label, iq, ik, rho_b=rho,
                                      block_q=bq, block_k=bk, causal=causal)
                 near_rows += n
-                worst["hdp_scout"] = max(worst["hdp_scout"], err)
+                worst = max(worst, err)
     log(f"[kernels] hdp_scout: {near_rows} rows in all differ in keep "
         "within theta's rounding of the threshold")
     for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
@@ -419,14 +453,10 @@ def phase_new_kernels(torch):
                            v_bf16=v_bf16, seed=11, gate=H > 1)
             label = (f"hdp_block_sparse_attention {(B, H, S, hd)} blocks "
                      f"{bq}x{bk} v {'bf16' if v_bf16 else 'fp32'}")
-            worst["hdp_block_sparse_attention"] = max(
-                worst["hdp_block_sparse_attention"],
-                check_block(torch, label, c))
-    c = decode_route_case(torch, 21)
-    worst["hdp_block_sparse_attention"] = max(
-        worst["hdp_block_sparse_attention"],
-        check_block(torch, "hdp_block_sparse_attention decode route "
-                    "[8,12,1,128] x [8,12,1152,128] blocks 8x128", c))
+            check_block(torch, label, c)
+    check_block(torch, "hdp_block_sparse_attention decode route "
+                "[8,12,1,128] x [8,12,1152,128] blocks 8x128",
+                decode_route_case(torch, 21), path="tile")
     for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
                                               128), (128, 128))]:
         for dt in (torch.float32, torch.bfloat16):
@@ -437,9 +467,39 @@ def phase_new_kernels(torch):
                            for s in (1, 2, 3))
                 label = (f"flash_attention {(B, H, S, hd)} blocks {bq}x{bk} "
                          f"{str(dt)[6:]} {'causal' if causal else 'full'}")
-                worst["flash_attention"] = max(
-                    worst["flash_attention"],
-                    check_flash(torch, label, q, k, v, causal, bq, bk))
+                check_flash(torch, label, q, k, v, causal, bq, bk)
+    # the tensor-core paths: S not a multiple of the tile, hd 64,
+    # non-causal, approx off, kv_len and score_scale, a gated head, and
+    # the first row's last q tile listing no block
+    g = torch.Generator().manual_seed(17)
+    for (B, H, S, hd), (bq, bk), causal, approx in (
+            ((1, 3, 4000, 128), (128, 128), True, True),
+            ((1, 3, 4000, 128), (128, 128), False, False),
+            ((1, 2, 1000, 64), (64, 64), True, True),
+            ((1, 2, 1000, 64), (64, 128), False, True),
+            ((1, 2, 1000, 128), (128, 64), True, True)):
+        c = block_case(torch, B=B, H=H, S=S, hd=hd, bq=bq, bk=bk,
+                       v_bf16=True, seed=13, causal=causal)
+        c["approx"] = approx
+        c["counts"][0, 0, -1] = 0
+        extra = ""
+        if not causal:
+            c["kv_len"] = torch.randint(S // 2, S + 1, (B, H),
+                                        generator=g).int().cuda()
+            c["score_scale"] = torch.tensor([0.37], device="cuda")
+            extra = " kv_len score_scale"
+        label = (f"hdp_block_sparse_attention {(B, H, S, hd)} blocks "
+                 f"{bq}x{bk} v bf16 {'causal' if causal else 'full'} approx "
+                 f"{approx}{extra}, head gated, a q tile listing none")
+        check_block(torch, label, c, path="tensor_core")
+    for (B, H, S, hd) in ((1, 3, 4000, 128), (1, 2, 1000, 64)):
+        for causal in (True, False):
+            q, k, v = (_randn(torch, (B, H, S, hd), s, 2.0).to(torch.bfloat16)
+                       for s in (4, 5, 6))
+            label = (f"flash_attention {(B, H, S, hd)} bfloat16 "
+                     f"{'causal' if causal else 'full'}")
+            check_flash(torch, label, q, k, v, causal, 128, 128,
+                        path="tensor_core")
     return worst
 
 
@@ -457,6 +517,13 @@ class Recorder:
         if self.score is None or score >= self.score:
             self.best, self.score = (args, kw), score
         return self.fn(*args, **kw)
+
+
+def live_blocks(args):
+    """The blocks a block-kernel call loads: the listed blocks of kept
+    heads (args as the wrapper takes them)."""
+    counts, head_kept = args[4], args[5]
+    return int((counts * (head_kept[..., None] > 0)).sum())
 
 
 def _resolved(cfg, **kw):
@@ -482,7 +549,7 @@ def phase_aligned_prefill(torch, cfg, params):
     out = {}
     rec = {"scout": Recorder(hdp_scout),
            "block": Recorder(hdp_block_sparse_attention,
-                             key=lambda a: int(a[4].sum())),
+                             key=live_blocks),
            "flash": Recorder(flash_attention)}
     ops.hdp_scout, ops.hdp_block_sparse_attention, ops.flash_attention = \
         rec["scout"], rec["block"], rec["flash"]
@@ -494,8 +561,7 @@ def phase_aligned_prefill(torch, cfg, params):
                               "pallas_flash"),
                   f"aligned prefill (HDP {hdp_on}) resolved to {backend}")
             torch.cuda.synchronize()
-            hdp_scout.launches = hdp_block_sparse_attention.launches = 0
-            flash_attention.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             logits, cache, st = registry.apply_prefill(
                 c, params, {"tokens": toks}, None, collect_stats=hdp_on)
@@ -516,6 +582,12 @@ def phase_aligned_prefill(torch, cfg, params):
                      "flash_attention": N_LAYERS_QWEN})
             check(n == want, f"aligned prefill (HDP {hdp_on}) launches {n}, "
                   f"expected {want}")
+            tc = {k: f.launches_by_path["tensor_core"] for k, f in (
+                ("hdp_block_sparse_attention", hdp_block_sparse_attention),
+                ("flash_attention", flash_attention))}
+            check(all(tc[k] == want[k] for k in tc),
+                  f"aligned prefill (HDP {hdp_on}): tensor-core launches {tc},"
+                  f" expected every launch of {want}")
             msg = ""
             if hdp_on:
                 msg = (f", block/head sparsity "
@@ -523,7 +595,7 @@ def phase_aligned_prefill(torch, cfg, params):
                        f"{st['head_sparsity'].mean().item():.4f}")
             log(f"[prefill] qwen2-1.5b B{PREFILL_B} S{PREFILL_S} HDP "
                 f"{'on' if hdp_on else 'off'} -> {backend}: {wall:.3f} s, "
-                f"launches {n}{msg}")
+                f"launches {n}, on the tensor-core path {tc}{msg}")
             out.update({k: v for k, v in n.items() if v})
     finally:
         ops.hdp_scout = hdp_scout
@@ -532,23 +604,24 @@ def phase_aligned_prefill(torch, cfg, params):
     calls = {k: r.best for k, r in rec.items()}
     # the kernels against their plain versions at the path's own inputs
     (iq, ik), kw = calls["scout"]
-    path_err = {}
-    path_err["hdp_scout"], n_near = check_scout(
+    scout_err, _ = check_scout(
         torch, "hdp_scout at the path's last call", iq, ik, **kw)
     args, kw = calls["block"]
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **{"kv_len": None, "score_scale": None, **kw})
-    path_err["hdp_block_sparse_attention"] = check_block(
+    check_block(
         torch, f"hdp_block_sparse_attention at the path's call that kept "
-        f"the most blocks ({int(args[4].sum())})", c)
+        f"the most blocks ({live_blocks(args)})", c, path="tensor_core")
     (q, k, v), kw = calls["flash"]
-    path_err["flash_attention"] = check_flash(
+    check_flash(
         torch, "flash_attention at the path's last call", q, k, v,
-        kw["causal"], kw["block_q"], kw["block_k"])
+        kw["causal"], kw["block_q"], kw["block_k"], path="tensor_core")
 
     # the reduced config's aligned prefill: card (kernels) vs CPU (plain),
     # in fp32 (atol 1e-4) and in bf16, where the block kernel's fp32
-    # output meets bf16 wo in fp32 and is rounded to bf16 (2e-2)
+    # output meets bf16 wo in fp32 and is rounded to bf16 (2e-2); hd 16
+    # and 2x2 blocks take the tile kernels. The fp32 HDP-off run is the
+    # tile flash kernel's path: its launches are counted.
     stoks = torch.from_numpy(np.random.default_rng(6).integers(
         1, reduced(cfg).vocab_size, (2, 18)))
     for dtype, tol in (("float32", (ATOL, 0.0)),
@@ -558,8 +631,15 @@ def phase_aligned_prefill(torch, cfg, params):
         sp_cpu = _tree_to(sp, "cpu")
         for hdp_on in (True, False):
             c = small.replace(hdp=small.hdp.replace(enabled=hdp_on))
+            zero_launches()
             lg, _, sg = registry.apply_prefill(
                 c, sp, {"tokens": stoks.cuda()}, None, collect_stats=hdp_on)
+            if dtype == "float32" and not hdp_on:
+                tile_flash = flash_attention.launches_by_path["tile"]
+                check(tile_flash == small.n_layers == flash_attention.launches,
+                      f"reduced fp32 aligned prefill: flash launches "
+                      f"{flash_attention.launches_by_path}, expected "
+                      f"{small.n_layers} on the tile path")
             lc, _, sc = registry.apply_prefill(
                 c, sp_cpu, {"tokens": stoks}, None, collect_stats=hdp_on)
             err = (lg.cpu() - lc).abs().max().item()
@@ -577,7 +657,21 @@ def phase_aligned_prefill(torch, cfg, params):
                 f"{'on' if hdp_on else 'off'} ({backend}): card vs CPU "
                 f"logits max |err| {err:.3e} (max |logit| "
                 f"{lc.abs().max().item():.3e}){msg}")
-    return out, path_err, calls
+    out["flash_attention[tile]"] = tile_flash
+    return out, scout_err, calls
+
+
+def zero_launches():
+    """Sets every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    for fn in (hdp_paged_fum_decode, hdp_scout, hdp_block_sparse_attention,
+               flash_attention):
+        fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 # ------------------------------------------------------------ phase 5
@@ -606,7 +700,7 @@ def phase_serving(torch, cfg, params):
 
     torch.cuda.reset_peak_memory_stats()
     attention.hdp_paged_fum_decode = recording
-    hdp_paged_fum_decode.launches = 0
+    zero_launches()
     try:
         t0 = time.perf_counter()
         for uid, p in enumerate(prompts):
@@ -684,9 +778,9 @@ def phase_serving(torch, cfg, params):
     check(beng.resolved_backend("decode") == "pallas_hdp_block",
           f"attn=pallas_hdp_block decode resolved to "
           f"{beng.resolved_backend('decode')}")
-    rec = Recorder(hdp_block_sparse_attention, key=lambda a: int(a[4].sum()))
+    rec = Recorder(hdp_block_sparse_attention, key=live_blocks)
     attention.hdp_block_sparse_attention = rec
-    hdp_block_sparse_attention.launches = hdp_paged_fum_decode.launches = 0
+    zero_launches()
     try:
         t0 = time.perf_counter()
         for uid, p in enumerate(prompts):
@@ -695,6 +789,7 @@ def phase_serving(torch, cfg, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         blaunches = hdp_block_sparse_attention.launches
+        btile = hdp_block_sparse_attention.launches_by_path["tile"]
         fum_after = hdp_paged_fum_decode.launches
     finally:
         attention.hdp_block_sparse_attention = hdp_block_sparse_attention
@@ -707,22 +802,26 @@ def phase_serving(torch, cfg, params):
     check(bs["attn_decode_stage3"] == "cuda:hdp_block_sparse_attention",
           f"decode stage 3 resolved to {bs['attn_decode_stage3']}")
     check(blaunches == N_LAYERS_QWEN * bs["decode_steps"] and blaunches > 0
-          and fum_after == 0,
-          f"block kernel launched {blaunches} times (FUM {fum_after}), "
+          and fum_after == 0 and btile == blaunches,
+          f"block kernel launched {blaunches} times ({btile} on the tile "
+          f"path; FUM {fum_after}), "
           f"expected {N_LAYERS_QWEN} x {bs['decode_steps']} decode steps")
     log(f"[serve] attn=pallas_hdp_block: wall {wall:.2f} s, decode_tok_s "
-        f"{bs['decode_tok_s']:.1f}, block kernel launches {blaunches} = "
+        f"{bs['decode_tok_s']:.1f}, block kernel launches (tile path) "
+        f"{blaunches} = "
         f"{N_LAYERS_QWEN} layers x {bs['decode_steps']} decode steps, "
         f"block/head/page sparsity {bs['block_sparsity']:.4f}/"
         f"{bs['head_sparsity']:.4f}/{bs['page_sparsity']:.4f}")
+    check(rec.score > 0, "no block-kernel call of the decode route loaded "
+          "a block")
     args, kw = rec.best
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **kw)
     block_err = check_block(
         torch, f"hdp_block_sparse_attention at the decode route's call that "
         f"kept the most blocks ({rec.score}; q {tuple(args[0].shape)}, "
-        f"k/v {tuple(args[1].shape)})", c)
-    return launches, path_err, blaunches, block_err
+        f"k/v {tuple(args[1].shape)})", c, path="tile")
+    return launches, path_err, blaunches, rec.best
 
 
 def _tree_to(tree, dev):
@@ -815,9 +914,10 @@ def block_bound(torch, args, kw):
     """Least time for the block kernel's work on these inputs: the valid
     (row, col) pairs of every listed block of a kept head, 2 flops per
     pair and d for each product, against Q read once, every listed K/V
-    block read once and the output written. q.k and fq.fk have fp32
-    operands (the fp32 rate); p.v has V's type, since p is rounded to it
-    (bf16 V: the bf16 tensor rate with fp32 accumulation)."""
+    block read once and the output written. q.k and fq.fk take operands
+    on the Q4.12 grid, which split exactly into bf16 limbs: the bf16
+    tensor rate. p.v has V's type, since p is rounded to it (bf16 V: the
+    bf16 tensor rate; fp32 V: the fp32 rate)."""
     q, k, v, idx, cnt, hk = args
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
@@ -848,7 +948,7 @@ def block_bound(torch, args, kw):
         k.element_size() + v.element_size()) \
         + (idx.numel() + cnt.numel() + hk.numel()) * 4
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = score_flops / FP32_FLOP_S + pv_flops / pv_peak
+    t_ops = score_flops / BF16_FLOP_S + pv_flops / pv_peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -871,10 +971,13 @@ def flash_bound(torch, q, k, v, causal):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_timing_prefill(torch, calls):
+def phase_timing_prefill(torch, calls, block_tile_call):
     """The scout, block and flash kernels at the aligned prefill's own
-    inputs: kernel, plain version, bound and (flash) the PyTorch SDPA
-    call as a yardstick."""
+    inputs (block and flash on the tensor-core path): kernel, plain
+    version, bound and (flash) the PyTorch SDPA call as a yardstick; the
+    tile paths at the decode route's block call and at the prefill's
+    flash inputs in fp32. Returns {entry name: (kernel ms, plain ms,
+    bound ms, bound by, bytes, ops, library ms)}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
@@ -883,33 +986,38 @@ def phase_timing_prefill(torch, calls):
                                          hdp_block_sparse_attention_plain,
                                          hdp_scout_plain)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    saved = (hdp_scout.launches, hdp_block_sparse_attention.launches,
-             flash_attention.launches)
     res = {}
     (iq, ik), kw = calls["scout"]
     res["hdp_scout"] = (
         time_ms(torch, lambda: hdp_scout(iq, ik, **kw), 20, flush),
         time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3, flush),
         *scout_bound(torch, iq, ik, kw), None)
-    args, kw = calls["block"]
-    res["hdp_block_sparse_attention"] = (
-        time_ms(torch, lambda: hdp_block_sparse_attention(*args, **kw), 10,
-                flush),
-        time_ms(torch, lambda: hdp_block_sparse_attention_plain(*args, **kw),
-                3, flush),
-        *block_bound(torch, args, kw), None)
+    for name, (args, kw) in (("hdp_block_sparse_attention", calls["block"]),
+                             ("hdp_block_sparse_attention[tile]",
+                              block_tile_call)):
+        res[name] = (
+            time_ms(torch, lambda: hdp_block_sparse_attention(*args, **kw),
+                    10, flush),
+            time_ms(torch, lambda: hdp_block_sparse_attention_plain(
+                *args, **kw), 3, flush),
+            *block_bound(torch, args, kw), None)
     (q, k, v), kw = calls["flash"]
-    res["flash_attention"] = (
-        time_ms(torch, lambda: flash_attention(q, k, v, **kw), 10, flush),
-        time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 3,
-                flush),
-        *flash_bound(torch, q, k, v, kw["causal"]),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=kw["causal"]), 20, flush))
-    (hdp_scout.launches, hdp_block_sparse_attention.launches,
-     flash_attention.launches) = saved     # timing launches do not count
+    for name, dt in (("flash_attention", q.dtype),
+                     ("flash_attention[tile]", torch.float32)):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        res[name] = (
+            time_ms(torch, lambda: flash_attention(qd, kd, vd, **kw), 10,
+                    flush),
+            time_ms(torch, lambda: flash_attention_plain(qd, kd, vd, **kw), 3,
+                    flush),
+            *flash_bound(torch, qd, kd, vd, kw["causal"]),
+            time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, is_causal=kw["causal"]), 20, flush))
     for name, (k_ms, p_ms, bound, by, nbytes, ops, lib) in res.items():
-        log(f"[timing] {name} at the aligned prefill's inputs: kernel "
+        where = ("the decode route's call" if name ==
+                 "hdp_block_sparse_attention[tile]" else
+                 "the aligned prefill's inputs")
+        log(f"[timing] {name} at {where}: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} ms "
             f"({by}: {nbytes} B, {ops:.4g} ops)"
             + (f", scaled_dot_product_attention {lib:.4f} ms"
@@ -938,7 +1046,7 @@ def main() -> int:
             name, smi_line = phase_env(torch)
             phase_build()
             err, main_case = phase_kernels(torch)
-            new_err = phase_new_kernels(torch)
+            scout_err = phase_new_kernels(torch)
             from repro_torch.configs import get_config
             from repro_torch.models import registry
             cfg = get_config("qwen2-1.5b")
@@ -949,17 +1057,17 @@ def main() -> int:
             log(f"[model] qwen2-1.5b bf16 weights "
                 f"({cfg.param_count() / 1e9:.2f} B params) initialised in "
                 f"{time.perf_counter() - t0:.1f} s")
-            prefill_launches, prefill_err, calls = phase_aligned_prefill(
+            prefill_launches, prefill_scout_err, calls = phase_aligned_prefill(
                 torch, cfg, params)
-            launches, path_err, block_engine_launches, block_err = \
+            launches, path_err, block_engine_launches, block_tile_call = \
                 phase_serving(torch, cfg, params)
             k_ms, p_ms, bound, bound_by = phase_timing(torch, main_case)
-            timed = phase_timing_prefill(torch, calls)
+            timed = phase_timing_prefill(torch, calls, block_tile_call)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     kernels = [{
-        "name": "hdp_paged_fum_decode",
+        "name": "hdp_paged_fum_decode", "path": "single",
         "route": "cuda",
         "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
         "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
@@ -973,28 +1081,37 @@ def main() -> int:
         "library_ms": None,
         "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
     }]
-    new = {"hdp_scout": ("hdp_scout.cu", "hdp_scout.py:75"),
-           "hdp_block_sparse_attention": ("hdp_block_attn.cu",
-                                          "hdp_block_attn.py:91"),
-           "flash_attention": ("flash_attention.cu",
-                               "flash_attention.py:69")}
-    for kname, (src, tpu) in new.items():
-        k_ms, p_ms, bound, bound_by, _, _, lib_ms = timed[kname]
-        errs = [new_err[kname], prefill_err[kname]]
-        if kname == "hdp_block_sparse_attention":
-            errs.append(block_err)
+    ERRS["hdp_scout"] = max(scout_err, prefill_scout_err)
+    # entry: (path, source, TPU kernel, launches on the path that runs it)
+    entries = {
+        "hdp_scout": ("single", "hdp_scout.cu", "hdp_scout.py:75",
+                      prefill_launches["hdp_scout"]),
+        "hdp_block_sparse_attention": (
+            "tensor_core", "hdp_block_attn_tc.cu", "hdp_block_attn.py:91",
+            prefill_launches["hdp_block_sparse_attention"]),
+        "flash_attention": (
+            "tensor_core", "flash_attention_tc.cu", "flash_attention.py:69",
+            prefill_launches["flash_attention"]),
+        "hdp_block_sparse_attention[tile]": (
+            "tile", "hdp_block_attn.cu", "hdp_block_attn.py:91",
+            block_engine_launches),
+        "flash_attention[tile]": (
+            "tile", "flash_attention.cu", "flash_attention.py:69",
+            prefill_launches["flash_attention[tile]"]),
+    }
+    for ename, (path, src, tpu, n) in entries.items():
+        k_ms, p_ms, bound, bound_by, _, _, lib_ms = timed[ename]
         kernels.append({
-            "name": kname, "route": "cuda",
+            "name": ename, "path": path, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/{tpu}",
-            "launches": prefill_launches[kname],
-            "max_abs_err": max(errs),
+            "launches": n, "max_abs_err": ERRS[ename],
             "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
         })
-        if kname in NO_LIBRARY_CALL:
-            kernels[-1]["library_note"] = NO_LIBRARY_CALL[kname]
-    kernels[2]["launches_paged_decode_route"] = block_engine_launches
+        base = ename.split("[")[0]
+        if base in NO_LIBRARY_CALL:
+            kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

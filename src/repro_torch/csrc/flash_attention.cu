@@ -12,14 +12,15 @@
 // Design: the shared tile kernel of attn_tile.cuh in its dense mode
 // (one CUDA block per 32-row slice of a q tile walking its KV tiles in
 // order, m, l and acc in shared memory; causal skipping uses the slice's
-// own last row, which skips at least the tiles the TPU skipped).
+// own last row, which skips at least the tiles the TPU skipped). It
+// serves what the tensor-core kernel (flash_attention_tc.cu: bf16, hd 64
+// or 128) does not take: fp32 inputs and other head sizes
+// (kernels/flash_attention.py:flash_path picks).
 //
 // Bound: operations. At qwen2-1.5b prefill (B 2, 12 heads, S 4096,
-// hd 128, bf16) the causal half of QK^T and P.V is ~1e11 flops against
-// ~50 MB of q, k, v and output, far above the card's 295 flops/byte
-// ridge for bf16 tensor cores. This kernel runs the products on CUDA
-// cores in fp32 out of shared memory; wgmma bf16 tiles with a TMA ring
-// are the later step.
+// hd 128) the causal half of QK^T and P.V is ~1e11 flops against ~50 MB
+// of q, k, v and output (bf16), far above the card's ridge. This kernel
+// runs the products on CUDA cores in fp32 out of shared memory.
 
 #include "attn_tile.cuh"
 

@@ -17,15 +17,19 @@
 // rounded to v's type before P.V as the reference does. The output is
 // fp32 (the reference returns qq's dtype).
 //
-// Bound: at the prefill shapes (qwen2-1.5b, S = 4096, 128x128 blocks)
-// the work of the listed blocks, 4 fp32 flops per (row, col, d) for the
-// two score products and 2 for P.V, against reading Q, the listed K/V
-// tiles once and writing the output: operations, at the card's fp32
-// rate (no tensor core takes fp32 operands). This kernel computes from
-// shared memory on CUDA cores one (row, column) per thread and re-reads
-// each listed tile once per 32-row slice, far from that bound; register
-// tiles and tensor-core products (tf32/bf16 splits of the fixed-point
-// values) are the later step.
+// Bound: the work of the listed blocks, 4 flops per (row, col, d) for
+// the two score products and 2 for P.V, against reading Q, the listed
+// K/V tiles once and writing the output. The score operands lie on the
+// Q4.12 grid and split exactly into bf16 limbs (hdp_block_attn_tc.cu), so
+// they are priced at the bf16 tensor rate, P.V at V's type (fp32 V: the
+// fp32 rate); at the decode route's shapes the bytes bound instead. This
+// kernel computes from shared memory on CUDA cores one (row, column) per
+// thread and re-reads each listed tile once per 32-row slice, far from
+// that bound. It serves what the tensor-core
+// kernel (hdp_block_attn_tc.cu: bf16 V, hd 64 or 128, blocks of 64 or
+// 128) does not take: fp32 V (the paged decode's densified route, block
+// rows 8) and small blocks or head sizes
+// (kernels/hdp_block_attn.py:block_path picks).
 
 #include "attn_tile.cuh"
 

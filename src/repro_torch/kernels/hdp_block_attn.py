@@ -5,14 +5,22 @@
 attention over only the KV blocks each (b·h, q tile) lists, with the
 paper's QKᵀ − FQ·FKᵀ scores and the early head gate (see
 ``csrc/hdp_block_attn.cu`` and ``csrc/attn_tile.cuh``). On a CUDA tensor
-the wrapper launches the kernel or raises; on a CPU tensor it runs the
+the wrapper launches a kernel or raises; on a CPU tensor it runs the
 plain version ``ref.hdp_block_sparse_attention_plain``.
-``hdp_block_sparse_attention.launches`` counts kernel launches.
+
+Two kernels serve CUDA tensors, picked by ``block_path`` from the call's
+types and shapes alone: the tensor-core kernel
+(``csrc/hdp_block_attn_tc.cu``: the fixed-grid scores as exact bf16 limb
+products, ``fixed_limbs``) for bf16 V, hd 64 or 128 and blocks of 64 or
+128 rows and columns, the aligned prefill's shapes; the CUDA-core tile
+kernel for the rest (fp32 V, as the paged decode's densified route
+passes, and small blocks or head sizes). ``hdp_block_sparse_attention
+.launches`` counts kernel launches, ``.launches_by_path`` them per path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -20,21 +28,64 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import hdp_block_sparse_attention_plain
 
-_lib: Optional[ctypes.CDLL] = None   # loaded (and built) at first launch
+F32 = torch.float32
+
+#: the two kernels behind the wrappers of this module and flash's
+PATHS = ("tensor_core", "tile")
+#: head sizes the tensor-core kernels take
+TC_HEAD_DIMS = (64, 128)
+#: block sizes (rows and columns) the tensor-core block kernel takes
+TC_BLOCKS = (64, 128)
+
+#: the CUDA source (and C prefix) of each path
+SOURCES = {"tensor_core": "hdp_block_attn_tc", "tile": "hdp_block_attn"}
+
+_libs: Dict[str, ctypes.CDLL] = {}   # loaded (and built) at first launch
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load("hdp_block_attn")
+def _library(path: str) -> ctypes.CDLL:
+    if path not in _libs:
+        name = SOURCES[path]
+        lib = build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hdp_block_attn_launch.argtypes = \
-            [p] * 3 + [i] + [p] * 6 + [i] * 9 + [ctypes.c_float, p]
-        lib.hdp_block_attn_launch.restype = i
-        lib.hdp_block_attn_error_string.argtypes = [i]
-        lib.hdp_block_attn_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([p] * 9 if path == "tensor_core"
+                       else [p] * 3 + [i] + [p] * 6) \
+            + [i] * 9 + [ctypes.c_float, p]
+        fn.restype = i
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
+        _libs[path] = lib
+    return _libs[path]
+
+
+def fixed_limbs(x: torch.Tensor):
+    """The tensor-core kernel's exact split of fixed-grid values (Q4.12)
+    into three bf16 limbs: I = trunc(x), F_hi = bf16(x - I) and F_lo =
+    x - I - F_hi. For grid values I + F_hi + F_lo == x exactly, every
+    product of two limbs is exact in fp32, and the FUM score is
+    QQ·KQᵀ − FQ·FKᵀ = IQ·IK + IQ·FK_hi + IQ·FK_lo + FQ_hi·IK + FQ_lo·IK."""
+    x = x.to(F32)
+    i = torch.trunc(x)
+    f = x - i
+    hi = f.to(torch.bfloat16)
+    lo = (f - hi.to(F32)).to(torch.bfloat16)
+    return i.to(torch.bfloat16), hi, lo
+
+
+def block_path(v_dtype: torch.dtype, hd: int, block_q: int,
+               block_k: int) -> str:
+    """Which kernel serves a CUDA call, from types and shapes alone:
+    "tensor_core" for bf16 V, hd in ``TC_HEAD_DIMS`` and block_q,
+    block_k in ``TC_BLOCKS``; else "tile" within the tile kernel's limits
+    (``check_tile_shapes``); a shape that neither takes raises
+    ValueError."""
+    if v_dtype == torch.bfloat16 and hd in TC_HEAD_DIMS \
+            and block_q in TC_BLOCKS and block_k in TC_BLOCKS:
+        return "tensor_core"
+    check_tile_shapes(hd, block_q, block_k)
+    return "tile"
 
 
 def check_tile_shapes(hd: int, block_q: int, block_k: int) -> None:
@@ -91,7 +142,7 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
             score_scale=score_scale, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    check_tile_shapes(hd, block_q, block_k)
+    path = block_path(v.dtype, hd, block_q, block_k)
     i32 = torch.int32
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     idx = kv_idx.to(i32).contiguous()
@@ -103,25 +154,30 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
         ss = torch.as_tensor(score_scale, dtype=torch.float32,
                              device=q.device).reshape(1).contiguous()
     out = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _library(path)
     vp = ctypes.c_void_p
+    ptrs = [vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr())]
+    if path == "tile":
+        ptrs.append(int(v.dtype == torch.bfloat16))
+    ptrs += [vp(out.data_ptr()), vp(idx.data_ptr()), vp(cnt.data_ptr()),
+             vp(hk.data_ptr()), vp(0 if lens is None else lens.data_ptr()),
+             vp(0 if ss is None else ss.data_ptr())]
+    name = SOURCES[path]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hdp_block_attn_launch(
-            vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
-            int(v.dtype == torch.bfloat16), vp(out.data_ptr()),
-            vp(idx.data_ptr()), vp(cnt.data_ptr()), vp(hk.data_ptr()),
-            vp(0 if lens is None else lens.data_ptr()),
-            vp(0 if ss is None else ss.data_ptr()),
-            B * H, Sq, Sk, hd, block_q, block_k, idx.shape[-1],
+        err = getattr(lib, f"{name}_launch")(
+            *ptrs, B * H, Sq, Sk, hd, block_q, block_k, idx.shape[-1],
             int(causal), int(approx),
             ctypes.c_float(float(np.float32(1.0 / hd ** 0.5))), vp(stream))
     if err != 0:
-        msg = lib.hdp_block_attn_error_string(err).decode()
-        raise RuntimeError(f"hdp_block_sparse_attention launch failed for "
-                           f"blocks {block_q}x{block_k}, hd={hd}: {msg}")
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"hdp_block_sparse_attention ({path}) launch "
+                           f"failed for blocks {block_q}x{block_k}, "
+                           f"hd={hd}: {msg}")
     hdp_block_sparse_attention.launches += 1
+    hdp_block_sparse_attention.launches_by_path[path] += 1
     return out
 
 
 hdp_block_sparse_attention.launches = 0
+hdp_block_sparse_attention.launches_by_path = dict.fromkeys(PATHS, 0)

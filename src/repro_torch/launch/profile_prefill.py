@@ -1,0 +1,97 @@
+"""Where the aligned prefill's time goes: torch.profiler over the paper's
+full-sequence pipeline.
+
+    python -m repro_torch.launch.profile_prefill --arch qwen2-1.5b
+
+runs ``registry.apply_prefill(cfg, params, {"tokens": t}, None)`` on
+seeded random weights and token ids (B ``--batch``, S ``--seq``), with
+HDP on (scout + block-sparse kernels) and off (flash), each once to warm
+up and then ``--runs`` times under the profiler, and prints one JSON
+line per setting: the wall time per prefill, the device's busy time (the
+sum of kernel time) and idle share, the launches of each attention
+kernel per path, and the top kernels by device time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.models import registry
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_prefill needs a CUDA card")
+    cfg = get_config(args.arch)
+    params = registry.init_params(cfg, args.seed, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
+        1, cfg.vocab_size, (args.batch, args.seq))).cuda()
+    top = 10
+    with torch.inference_mode():
+        for hdp_on in (True, False):
+            c = cfg.replace(hdp=cfg.hdp.replace(enabled=hdp_on))
+            registry.apply_prefill(c, params, {"tokens": toks}, None)
+            torch.cuda.synchronize()
+            for fn in (hdp_scout, hdp_block_sparse_attention,
+                       flash_attention):
+                fn.launches = 0
+            for fn in (hdp_block_sparse_attention, flash_attention):
+                fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.runs):
+                    registry.apply_prefill(c, params, {"tokens": toks}, None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            busy_us = sum(e.self_device_time_total for e in kernels)
+            by_dev = sorted(kernels, key=lambda e: e.self_device_time_total,
+                            reverse=True)[:top]
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0),
+                "arch": args.arch, "batch": args.batch, "seq": args.seq,
+                "hdp": hdp_on, "runs": args.runs,
+                "wall_ms_per_prefill": 1e3 * wall / args.runs,
+                "device_busy_ms_per_prefill": busy_us / 1e3 / args.runs,
+                "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+                "launches_per_prefill": {
+                    "hdp_scout": hdp_scout.launches / args.runs,
+                    **{fn.__name__: {p: n / args.runs for p, n in
+                                     fn.launches_by_path.items()}
+                       for fn in (hdp_block_sparse_attention,
+                                  flash_attention)}},
+                "top_device_ms_per_prefill": [
+                    [e.key[:100], e.self_device_time_total / 1e3 / args.runs,
+                     e.count / args.runs] for e in by_dev],
+            }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,10 @@ from repro_torch.attention import (AttnCall, AttnSpec, BackendUnsupported,
 from repro_torch.core.config import HDPConfig
 from repro_torch.core.quant import pool_scale
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 ATOL = 2e-5
 B, N, G, HD = 1, 2, 2, 8
 SQ = SK = 16

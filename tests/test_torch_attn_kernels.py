@@ -23,6 +23,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 TOL_BF16 = 2e-2
 

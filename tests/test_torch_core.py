@@ -28,6 +28,10 @@ from repro_torch.core import quant as tq
 from repro_torch.core.config import HDPConfig
 from repro_torch.core.hdp import calibrated_split, decode_scout
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 
 def _eq(a_torch, a_jax):
     np.testing.assert_array_equal(a_torch.numpy(), np.asarray(a_jax))

@@ -24,6 +24,10 @@ from repro_torch.core.config import HDPConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.hdp_scout import hdp_scout
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 TOL_BF16 = 2e-2
 

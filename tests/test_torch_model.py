@@ -24,6 +24,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import registry
 from repro_torch.serving.kv_cache import PagedKVCache
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 PLENS = (13, 9)
 BUCKET = 16

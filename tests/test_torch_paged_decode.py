@@ -42,6 +42,10 @@ from repro_torch.models.attention import (_fetch_list, _paged_scout,
                                           hdp_paged_decode_attention,
                                           resolve_write_pages)
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 B, N, G, HD, PS, NP = 2, 2, 2, 8, 4, 8
 P = 1 + B * NP
 SK = NP * PS

@@ -22,6 +22,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
 from repro_torch.serving import Engine, Request
 
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the reference's timing tests share the cores.
+torch.set_num_threads(1)
+
 KW = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
 
 

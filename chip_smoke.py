@@ -6,15 +6,16 @@ CUDA device and nvcc, and imports only the port (``src/repro_torch``),
 never JAX nor the JAX package. Phases:
 
 1. environment — card name and power limit (nvidia-smi);
-2. build — every CUDA source (six: the FUM decode, the scout, and the
-   tensor-core and tile kernels of block-sparse and flash attention),
-   one nvcc each, in parallel;
+2. build — every CUDA source (seven: the FUM decode, the scout's int8
+   tensor-core and dp4a kernels, and the tensor-core and tile kernels of
+   block-sparse and flash attention), one nvcc each, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the reference tests' small shapes (2x2 blocks and ragged S
    included) and at qwen2-1.5b's full-width shapes: the paged FUM
-   decode on int8 and fp32 pools; the integer scout (theta and
-   theta_head to rtol 1e-5, keep equal but for theta within that
-   rounding of the threshold); the block-sparse FUM attention on the
+   decode on int8 and fp32 pools, split across blocks and in one pass;
+   the integer scout on both of its paths (theta, keep and theta_head
+   bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
+   bad-input NaN); the block-sparse FUM attention on the
    prefill and the paged-decode routes and flash attention (atol = rtol
    = 1e-4 with fp32 V, 2e-2 with bf16 V) on both of their paths, the
    tensor-core path also at S 4000, hd 64, non-causal, with a gated head
@@ -24,20 +25,23 @@ never JAX nor the JAX package. Phases:
    B 2, S 4096, through ``registry.apply_prefill(..., None)``: HDP on
    resolves to ``pallas_hdp_block`` and launches the scout and block
    kernels once per layer, HDP off resolves to ``pallas_flash`` and
-   launches flash once per layer, block and flash on the tensor-core
-   path; kernel vs plain at the path's own
+   launches flash once per layer, scout, block and flash on the
+   tensor-core path; kernel vs plain at the path's own
    inputs; the reduced config's logits on the card equal the CPU's, in
-   fp32 and in bf16;
+   fp32 and in bf16, its scout on the dp4a path;
 5. serving — the same weights serve 8 requests through
    ``Engine.submit``/``run``: the default engine launches the FUM kernel
-   once per layer per decode step, ``Engine(attn="pallas_hdp_block")``
+   once per layer per decode step (pages split across blocks),
+   ``Engine(attn="pallas_hdp_block")``
    the block kernel on its tile path; a reduced config served on the
    card must give the CPU's tokens;
 6. timing — each kernel and its plain version at the main path's shape
-   (CUDA events, L2 flushed between launches) beside its bound and,
-   where one PyTorch call computes the same function, that call; the
-   tile paths at the calls that take them (the decode route's block
-   call; flash in fp32 at the prefill's shape).
+   (CUDA events around device work only, L2 flushed between launches)
+   beside its bound and, where one PyTorch call computes the same
+   function, that call; the tile paths at the calls that take them (the
+   decode route's block call; flash in fp32 at the prefill's shape); the
+   scout's dp4a kernel and the FUM decode in one pass (the earlier
+   designs) at the same inputs as their successors.
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -63,7 +67,7 @@ ATOL = RTOL = 1e-4   # fp32 accumulation in both; only the sum order differs
 TOL_BF16 = 2e-2      # p is rounded to bf16 before P.V in both
 THETA_RTOL = 1e-5
 N_LAYERS_QWEN = 28
-SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_block_attn",
+SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_scout_tc", "hdp_block_attn",
            "hdp_block_attn_tc", "flash_attention", "flash_attention_tc")
 PREFILL_B, PREFILL_S = 2, 4096
 #: why a kernel has no library_ms: no single PyTorch call computes it
@@ -77,9 +81,9 @@ NO_LIBRARY_CALL = {
 }
 
 
-#: worst max |kernel - plain| of each attention kernel entry, filled by
-#: check_block and check_flash (entry: the wrapper's name, "[tile]" added
-#: for the tile path)
+#: worst max |kernel - plain| of each kernel entry of the scout, block and
+#: flash wrappers, filled by check_scout, check_block and check_flash
+#: (entry: the wrapper's name, "[<path>]" added off the tensor-core path)
 ERRS = {}
 
 
@@ -173,6 +177,10 @@ def kernel_args(c):
 
 
 def phase_kernels(torch):
+    """The FUM decode kernel, split across blocks (``fum_splits``' S, and
+    S = 3) and in one pass (S = 1), against its plain version on every
+    case, with the two poison checks in each mode. Returns (worst
+    max |err| per mode, the qwen2 int8 case)."""
     from repro_torch.core.quant import POISON_CODE
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
@@ -183,64 +191,71 @@ def phase_kernels(torch):
                           f"{'int8' if quantized else 'fp32'}",
                           dict(B=2, N=2, G=2, Sq=Sq, hd=8, ps=4, nP=8,
                                quantized=quantized, live=0.5, seed=Sq)))
-        cases.append((f"qwen2 B8N2G6Sq1hd128ps128 "
-                      f"{'int8' if quantized else 'fp32'}",
-                      dict(B=8, N=2, G=6, Sq=1, hd=128, ps=128, nP=16,
-                           quantized=quantized, live=0.5, seed=7)))
-    worst, main_case = 0.0, None
+        for Sq in (1, 3):
+            cases.append((f"qwen2 B8N2G6Sq{Sq}hd128ps128 "
+                          f"{'int8' if quantized else 'fp32'}",
+                          dict(B=8, N=2, G=6, Sq=Sq, hd=128, ps=128, nP=16,
+                               quantized=quantized, live=0.5,
+                               seed=7 if Sq == 1 else 8)))
+    worst, main_case = {"split": 0.0, "single": 0.0}, None
     for label, kw in cases:
         c = to_dev(make_case(torch, **kw), "cuda")
         args, kws = kernel_args(c)
-        out = hdp_paged_fum_decode(*args, **kws)
         ref = hdp_paged_fum_decode_ref(*args, **kws)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
-        err = (out - ref).abs().max().item()
-        check(torch.allclose(out, ref, atol=ATOL, rtol=RTOL),
-              f"{label}: kernel vs plain max |err| {err:.3e}")
-        # pruned pages are never read: poisoning them (V codes and both
-        # scales, or NaN fp32 K/V) leaves the output bit-identical
-        pruned = c["table"][~c["fetched"]].long()
-        check(pruned.numel() > 0, f"{label}: no pruned pages")
-        kp, vp = c["k_pool"].clone(), c["v_pool"].clone()
-        ks = vs = None
-        if kw["quantized"]:
-            vp[pruned] = POISON_CODE
-            ks, vs = c["k_scale"].clone(), c["v_scale"].clone()
-            ks[pruned] = float("nan")
-            vs[pruned] = float("nan")
-        else:
-            kp[pruned] = float("nan")
-            vp[pruned] = float("nan")
-        out_bad = hdp_paged_fum_decode(
-            c["qq"], kp, vp, *args[3:], k_scale=ks, v_scale=vs)
-        check(torch.equal(out, out_bad),
-              f"{label}: poison on pruned pages changed the output")
-        # ... and poison on one fetched, visible page must surface as NaN
-        ps = kw["ps"]
-        mk = c["page_ids"].shape[1]
-        seen = (torch.arange(mk, device=c["counts"].device)[None]
-                < c["counts"][:, None]) \
-            & (c["logical"] * ps < c["kv_len"][:, None])
-        b, j = (int(x) for x in torch.nonzero(seen)[0])
-        vis = int(c["page_ids"][b, j])
-        kp, ks = c["k_pool"].clone(), None
-        if kw["quantized"]:
-            ks = c["k_scale"].clone()
-            ks[vis] = float("nan")
-        else:
-            kp[vis] = float("nan")
-        out_nan = hdp_paged_fum_decode(
-            c["qq"], kp, c["v_pool"], *args[3:], k_scale=ks,
-            v_scale=c["v_scale"])
-        torch.cuda.synchronize()
-        check(bool(torch.isnan(out_nan[b]).any()),
-              f"{label}: NaN scale on a fetched page did not surface")
-        log(f"[kernels] {label}: max |kernel - plain| {err:.3e}, "
-            f"pages kept {int(c['counts'].sum())}/{c['table'].numel()}, "
-            "poison checks ok")
-        worst = max(worst, err)
-        if label.startswith("qwen2") and kw["quantized"]:
+        for mode, splits in (("split", None), ("split", 3), ("single", 1)):
+            tag = f"{label} [{mode}, S={splits or 'fum_splits'}]"
+            out, ran = on_path(tag, hdp_paged_fum_decode,
+                               lambda: hdp_paged_fum_decode(
+                                   *args, **kws, splits=splits), mode)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output")
+            err = (out - ref).abs().max().item()
+            check(torch.allclose(out, ref, atol=ATOL, rtol=RTOL),
+                  f"{tag}: kernel vs plain max |err| {err:.3e}")
+            # pruned pages are never read: poisoning them (V codes and
+            # both scales, or NaN fp32 K/V) leaves the output bit-identical
+            pruned = c["table"][~c["fetched"]].long()
+            check(pruned.numel() > 0, f"{tag}: no pruned pages")
+            kp, vp = c["k_pool"].clone(), c["v_pool"].clone()
+            ks = vs = None
+            if kw["quantized"]:
+                vp[pruned] = POISON_CODE
+                ks, vs = c["k_scale"].clone(), c["v_scale"].clone()
+                ks[pruned] = float("nan")
+                vs[pruned] = float("nan")
+            else:
+                kp[pruned] = float("nan")
+                vp[pruned] = float("nan")
+            out_bad = hdp_paged_fum_decode(
+                c["qq"], kp, vp, *args[3:], k_scale=ks, v_scale=vs,
+                splits=splits)
+            check(torch.equal(out, out_bad),
+                  f"{tag}: poison on pruned pages changed the output")
+            # ... and poison on one fetched, visible page must surface as NaN
+            ps = kw["ps"]
+            mk = c["page_ids"].shape[1]
+            seen = (torch.arange(mk, device=c["counts"].device)[None]
+                    < c["counts"][:, None]) \
+                & (c["logical"] * ps < c["kv_len"][:, None])
+            b, j = (int(x) for x in torch.nonzero(seen)[0])
+            vis = int(c["page_ids"][b, j])
+            kp, ks = c["k_pool"].clone(), None
+            if kw["quantized"]:
+                ks = c["k_scale"].clone()
+                ks[vis] = float("nan")
+            else:
+                kp[vis] = float("nan")
+            out_nan = hdp_paged_fum_decode(
+                c["qq"], kp, c["v_pool"], *args[3:], k_scale=ks,
+                v_scale=c["v_scale"], splits=splits)
+            torch.cuda.synchronize()
+            check(bool(torch.isnan(out_nan[b]).any()),
+                  f"{tag}: NaN scale on a fetched page did not surface")
+            log(f"[kernels] {tag}: max |kernel - plain| {err:.3e}, "
+                f"pages kept {int(c['counts'].sum())}/{c['table'].numel()}, "
+                "poison checks ok")
+            worst[mode] = max(worst[mode], err)
+        if label.startswith("qwen2 B8N2G6Sq1") and kw["quantized"]:
             main_case = c
     return worst, main_case
 
@@ -259,37 +274,64 @@ def fixed_grid_split(torch, x):
     return xq, torch.trunc(xq)
 
 
-def check_scout(torch, label, iq, ik, **kw):
-    """Scout kernel vs plain: theta and theta_head to rtol 1e-5; keep
-    equal except where theta lies within that rounding of the row's
-    threshold (counted). Returns (max |theta error|, rows whose keep
-    differs within rounding)."""
+def check_scout(torch, label, iq, ik, path=None, force=None, **kw):
+    """Scout kernel vs plain: theta, keep and theta_head bit-equal (every
+    sum is an exact integer rounded once, in both). ``path``: the path
+    the call must take; ``force``: the wrapper's ``path`` argument."""
     from repro_torch.kernels.hdp_scout import hdp_scout
-    from repro_torch.kernels.ref import (hdp_scout_plain, scout_block_valid,
-                                         scout_row_threshold)
-    th, kp, hh = hdp_scout(iq, ik, **kw)
+    from repro_torch.kernels.ref import hdp_scout_plain
+    (th, kp, hh), ran = on_path(label, hdp_scout, lambda: hdp_scout(
+        iq, ik, path=force, **kw), path)
     pth, pkp, phh = hdp_scout_plain(iq, ik, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(th).all() and torch.isfinite(hh).all()),
           f"{label}: non-finite theta")
     err = (th - pth).abs().max().item()
-    rel = ((th - pth).abs() / pth.abs().clamp(min=1.0)).max().item()
-    check(torch.allclose(th, pth, rtol=THETA_RTOL, atol=0),
-          f"{label}: theta kernel vs plain max rel err {rel:.3e}")
-    check(torch.allclose(hh, phh, rtol=THETA_RTOL, atol=0),
-          f"{label}: theta_head kernel vs plain differ")
-    nq, nk = th.shape[-2:]
-    bvalid = scout_block_valid(nq, nk, kw["block_q"], kw["block_k"],
-                               ik.shape[2], kw["causal"], device=th.device)
-    thr = scout_row_threshold(pth, bvalid, kw["rho_b"])[..., None]
-    diff = kp != pkp
-    near = (pth - thr).abs() <= THETA_RTOL * thr.abs()
-    check(bool((near | ~diff).all()),
-          f"{label}: keep differs away from the threshold")
-    n_near = int(diff.any(-1).sum())
-    log(f"[kernels] {label}: theta max |err| {err:.3e} (rel {rel:.3e}), "
-        f"{n_near} rows with keep flips within rounding")
-    return err, n_near
+    check(torch.equal(th, pth),
+          f"{label} [{ran}]: theta kernel vs plain max |err| {err:.3e}")
+    check(torch.equal(hh, phh),
+          f"{label} [{ran}]: theta_head kernel vs plain differ")
+    check(torch.equal(kp, pkp), f"{label} [{ran}]: keep differs in "
+          f"{int((kp != pkp).sum())} blocks")
+    log(f"[kernels] {label} [{ran}]: theta, keep and theta_head bit-equal "
+        f"to the plain version")
+    note_err("hdp_scout", ran, err)
+
+
+def check_scout_bad_input(torch, path):
+    """A value that is not an integer in [-128, 127] (0.5 in a q row of
+    head 0, 200 in a k row of head 1) turns the theta of exactly the q
+    tiles that read it to NaN, their keep to 0 and the heads' theta_head
+    to NaN; every other tile equals the plain version."""
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.kernels.ref import hdp_scout_plain
+    bq = 128 if path == "tensor_core" else 32
+    hd = 128 if path == "tensor_core" else 16
+    shape = (1, 2, 4 * bq, hd)
+    _, iq = fixed_grid_split(torch, _randn(torch, shape, 9))
+    _, ik = fixed_grid_split(torch, _randn(torch, shape, 10))
+    iq[0, 0, bq + 2, 5] = 0.5          # q tile 1 of head 0
+    ik[0, 1, 2 * bq + 4, 7] = 200.0    # k block 2 of head 1: tiles 2, 3
+    kw = dict(rho_b=0.5, block_q=bq, block_k=bq, causal=True)
+    (th, kp, hh), _ = on_path(f"hdp_scout bad input [{path}]", hdp_scout,
+                              lambda: hdp_scout(iq, ik, **kw), path)
+    pth, pkp, _ = hdp_scout_plain(iq, ik, **kw)
+    torch.cuda.synchronize()
+    want = torch.tensor([[[False, True, False, False],
+                          [False, False, True, True]]], device="cuda")
+    nan_tile = torch.isnan(th).all(-1)
+    check(torch.equal(nan_tile, want)
+          and not bool(torch.isnan(th[~want]).any()),
+          f"hdp_scout bad input [{path}]: NaN tiles {nan_tile.tolist()}, "
+          f"expected {want.tolist()}")
+    check(not bool(kp[want].any()) and torch.equal(kp[~want], pkp[~want])
+          and torch.equal(th[~want], pth[~want]),
+          f"hdp_scout bad input [{path}]: keep or clean tiles differ")
+    check(bool(torch.isnan(hh).all()),
+          f"hdp_scout bad input [{path}]: theta_head {hh.tolist()}")
+    log(f"[kernels] hdp_scout bad input [{path}]: the 3 tiles that read it "
+        "NaN with no kept block, both heads' theta_head NaN, the rest "
+        "bit-equal")
 
 
 def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True,
@@ -424,28 +466,52 @@ def note_err(name, path, err):
 
 
 def phase_new_kernels(torch):
-    """Scout, block and flash kernels vs their plain versions (block and
-    flash errors go to ERRS). Returns the scout's worst theta error."""
-    worst = 0.0
+    """Scout, block and flash kernels vs their plain versions (their
+    errors go to ERRS)."""
     small = [((1, 2, 128, 64), (64, 64)), ((1, 2, 18, 8), (2, 2)),
              ((1, 1, 100, 16), (32, 16))]
-    near_rows = 0
-    for shape, (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S, 128),
-                                     (128, 128))]:
-        for rho in (0.5, -0.5):
-            for causal in (True, False):
-                if shape[2] == PREFILL_S and not causal:
-                    continue
-                _, iq = fixed_grid_split(torch, _randn(torch, shape, 7))
-                _, ik = fixed_grid_split(torch, _randn(torch, shape, 8))
-                label = (f"hdp_scout {shape} blocks {bq}x{bk} rho {rho} "
-                         f"{'causal' if causal else 'full'}")
-                err, n = check_scout(torch, label, iq, ik, rho_b=rho,
-                                     block_q=bq, block_k=bk, causal=causal)
-                near_rows += n
-                worst = max(worst, err)
-    log(f"[kernels] hdp_scout: {near_rows} rows in all differ in keep "
-        "within theta's rounding of the threshold")
+    # the scout: the reference tests' shapes (64x64 blocks at hd 64 take
+    # the tensor-core path, 2x2 and 32x16 the dp4a path), the prefill's,
+    # and the tensor-core path's edges: ragged S, 64-row blocks, hd 32 and
+    # 96, int8 extremes (|s| up to 2^21, block sums up to 2^35)
+    scout_cases = [(shape, blocks, rho, causal)
+                   for shape, blocks in small for rho in (0.5, -0.5)
+                   for causal in (True, False)]
+    scout_cases += [((PREFILL_B, 12, PREFILL_S, 128), (128, 128), rho, True)
+                    for rho in (0.5, -0.5)]
+    scout_cases += [((1, 3, 300, 128), (128, 128), rho, causal)
+                    for rho in (0.5, -0.5) for causal in (True, False)]
+    scout_cases += [((1, 2, 384, 128), (64, 128), -0.5, True),
+                    ((1, 2, 384, 128), (128, 64), 0.5, False),
+                    ((1, 2, 250, 96), (64, 64), 0.5, True),
+                    ((1, 2, 250, 32), (128, 128), -0.5, False)]
+    from repro_torch.kernels.hdp_scout import scout_path
+    for shape, (bq, bk), rho, causal in scout_cases:
+        _, iq = fixed_grid_split(torch, _randn(torch, shape, 7))
+        _, ik = fixed_grid_split(torch, _randn(torch, shape, 8))
+        label = (f"hdp_scout {shape} blocks {bq}x{bk} rho {rho} "
+                 f"{'causal' if causal else 'full'}")
+        check_scout(torch, label, iq, ik, path=scout_path(shape[3], bq, bk),
+                    rho_b=rho, block_q=bq, block_k=bk, causal=causal)
+    # [B, H, S, hd] views of [B, S, H, hd] tensors, as the prefill passes
+    _, iq = fixed_grid_split(torch, _randn(torch, (1, 300, 3, 128), 7))
+    _, ik = fixed_grid_split(torch, _randn(torch, (1, 300, 3, 128), 8))
+    check_scout(torch, "hdp_scout (1, 3, 300, 128) strided views blocks "
+                "128x128", iq.transpose(1, 2), ik.transpose(1, 2),
+                path="tensor_core", rho_b=0.5, block_q=128, block_k=128,
+                causal=True)
+    g = torch.Generator().manual_seed(3)
+    for shape in ((1, 2, 384, 128), (1, 1, 300, 128)):
+        iq, ik = (torch.where(torch.rand(shape, generator=g) < 0.5, -128.0,
+                              127.0).cuda() for _ in range(2))
+        ik[..., ::3, :] = -128.0
+        for causal in (True, False):
+            check_scout(torch, f"hdp_scout {shape} int8 extremes "
+                        f"{'causal' if causal else 'full'}", iq, ik,
+                        path="tensor_core", rho_b=0.5, block_q=128,
+                        block_k=128, causal=causal)
+    for path in ("tensor_core", "dp4a"):
+        check_scout_bad_input(torch, path)
     for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
                                               128), (128, 128))]:
         for v_bf16 in (False, True):
@@ -500,7 +566,6 @@ def phase_new_kernels(torch):
                      f"{'causal' if causal else 'full'}")
             check_flash(torch, label, q, k, v, causal, 128, 128,
                         path="tensor_core")
-    return worst
 
 
 # ------------------------------------------------ phase 4: aligned prefill
@@ -583,6 +648,7 @@ def phase_aligned_prefill(torch, cfg, params):
             check(n == want, f"aligned prefill (HDP {hdp_on}) launches {n}, "
                   f"expected {want}")
             tc = {k: f.launches_by_path["tensor_core"] for k, f in (
+                ("hdp_scout", hdp_scout),
                 ("hdp_block_sparse_attention", hdp_block_sparse_attention),
                 ("flash_attention", flash_attention))}
             check(all(tc[k] == want[k] for k in tc),
@@ -604,8 +670,10 @@ def phase_aligned_prefill(torch, cfg, params):
     calls = {k: r.best for k, r in rec.items()}
     # the kernels against their plain versions at the path's own inputs
     (iq, ik), kw = calls["scout"]
-    scout_err, _ = check_scout(
-        torch, "hdp_scout at the path's last call", iq, ik, **kw)
+    check_scout(torch, "hdp_scout at the path's last call", iq, ik,
+                path="tensor_core", **kw)
+    check_scout(torch, "hdp_scout, the dp4a kernel, at the path's last call",
+                iq, ik, path="dp4a", force="dp4a", **kw)
     args, kw = calls["block"]
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **{"kv_len": None, "score_scale": None, **kw})
@@ -620,8 +688,9 @@ def phase_aligned_prefill(torch, cfg, params):
     # the reduced config's aligned prefill: card (kernels) vs CPU (plain),
     # in fp32 (atol 1e-4) and in bf16, where the block kernel's fp32
     # output meets bf16 wo in fp32 and is rounded to bf16 (2e-2); hd 16
-    # and 2x2 blocks take the tile kernels. The fp32 HDP-off run is the
-    # tile flash kernel's path: its launches are counted.
+    # and 2x2 blocks take the tile kernels and the dp4a scout. The fp32
+    # runs are the paths of the tile flash kernel (HDP off) and the dp4a
+    # scout (HDP on): their launches are counted.
     stoks = torch.from_numpy(np.random.default_rng(6).integers(
         1, reduced(cfg).vocab_size, (2, 18)))
     for dtype, tol in (("float32", (ATOL, 0.0)),
@@ -632,8 +701,22 @@ def phase_aligned_prefill(torch, cfg, params):
         for hdp_on in (True, False):
             c = small.replace(hdp=small.hdp.replace(enabled=hdp_on))
             zero_launches()
-            lg, _, sg = registry.apply_prefill(
-                c, sp, {"tokens": stoks.cuda()}, None, collect_stats=hdp_on)
+            ops.hdp_scout = small_scout = Recorder(hdp_scout)
+            try:
+                lg, _, sg = registry.apply_prefill(
+                    c, sp, {"tokens": stoks.cuda()}, None,
+                    collect_stats=hdp_on)
+            finally:
+                ops.hdp_scout = hdp_scout
+            if dtype == "float32" and hdp_on:
+                dp4a = hdp_scout.launches_by_path["dp4a"]
+                check(dp4a == small.n_layers == hdp_scout.launches,
+                      f"reduced fp32 aligned prefill: scout launches "
+                      f"{hdp_scout.launches_by_path}, expected "
+                      f"{small.n_layers} on the dp4a path")
+                (iq, ik), kw = small_scout.best
+                check_scout(torch, "hdp_scout at the reduced prefill's last "
+                            "call", iq, ik, path="dp4a", **kw)
             if dtype == "float32" and not hdp_on:
                 tile_flash = flash_attention.launches_by_path["tile"]
                 check(tile_flash == small.n_layers == flash_attention.launches,
@@ -658,7 +741,8 @@ def phase_aligned_prefill(torch, cfg, params):
                 f"logits max |err| {err:.3e} (max |logit| "
                 f"{lc.abs().max().item():.3e}){msg}")
     out["flash_attention[tile]"] = tile_flash
-    return out, scout_err, calls
+    out["hdp_scout[dp4a]"] = dp4a
+    return out, calls
 
 
 def zero_launches():
@@ -709,6 +793,7 @@ def phase_serving(torch, cfg, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = hdp_paged_fum_decode.launches
+        fum_paths = dict(hdp_paged_fum_decode.launches_by_path)
     finally:
         attention.hdp_paged_fum_decode = hdp_paged_fum_decode
     s = eng.summary()
@@ -734,23 +819,29 @@ def phase_serving(torch, cfg, params):
     check(launches == N_LAYERS_QWEN * s["decode_steps"] and launches > 0,
           f"FUM kernel launched {launches} times, expected "
           f"{N_LAYERS_QWEN} x {s['decode_steps']} decode steps")
+    check(fum_paths["split"] == launches,
+          f"FUM launches by mode {fum_paths}: expected every launch split "
+          "across blocks")
     log(f"[serve] FUM kernel launches {launches} = {N_LAYERS_QWEN} layers "
-        f"x {s['decode_steps']} decode steps")
+        f"x {s['decode_steps']} decode steps, by mode {fum_paths}")
     kept = torch.stack([args[5].sum() for args, _ in calls]).tolist()
     check(max(kept) > 0, "no FUM call of the path kept a page")
     args, kw = calls[max(range(len(calls)), key=kept.__getitem__)]
     calls.clear()
-    out = hdp_paged_fum_decode(*args, **kw)
     ref = hdp_paged_fum_decode_ref(*args, **kw)
-    torch.cuda.synchronize()
-    path_err = (out - ref).abs().max().item()
-    check(bool(torch.isfinite(out).all()) and torch.allclose(
-        out, ref, atol=ATOL, rtol=RTOL),
-        f"kernel vs plain at the path's own inputs: max |err| {path_err:.3e}")
+    path_err = {}
+    for mode, splits in (("split", None), ("single", 1)):
+        out = hdp_paged_fum_decode(*args, **kw, splits=splits)
+        torch.cuda.synchronize()
+        path_err[mode] = (out - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and torch.allclose(
+            out, ref, atol=ATOL, rtol=RTOL),
+            f"kernel [{mode}] vs plain at the path's own inputs: max |err| "
+            f"{path_err[mode]:.3e}")
     log(f"[serve] kernel vs plain at the path's call that kept the most "
         f"pages (qq {tuple(args[0].shape)}, page lists "
         f"{tuple(args[3].shape)}, {max(kept)} pages kept): max |err| "
-        f"{path_err:.3e}")
+        f"{path_err}")
 
     # agreement with a reference on a small input: the reduced config on
     # the card (kernel) and on the CPU (plain version), same weights
@@ -821,7 +912,7 @@ def phase_serving(torch, cfg, params):
         torch, f"hdp_block_sparse_attention at the decode route's call that "
         f"kept the most blocks ({rec.score}; q {tuple(args[0].shape)}, "
         f"k/v {tuple(args[1].shape)})", c, path="tile")
-    return launches, path_err, blaunches, rec.best
+    return fum_paths, path_err, blaunches, rec.best
 
 
 def _tree_to(tree, dev):
@@ -833,12 +924,15 @@ def _tree_to(tree, dev):
 # ------------------------------------------------------------ phase 6
 def time_ms(torch, fn, iters, flush):
     """Median device time of fn over `iters` runs, L2 flushed before each
-    (the decode finds a layer's pages cold: 28 layers of pool exceed L2)."""
+    (the decode finds a layer's pages cold: 28 layers of pool exceed L2).
+    The host enqueues each run behind a ~1 ms device spin, so the events
+    bracket the run's device work and not the host's time to launch it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -876,21 +970,31 @@ def fum_bound(torch, c):
 
 
 def phase_timing(torch, c):
-    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    """The FUM decode at the timing case, split across blocks
+    (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
+    version. Returns {mode: (kernel ms, plain ms, bound ms, bound by)}."""
+    from repro_torch.kernels.hdp_paged_decode import (fum_splits,
+                                                      hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     args, kws = kernel_args(c)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    saved = hdp_paged_fum_decode.launches
-    k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
-                   flush)
+    bound, bound_by, nbytes, flops = fum_bound(torch, c)
+    B, N = c["qq"].shape[:2]
+    S = fum_splits(B, N, c["page_ids"].shape[1],
+                   torch.cuda.get_device_properties(0).multi_processor_count)
     p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
                    flush)
-    hdp_paged_fum_decode.launches = saved     # timing launches do not count
-    bound, bound_by, nbytes, flops = fum_bound(torch, c)
-    log(f"[timing] hdp_paged_fum_decode at B8 N2 G6 Sq1 hd128 ps128: "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} ms "
-        f"({bound_by}: {nbytes} B, {flops} flop)")
-    return k_ms, p_ms, bound, bound_by
+    res = {}
+    for mode, splits in (("split", None), ("single", 1)):
+        k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(
+            *args, **kws, splits=splits), 50, flush)
+        res[mode] = (k_ms, p_ms, bound, bound_by)
+        log(f"[timing] hdp_paged_fum_decode [{mode}, S={splits or S}] at B8 "
+            f"N2 G6 Sq1 hd128 ps128 (pages listed per row "
+            f"{c['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
+            f"{flops} flop)")
+    return res
 
 
 def scout_bound(torch, iq, ik, kw):
@@ -988,10 +1092,13 @@ def phase_timing_prefill(torch, calls, block_tile_call):
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     res = {}
     (iq, ik), kw = calls["scout"]
-    res["hdp_scout"] = (
-        time_ms(torch, lambda: hdp_scout(iq, ik, **kw), 20, flush),
-        time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3, flush),
-        *scout_bound(torch, iq, ik, kw), None)
+    scout_plain_ms = time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3,
+                             flush)
+    for name, path in (("hdp_scout", None), ("hdp_scout[dp4a]", "dp4a")):
+        res[name] = (
+            time_ms(torch, lambda: hdp_scout(iq, ik, path=path, **kw), 20,
+                    flush),
+            scout_plain_ms, *scout_bound(torch, iq, ik, kw), None)
     for name, (args, kw) in (("hdp_block_sparse_attention", calls["block"]),
                              ("hdp_block_sparse_attention[tile]",
                               block_tile_call)):
@@ -1045,8 +1152,8 @@ def main() -> int:
         with torch.inference_mode():
             name, smi_line = phase_env(torch)
             phase_build()
-            err, main_case = phase_kernels(torch)
-            scout_err = phase_new_kernels(torch)
+            fum_err, main_case = phase_kernels(torch)
+            phase_new_kernels(torch)
             from repro_torch.configs import get_config
             from repro_torch.models import registry
             cfg = get_config("qwen2-1.5b")
@@ -1057,35 +1164,39 @@ def main() -> int:
             log(f"[model] qwen2-1.5b bf16 weights "
                 f"({cfg.param_count() / 1e9:.2f} B params) initialised in "
                 f"{time.perf_counter() - t0:.1f} s")
-            prefill_launches, prefill_scout_err, calls = phase_aligned_prefill(
+            prefill_launches, calls = phase_aligned_prefill(
                 torch, cfg, params)
-            launches, path_err, block_engine_launches, block_tile_call = \
+            fum_launches, path_err, block_engine_launches, block_tile_call = \
                 phase_serving(torch, cfg, params)
-            k_ms, p_ms, bound, bound_by = phase_timing(torch, main_case)
+            fum_timed = phase_timing(torch, main_case)
             timed = phase_timing_prefill(torch, calls, block_tile_call)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    kernels = [{
-        "name": "hdp_paged_fum_decode", "path": "single",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
-        "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
-        "launches": launches,
-        "max_abs_err": max(err, path_err),
-        "ms": k_ms,
-        "kernel_ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
-    }]
-    ERRS["hdp_scout"] = max(scout_err, prefill_scout_err)
+    kernels = []
+    for mode in ("split", "single"):
+        k_ms, p_ms, bound, bound_by = fum_timed[mode]
+        kernels.append({
+            "name": "hdp_paged_fum_decode" + ("" if mode == "split"
+                                             else "[single]"),
+            "path": mode, "route": "cuda",
+            "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
+            "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
+            "launches": fum_launches[mode],
+            "max_abs_err": max(fum_err[mode], path_err[mode]),
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
+        })
+    kernels[-1]["note"] = ("the one-pass mode (S = 1), the earlier design, "
+                           "timed beside the split; fum_splits gives S > 1 "
+                           "at every shape the main path runs")
     # entry: (path, source, TPU kernel, launches on the path that runs it)
     entries = {
-        "hdp_scout": ("single", "hdp_scout.cu", "hdp_scout.py:75",
+        "hdp_scout": ("tensor_core", "hdp_scout_tc.cu", "hdp_scout.py:75",
                       prefill_launches["hdp_scout"]),
+        "hdp_scout[dp4a]": ("dp4a", "hdp_scout.cu", "hdp_scout.py:75",
+                            prefill_launches["hdp_scout[dp4a]"]),
         "hdp_block_sparse_attention": (
             "tensor_core", "hdp_block_attn_tc.cu", "hdp_block_attn.py:91",
             prefill_launches["hdp_block_sparse_attention"]),

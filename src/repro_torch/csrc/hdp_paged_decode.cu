@@ -11,37 +11,53 @@
 // column c of query row r unless c < kv_len[b] + r % Sq and the row's
 // keep flag is set, and runs an online softmax across the pages. The
 // G*Sq query rows of the GQA group (and of a multi-query verify call)
-// share one page stream. A page that is not listed is never loaded.
+// share one page stream. A page that is not listed is never loaded, and
+// every listed page is loaded for every kv head (as the TPU kernel DMAs
+// it), so a NaN on a listed page reaches the output even where p = 0.
 //
-// Design (a simple kernel that is right; speed is later work):
-// * one block per (b, n); the TPU grid's sequential page axis becomes a
-//   loop inside the block, and the block reads its own page_ids,
-//   logical and counts (the TPU got them through scalar prefetch);
-// * qq and frac(qq) for the G*Sq rows sit in shared memory; each kept
-//   page's K and V for head n are loaded once (positions are N*hd
-//   elements apart), dequantized on the way in with the page's scale
-//   held in a register, and kept as fp32 in shared memory (K rows padded
-//   by one float against bank conflicts);
-// * per page: scores (one thread per (row, column)), per-row m and l
-//   (one warp per row), then acc = acc*corr + p.V (one thread per
-//   (row, d)); all fp32.
+// Bound: bytes. Per (b, n) the kernel must read the listed pages' K and
+// V (ps x hd int8 codes each); the arithmetic is ~6*hd flops per (row,
+// column), at most a few times the bytes. At qwen2-1.5b's decode (B 8,
+// N 2) one block per (b, n) would leave 116 of 132 SMs idle and walk its
+// pages one after another, latency-bound.
 //
-// Bound: bytes. Per (b, n) the kernel must read kept pages x ps x hd x 2
-// int8 bytes (K and V); the arithmetic is ~6*hd flops per (row, column),
-// at most a few times the bytes, so the card's memory rate is the
-// limit. At qwen2-1.5b shapes (N = 2, B = 8) only B*N = 16 blocks exist
-// for 132 SMs, so this kernel runs far below that bound: splitting each
-// row's pages across blocks (with a second pass to merge the partial
-// softmaxes) is the first thing a later change makes.
+// Design:
+// * the pages of each (b, n) are split across S blocks, grid (N, B, S):
+//   block s takes the listed pages s, s + S, s + 2S, ... below counts[b]
+//   (strided, so that the listed prefix of the mk slots spreads evenly
+//   over all S blocks; S comes from shapes alone, without reading
+//   counts). Each block runs the online softmax over its pages and, for
+//   S > 1, writes its partial (acc, m, l) per row to a workspace; a
+//   block with no page writes m = -1e30, l = 0, acc = 0. A second kernel
+//   (fum_merge_kernel), one block per (b, n), merges them: m* = max m_s,
+//   out = sum acc_s e^(m_s - m*) / max(sum l_s e^(m_s - m*), 1e-30), so a
+//   NaN partial stays NaN. S = 1 writes the output directly;
+// * inside a block: qq and frac(qq) for the G*Sq rows sit in shared
+//   memory; an int8 page's K and V codes are loaded 16 bytes a thread
+//   (int4) into registers while the block computes the previous page
+//   (two pages in flight), then dequantized on the way into shared
+//   memory as fp32; fp32 pools are loaded as float4 and snapped on the
+//   way in, one page at a time (their registers would not hold a second
+//   page);
+// * per page: scores with one thread per (column, group of RPT rows),
+//   each K value and its fraction read once (float4 along d) for all of
+//   the thread's rows; per-row m and l (one warp per row); p.V with one
+//   thread per (d, group of RPT rows), its rows' accumulators in
+//   registers. The rows are padded to whole groups with zero rows, so
+//   the inner loops carry no per-row test. All fp32, each sum in
+//   ascending d or column order, as in the one-pass arithmetic of the
+//   first version of this kernel.
 //
 // The C interface takes raw pointers and the stream; the Python wrapper
 // (repro_torch/kernels/hdp_paged_decode.py) checks shapes, dtypes,
-// devices and contiguity, allocates the output and launches on
-// PyTorch's current stream.
+// devices and contiguity, picks S, allocates the output and the
+// workspace and launches on PyTorch's current stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,8 +76,9 @@ struct Args {
   const int* keep;        // [B,mk,N,G,Sq]
   const int* kv_len;      // [B]
   float* out;             // [B,N,G,Sq,hd]
-  int B, N, R, Sq, hd, ps, mk, P;
-  int quantized, approx;
+  float* part;            // [B,N,S,R,hd+2] partials (S > 1)
+  int B, N, R, Rp, Sq, hd, ps, mk, P, S;   // Rp: R padded to RPT groups
+  int approx;
   float grid, lo, hi;     // fixed-point grid of fp32 pools
   float scale;            // 1/sqrt(hd)
 };
@@ -89,137 +106,210 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// one page's K (snapped/dequantized, rows padded to hd+1) and V into
-// shared memory
-__device__ void load_page(const Args& a, int pid, int n, float* k_s,
-                          float* v_s) {
-  const int hd = a.hd, ps = a.ps, N = a.N;
-  float ks = 1.f, vs = 1.f;
-  if (a.quantized) {
-    ks = a.k_scale[(size_t)pid * N + n];
-    vs = a.v_scale[(size_t)pid * N + n];
-  }
-  const size_t page0 = (size_t)pid * ps * N;
-  // four elements per load: the wrapper checks hd % 4 == 0 and that both
-  // pools are aligned to four elements
-  const int hd4 = hd / 4;
-  for (int i = threadIdx.x; i < ps * hd4; i += blockDim.x) {
-    const int pos = i / hd4, d = (i - pos * hd4) * 4;
-    const size_t g = ((page0 + (size_t)pos * N + n) * hd + d);
-    float kv[4], vv[4];
-    if (a.quantized) {
-      const char4 kc = *reinterpret_cast<const char4*>(
-          static_cast<const int8_t*>(a.k_pool) + g);
-      const char4 vc = *reinterpret_cast<const char4*>(
-          static_cast<const int8_t*>(a.v_pool) + g);
-      kv[0] = dequant(kc.x, ks); kv[1] = dequant(kc.y, ks);
-      kv[2] = dequant(kc.z, ks); kv[3] = dequant(kc.w, ks);
-      vv[0] = dequant(vc.x, vs); vv[1] = dequant(vc.y, vs);
-      vv[2] = dequant(vc.z, vs); vv[3] = dequant(vc.w, vs);
-    } else {
-      const float4 kf = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(a.k_pool) + g);
-      const float4 vf = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(a.v_pool) + g);
-      kv[0] = snap(kf.x, a); kv[1] = snap(kf.y, a);
-      kv[2] = snap(kf.z, a); kv[3] = snap(kf.w, a);
-      vv[0] = vf.x; vv[1] = vf.y; vv[2] = vf.z; vv[3] = vf.w;
-    }
+// code x of a 16- or 4-byte load (x a constant after unrolling)
+__device__ __forceinline__ int8_t byte_at(const int4& v, int x) {
+  const int w = x < 4 ? v.x : (x < 8 ? v.y : (x < 12 ? v.z : v.w));
+  return static_cast<int8_t>(w >> (8 * (x & 3)));
+}
+
+__device__ __forceinline__ int8_t byte_at(int v, int x) {
+  return static_cast<int8_t>(v >> (8 * (x & 3)));
+}
+
+// One int8 page's K and V codes for head n, held in registers: VB codes
+// per load (16 when hd % 16 == 0, else 4), up to ps*hd/VB/kThreads loads
+// a thread for each of K and V.
+template <int VB>
+struct Codes {
+  using Vec = typename std::conditional<VB == 16, int4, int>::type;
+  static constexpr int kMax = 128 * 128 / VB / kThreads;
+  Vec k[kMax], v[kMax];
+  float ks, vs;
+
+  __device__ __forceinline__ void fetch(const Args& a, int pid, int n) {
+    const int per_row = a.hd / VB, total = a.ps * per_row;
+    const size_t page0 = (size_t)pid * a.ps * a.N;
+    ks = a.k_scale[(size_t)pid * a.N + n];
+    vs = a.v_scale[(size_t)pid * a.N + n];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      k_s[pos * (hd + 1) + d + e] = kv[e];
-      v_s[pos * hd + d + e] = vv[e];
+    for (int u = 0; u < kMax; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      if (e < total) {
+        const int pos = e / per_row, d = (e - pos * per_row) * VB;
+        const size_t g = (page0 + (size_t)pos * a.N + n) * a.hd + d;
+        k[u] = *reinterpret_cast<const Vec*>(static_cast<const int8_t*>(a.k_pool) + g);
+        v[u] = *reinterpret_cast<const Vec*>(static_cast<const int8_t*>(a.v_pool) + g);
+      }
     }
+  }
+
+  // dequantize into k_s [ps, hd+4] and v_s [ps, hd], four values a store
+  __device__ __forceinline__ void store(const Args& a, float* k_s, float* v_s) const {
+    const int per_row = a.hd / VB, total = a.ps * per_row;
+#pragma unroll
+    for (int u = 0; u < kMax; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      if (e < total) {
+        const int pos = e / per_row, d = (e - pos * per_row) * VB;
+#pragma unroll
+        for (int x = 0; x < VB; x += 4) {
+          *reinterpret_cast<float4*>(k_s + pos * (a.hd + 4) + d + x) = make_float4(
+              dequant(byte_at(k[u], x), ks), dequant(byte_at(k[u], x + 1), ks),
+              dequant(byte_at(k[u], x + 2), ks), dequant(byte_at(k[u], x + 3), ks));
+          *reinterpret_cast<float4*>(v_s + pos * a.hd + d + x) = make_float4(
+              dequant(byte_at(v[u], x), vs), dequant(byte_at(v[u], x + 1), vs),
+              dequant(byte_at(v[u], x + 2), vs), dequant(byte_at(v[u], x + 3), vs));
+        }
+      }
+    }
+  }
+};
+
+// One fp32 page's K (snapped to the grid) and V for head n into shared
+// memory, four elements per load.
+__device__ __forceinline__ void load_fp32(const Args& a, int pid, int n,
+                                          float* k_s, float* v_s) {
+  const int hd4 = a.hd / 4;
+  const size_t page0 = (size_t)pid * a.ps * a.N;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < a.ps * hd4; i += kThreads) {
+    const int pos = i / hd4, d = (i - pos * hd4) * 4;
+    const size_t g = (page0 + (size_t)pos * a.N + n) * a.hd + d;
+    const float4 kf = *reinterpret_cast<const float4*>(static_cast<const float*>(a.k_pool) + g);
+    const float4 vf = *reinterpret_cast<const float4*>(static_cast<const float*>(a.v_pool) + g);
+    *reinterpret_cast<float4*>(k_s + pos * (a.hd + 4) + d) =
+        make_float4(snap(kf.x, a), snap(kf.y, a), snap(kf.z, a), snap(kf.w, a));
+    *reinterpret_cast<float4*>(v_s + pos * a.hd + d) = vf;
   }
 }
 
+// Q: int8 pool (else fp32); VB: codes per int8 load; RPT: rows per
+// thread group (the groups, Rp / RPT, fit 256 / ps and 256 / hd).
+template <bool Q, int VB, int RPT>
 __global__ void __launch_bounds__(kThreads)
 fum_decode_kernel(const Args a) {
-  const int n = blockIdx.x, b = blockIdx.y;
-  const int R = a.R, hd = a.hd, ps = a.ps;
+  const int n = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int R = a.R, Rp = a.Rp, hd = a.hd, ps = a.ps, S = a.S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = kThreads >> 5, ngrp = Rp / RPT;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // [R, hd]
-  float* fq_s = q_s + R * hd;             // [R, hd]
-  float* acc_s = fq_s + R * hd;           // [R, hd]
-  float* k_s = acc_s + R * hd;            // [ps, hd + 1]
-  float* v_s = k_s + ps * (hd + 1);       // [ps, hd]
-  float* s_s = v_s + ps * hd;             // [R, ps] scores, then p
-  float* m_s = s_s + R * ps;              // [R]
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // [Rp, hd], zero past R
+  float* fq_s = q_s + Rp * hd;            // [Rp, hd]
+  float* v_s = fq_s + Rp * hd;            // [ps, hd]
+  float* k_s = v_s + ps * hd;             // [ps, hd + 4]
+  float* s_s = k_s + ps * (hd + 4);       // [Rp, ps] scores, then p
+  float* m_s = s_s + Rp * ps;             // [R]
   float* l_s = m_s + R;                   // [R]
   float* c_s = l_s + R;                   // [R] per-page correction
   int* keep_s = reinterpret_cast<int*>(c_s + R);   // [R]
 
   const size_t row0 = ((size_t)b * a.N + n) * R;   // first (b, n) row
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const float q = a.qq[row0 * hd + i];
+  for (int i = tid; i < Rp * hd; i += kThreads) {
+    const float q = i < R * hd ? a.qq[row0 * hd + i] : 0.f;
     q_s[i] = q;
     fq_s[i] = q - truncf(q);
-    acc_s[i] = 0.f;
   }
-  for (int r = tid; r < R; r += blockDim.x) {
+  for (int r = tid; r < R; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
   }
   int cnt = a.counts[b];
   cnt = cnt < 0 ? 0 : (cnt > a.mk ? a.mk : cnt);
   // an out-of-range page id is a caller bug: surface it as NaN output
-  // rather than reading outside the pool
+  // rather than reading outside the pool (every block of the row checks
+  // the whole list, so all of its partials agree)
   bool bad = false;
-  for (int j = tid; j < cnt; j += blockDim.x) {
+  for (int j = tid; j < cnt; j += kThreads) {
     const int pid = a.page_ids[(size_t)b * a.mk + j];
     bad |= pid < 0 || pid >= a.P;
   }
   bad = __syncthreads_or(bad);
+  float* pb = a.part + ((((size_t)b * a.N + n) * S + s) * R) * (hd + 2);
   if (bad) {
-    for (int i = tid; i < R * hd; i += blockDim.x) a.out[row0 * hd + i] = nan_f();
+    for (int i = tid; i < R * (hd + 2); i += kThreads) {
+      const int c = i % (hd + 2);
+      if (S == 1) {
+        if (c < hd) a.out[row0 * hd + (i / (hd + 2)) * hd + c] = nan_f();
+      } else {
+        pb[i] = c < hd ? nan_f() : (c == hd ? kNeg : 0.f);
+      }
+    }
     return;
   }
   const int kvl = a.kv_len[b];
 
-  for (int j = 0; j < cnt; ++j) {
+  // scores: column c, rows sg * RPT + u; p.V: column d, rows pg * RPT + u
+  const int c = tid % ps, sg = tid / ps;
+  const int d = tid % hd, pg = tid / hd;
+  float acc[RPT];
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
+
+  Codes<VB> codes;
+  if constexpr (Q) {
+    if (s < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + s], n);
+  }
+  for (int j = s; j < cnt; j += S) {
     __syncthreads();   // the previous page's readers are done
-    const int pid = a.page_ids[(size_t)b * a.mk + j];
     const int col0 = a.logical[(size_t)b * a.mk + j] * ps;
-    load_page(a, pid, n, k_s, v_s);
-    for (int r = tid; r < R; r += blockDim.x)
+    if constexpr (Q) {
+      codes.store(a, k_s, v_s);
+      if (j + S < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + j + S], n);
+    } else {
+      load_fp32(a, a.page_ids[(size_t)b * a.mk + j], n, k_s, v_s);
+    }
+    for (int r = tid; r < R; r += kThreads)
       keep_s[r] = a.keep[(((size_t)b * a.mk + j) * a.N + n) * R + r];
     __syncthreads();
 
-    // scores: s = (qq.k - fq.fk) * scale, masked to NEG
-    for (int i = tid; i < R * ps; i += blockDim.x) {
-      const int r = i / ps, c = i - r * ps;
-      const float* qr = q_s + r * hd;
-      const float* fr = fq_s + r * hd;
-      const float* kr = k_s + c * (hd + 1);
-      float s1 = 0.f, s2 = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        const float k = kr[d];
-        s1 = fmaf(qr[d], k, s1);
-        s2 = fmaf(fr[d], k - truncf(k), s2);
+    // scores: s = (qq.k - fq.fk) * scale, masked to NEG (0 in pad rows)
+    if (sg < ngrp) {
+      float s1[RPT], s2[RPT];
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) s1[u] = s2[u] = 0.f;
+      const float* kr = k_s + c * (hd + 4);
+      const float* qb = q_s + sg * RPT * hd;
+      const float* fb = fq_s + sg * RPT * hd;
+#pragma unroll 2
+      for (int e = 0; e < hd; e += 4) {
+        const float4 k = *reinterpret_cast<const float4*>(kr + e);
+        const float4 fk = make_float4(k.x - truncf(k.x), k.y - truncf(k.y),
+                                      k.z - truncf(k.z), k.w - truncf(k.w));
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const float4 q = *reinterpret_cast<const float4*>(qb + u * hd + e);
+          const float4 f = *reinterpret_cast<const float4*>(fb + u * hd + e);
+          s1[u] = fmaf(q.x, k.x, s1[u]); s2[u] = fmaf(f.x, fk.x, s2[u]);
+          s1[u] = fmaf(q.y, k.y, s1[u]); s2[u] = fmaf(f.y, fk.y, s2[u]);
+          s1[u] = fmaf(q.z, k.z, s1[u]); s2[u] = fmaf(f.z, fk.z, s2[u]);
+          s1[u] = fmaf(q.w, k.w, s1[u]); s2[u] = fmaf(f.w, fk.w, s2[u]);
+        }
       }
-      const float s = (a.approx ? s1 - s2 : s1) * a.scale;
-      const bool valid = col0 + c < kvl + r % a.Sq && keep_s[r] > 0;
-      s_s[i] = valid ? s : kNeg;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int r = sg * RPT + u;
+        const float sc = (a.approx ? s1[u] - s2[u] : s1[u]) * a.scale;
+        const bool valid = r < R && col0 + c < kvl + r % a.Sq && keep_s[r] > 0;
+        s_s[r * ps + c] = r < R ? (valid ? sc : kNeg) : 0.f;
+      }
     }
     __syncthreads();
 
     // per-row online-softmax statistics; p overwrites the scores
     for (int r = warp; r < R; r += nwarps) {
       float mx = kNeg;
-      for (int c = lane; c < ps; c += 32) mx = fmaxf(mx, s_s[r * ps + c]);
+      for (int cc = lane; cc < ps; cc += 32) mx = fmaxf(mx, s_s[r * ps + cc]);
       mx = warp_max(mx);
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
       const bool row_keep = keep_s[r] > 0;
       const int lim = kvl + r % a.Sq;
       float sum = 0.f;
-      for (int c = lane; c < ps; c += 32) {
-        const bool valid = row_keep && col0 + c < lim;
-        const float p = valid ? expf(s_s[r * ps + c] - m_new) : 0.f;
-        s_s[r * ps + c] = p;
+      for (int cc = lane; cc < ps; cc += 32) {
+        const bool valid = row_keep && col0 + cc < lim;
+        const float p = valid ? expf(s_s[r * ps + cc] - m_new) : 0.f;
+        s_s[r * ps + cc] = p;
         sum += p;
       }
       sum = warp_sum(sum);
@@ -233,65 +323,150 @@ fum_decode_kernel(const Args a) {
     __syncthreads();
 
     // acc = acc * corr + p.V
-    for (int i = tid; i < R * hd; i += blockDim.x) {
-      const int r = i / hd, d = i - r * hd;
-      const float* pr = s_s + r * ps;
-      float pv = 0.f;
-      for (int c = 0; c < ps; ++c) pv = fmaf(pr[c], v_s[c * hd + d], pv);
-      acc_s[i] = acc_s[i] * c_s[r] + pv;
+    if (pg < ngrp) {
+      float pv[RPT];
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) pv[u] = 0.f;
+      const float* pr = s_s + pg * RPT * ps;
+      int cc = 0;
+      if (ps % 4 == 0) {   // p four columns a load (rows 16-byte aligned)
+#pragma unroll 2
+        for (; cc < ps; cc += 4) {
+          const float v0 = v_s[cc * hd + d], v1 = v_s[(cc + 1) * hd + d];
+          const float v2 = v_s[(cc + 2) * hd + d], v3 = v_s[(cc + 3) * hd + d];
+#pragma unroll
+          for (int u = 0; u < RPT; ++u) {
+            const float4 p = *reinterpret_cast<const float4*>(pr + u * ps + cc);
+            pv[u] = fmaf(p.x, v0, pv[u]);
+            pv[u] = fmaf(p.y, v1, pv[u]);
+            pv[u] = fmaf(p.z, v2, pv[u]);
+            pv[u] = fmaf(p.w, v3, pv[u]);
+          }
+        }
+      }
+      for (; cc < ps; ++cc) {
+        const float v = v_s[cc * hd + d];
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) pv[u] = fmaf(pr[u * ps + cc], v, pv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int r = pg * RPT + u;
+        if (r < R) acc[u] = acc[u] * c_s[r] + pv[u];
+      }
     }
   }
   __syncthreads();
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    float l = l_s[i / hd];
-    l = l < 1e-30f ? 1e-30f : l;   // keeps NaN, like jnp.maximum
-    a.out[row0 * hd + i] = acc_s[i] / l;
+  if (pg < ngrp) {
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      const int r = pg * RPT + u;
+      if (r >= R) continue;
+      if (S == 1) {
+        float l = l_s[r];
+        l = l < 1e-30f ? 1e-30f : l;   // keeps NaN, like jnp.maximum
+        a.out[(row0 + r) * hd + d] = acc[u] / l;
+      } else {
+        float* pr = pb + (size_t)r * (hd + 2);
+        pr[d] = acc[u];
+        if (d == 0) {
+          pr[hd] = m_s[r];
+          pr[hd + 1] = l_s[r];
+        }
+      }
+    }
   }
 }
 
-// Dynamic shared memory of one (b, n) block: the layout at the top of
+// grid (B*N, R), a thread per d: out = sum_s acc_s e^(m_s - m*) /
+// max(sum_s l_s e^(m_s - m*), 1e-30) with m* = max_s m_s.
+__global__ void __launch_bounds__(128)
+fum_merge_kernel(const float* part, float* out, int R, int hd, int S) {
+  const int bn = blockIdx.x, r = blockIdx.y, W = hd + 2;
+  const float* pb = part + ((size_t)bn * S * R + r) * W;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float mx = kNeg;
+    for (int s = 0; s < S; ++s) mx = fmaxf(mx, pb[(size_t)s * R * W + hd]);
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* pr = pb + (size_t)s * R * W;
+      const float w = expf(pr[hd] - mx);
+      l += pr[hd + 1] * w;
+      acc += pr[d] * w;
+    }
+    l = l < 1e-30f ? 1e-30f : l;   // keeps NaN
+    out[((size_t)bn * R + r) * hd + d] = acc / l;
+  }
+}
+
+// Dynamic shared memory of one block: the layout at the top of
 // fum_decode_kernel.
-size_t smem_bytes(int R, int hd, int ps) {
-  return sizeof(float) * ((size_t)3 * R * hd + (size_t)ps * (hd + 1) +
-                          (size_t)ps * hd + (size_t)R * ps + 3 * (size_t)R) +
+size_t smem_bytes(int R, int Rp, int hd, int ps) {
+  return sizeof(float) * ((size_t)2 * Rp * hd + (size_t)ps * hd +
+                          (size_t)ps * (hd + 4) + (size_t)Rp * ps + 3 * (size_t)R) +
          sizeof(int) * (size_t)R;
+}
+
+template <bool Q, int VB, int RPT>
+int launch(Args a, cudaStream_t st) {
+  a.Rp = (a.R + RPT - 1) / RPT * RPT;
+  // above the 227 KB a block may use, the attribute call (and so the
+  // launch) is refused with cudaErrorInvalidValue
+  const size_t smem = smem_bytes(a.R, a.Rp, a.hd, a.ps);
+  cudaError_t err = cudaFuncSetAttribute(
+      fum_decode_kernel<Q, VB, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fum_decode_kernel<Q, VB, RPT><<<dim3(a.N, a.B, a.S), kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch
-// (0 = success). Nothing is synchronised and nothing is allocated.
+// Launches the kernel (and, for S > 1, the merge) on `stream`; returns
+// the first cudaError_t (0 = success). `part` holds B*N*S*G*Sq*(hd+2)
+// floats when S > 1 (unused for S = 1). ps <= 128, hd <= 128 and
+// hd % 4 == 0; G*Sq <= 16 * (256 / max(ps, hd)) (else
+// cudaErrorInvalidValue).
+// Nothing is synchronised and nothing is allocated.
 int hdp_paged_fum_decode_launch(
     const float* qq, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* page_ids,
     const int* logical, const int* counts, const int* keep,
-    const int* kv_len, float* out, int B, int N, int G, int Sq, int hd,
-    int ps, int mk, int P, int quantized, int approx, int int_bits,
-    int frac_bits, float scale, void* stream) {
+    const int* kv_len, float* out, float* part, int B, int N, int G, int Sq,
+    int hd, int ps, int mk, int P, int S, int quantized, int approx,
+    int int_bits, int frac_bits, float scale, void* stream) {
   Args a;
   a.qq = qq; a.k_pool = k_pool; a.v_pool = v_pool;
   a.k_scale = k_scale; a.v_scale = v_scale;
   a.page_ids = page_ids; a.logical = logical; a.counts = counts;
-  a.keep = keep; a.kv_len = kv_len; a.out = out;
+  a.keep = keep; a.kv_len = kv_len; a.out = out; a.part = part;
   a.B = B; a.N = N; a.R = G * Sq; a.Sq = Sq; a.hd = hd; a.ps = ps;
-  a.mk = mk; a.P = P;
-  a.quantized = quantized; a.approx = approx;
+  a.mk = mk; a.P = P; a.S = S;
+  a.approx = approx;
   a.grid = ldexpf(1.f, frac_bits);
   a.lo = -ldexpf(1.f, int_bits);
   a.hi = ldexpf(1.f, int_bits) - ldexpf(1.f, -frac_bits);
   a.scale = scale;   // 1/sqrt(hd) rounded once, as the plain version does
-  // above the 227 KB a block may use, the attribute call (and so the
-  // launch) is refused with cudaErrorInvalidValue
-  const size_t smem = smem_bytes(a.R, hd, ps);
-  cudaError_t err = cudaFuncSetAttribute(
-      fum_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ps < 1 || ps > 128 || hd < 4 || hd > 128 || hd % 4 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // rows a thread group takes: 4, or 16 when more groups than the
+  // threads hold would be needed
+  const int groups = kThreads / (ps > hd ? ps : hd);
+  const bool few = (a.R + 3) / 4 <= groups;
+  if (!few && (a.R + 15) / 16 > groups) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
-  fum_decode_kernel<<<dim3(N, B), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (!quantized) err = few ? launch<false, 4, 4>(a, st) : launch<false, 4, 16>(a, st);
+  else if (hd % 16 == 0 && reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(v_pool) % 16 == 0)
+    err = few ? launch<true, 16, 4>(a, st) : launch<true, 16, 16>(a, st);
+  else err = few ? launch<true, 4, 4>(a, st) : launch<true, 4, 16>(a, st);
+  if (err != 0 || S == 1) return err;
+  fum_merge_kernel<<<dim3(B * N, a.R), hd, 0, st>>>(part, out, a.R, hd, S);
   return static_cast<int>(cudaGetLastError());
 }
 

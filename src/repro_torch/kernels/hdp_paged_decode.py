@@ -6,20 +6,32 @@
 the scout (see ``csrc/hdp_paged_decode.cu`` for the kernel and its
 design). On a CUDA tensor the wrapper launches the kernel or raises; on
 a CPU tensor it runs the plain version ``ref.hdp_paged_fum_decode_ref``.
-``hdp_paged_fum_decode.launches`` counts kernel launches (the plain
-version does not count).
+
+The kernel splits each (b, n)'s listed pages across ``S`` blocks and
+merges their partial softmaxes in a second pass; ``fum_splits`` picks S
+from shapes and the SM count alone (about one block per SM), so no call
+waits on ``counts``. S = 1 ("single") writes the output in one pass;
+S > 1 ("split") adds the merge. ``hdp_paged_fum_decode.launches`` counts
+wrapper launches (the plain version does not count),
+``.launches_by_path`` them per mode.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
 
+#: the kernel's two modes: one pass, or pages split across blocks + merge
+PATHS = ("single", "split")
+#: the most rows (G*Sq) one thread takes; G*Sq <= this * (256 // max(ps, hd))
+ROWS_PER_THREAD = 16
+
 _lib: Optional[ctypes.CDLL] = None   # loaded (and built) at first launch
+_n_sm: Dict[int, int] = {}           # SM count per CUDA device index
 
 
 def _library() -> ctypes.CDLL:
@@ -28,7 +40,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("hdp_paged_decode")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hdp_paged_fum_decode_launch.argtypes = \
-            [p] * 11 + [i] * 12 + [ctypes.c_float, p]
+            [p] * 12 + [i] * 13 + [ctypes.c_float, p]
         lib.hdp_paged_fum_decode_launch.restype = i
         lib.hdp_paged_fum_decode_error_string.argtypes = [i]
         lib.hdp_paged_fum_decode_error_string.restype = ctypes.c_char_p
@@ -79,10 +91,26 @@ def _check(qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,
     return quantized
 
 
+def fum_splits(B: int, N: int, mk: int, n_sm: int) -> int:
+    """Blocks per (b, n) row of the FUM kernel: enough for about one block
+    per SM (``n_sm // (B*N)``), at most one per page slot (``mk``), at
+    least 1. A function of shapes alone: the kernel spreads the listed
+    pages over the S blocks itself, so no host sync on ``counts``."""
+    return max(1, min(mk, n_sm // max(1, B * N)))
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]
+
+
 def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
                          keep, kv_len, *, approx: bool = True,
                          int_bits: int = 4, frac_bits: int = 12,
-                         k_scale=None, v_scale=None) -> torch.Tensor:
+                         k_scale=None, v_scale=None,
+                         splits: Optional[int] = None) -> torch.Tensor:
     """qq [B,N,G,Sq,hd] fp32 fixed-grid queries; k/v_pool [P,ps,N,hd]
     page pools (int8 codes with ``k_scale``/``v_scale`` [P,N] fp32, or
     fp32 values without); page_ids/logical [B,mk] int32 pool id / slot
@@ -90,9 +118,13 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
     ``counts`` [B] int32; keep [B,mk,N,G,Sq] int32 per-row keep; kv_len
     [B] int32 valid KV extent of query row 0 (row j's is kv_len + j).
     Returns [B,N,G,Sq,hd] fp32; the caller applies the head gate. Pages
-    absent from ``page_ids[:, :counts]`` are never read."""
+    absent from ``page_ids[:, :counts]`` are never read. ``splits`` forces
+    S (1: the one-pass kernel), to hold the modes against each other; by
+    default the wrapper takes ``fum_splits``'s choice."""
     quantized = _check(qq, k_pool, v_pool, page_ids, logical, counts, keep,
                        kv_len, k_scale, v_scale)
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
     if qq.device.type == "cpu":
         return hdp_paged_fum_decode_ref(
             qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,
@@ -102,13 +134,23 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
         raise ValueError(f"no kernel for device {qq.device}")
     B, N, G, Sq, hd = qq.shape
     P, ps = k_pool.shape[:2]
-    # the kernel loads four pool elements at a time
-    if hd % 4 or any(t.data_ptr() % (4 * t.element_size())
-                     for t in (k_pool, v_pool)):
-        raise ValueError(f"the kernel needs hd % 4 == 0 and pools aligned "
-                         f"to four elements, got hd={hd}")
+    mk = page_ids.shape[1]
+    # the kernel loads four pool elements at a time (sixteen int8 codes
+    # where hd and the pools allow)
+    if hd % 4 or not 4 <= hd <= 128 or any(
+            t.data_ptr() % (4 * t.element_size()) for t in (k_pool, v_pool)):
+        raise ValueError(f"the kernel needs hd a multiple of 4 up to 128 and "
+                         f"pools aligned to four elements, got hd={hd}")
+    if not 1 <= ps <= 128 or G * Sq > ROWS_PER_THREAD * (256 // max(ps, hd)):
+        raise ValueError(f"the kernel takes pages of 1 to 128 positions and "
+                         f"G*Sq <= {ROWS_PER_THREAD} * (256 // max(ps, hd)), "
+                         f"got ps={ps}, hd={hd}, G*Sq={G * Sq}")
+    S = splits if splits is not None else fum_splits(B, N, mk,
+                                                     _sm_count(qq.device))
     lib = _library()
     out = torch.empty_like(qq)
+    part = torch.empty((B, N, S, G * Sq, hd + 2) if S > 1 else (0,),
+                       dtype=torch.float32, device=qq.device)
     vp = ctypes.c_void_p
     with torch.cuda.device(qq.device):
         stream = torch.cuda.current_stream(qq.device).cuda_stream
@@ -118,17 +160,19 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
             vp(v_scale.data_ptr() if quantized else 0),
             vp(page_ids.data_ptr()), vp(logical.data_ptr()),
             vp(counts.data_ptr()), vp(keep.data_ptr()),
-            vp(kv_len.data_ptr()), vp(out.data_ptr()),
-            B, N, G, Sq, hd, ps, page_ids.shape[1], P, int(quantized),
+            vp(kv_len.data_ptr()), vp(out.data_ptr()), vp(part.data_ptr()),
+            B, N, G, Sq, hd, ps, mk, P, S, int(quantized),
             int(approx), int_bits, frac_bits,
             ctypes.c_float(1.0 / (hd ** 0.5)), vp(stream))
     if err != 0:
         # e.g. a G*Sq x hd x ps block over the 227 KB of shared memory
         msg = lib.hdp_paged_fum_decode_error_string(err).decode()
         raise RuntimeError(f"hdp_paged_fum_decode launch failed for "
-                           f"G*Sq={G * Sq}, hd={hd}, ps={ps}: {msg}")
+                           f"G*Sq={G * Sq}, hd={hd}, ps={ps}, S={S}: {msg}")
     hdp_paged_fum_decode.launches += 1
+    hdp_paged_fum_decode.launches_by_path["single" if S == 1 else "split"] += 1
     return out
 
 
 hdp_paged_fum_decode.launches = 0
+hdp_paged_fum_decode.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -33,7 +33,8 @@ BIG = 1e30
 def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
                              keep, kv_len, *, approx: bool = True,
                              int_bits: int = 4, frac_bits: int = 12,
-                             k_scale=None, v_scale=None) -> torch.Tensor:
+                             k_scale=None, v_scale=None,
+                             partial: bool = False):
     """Gather-free FUM decode, as a loop over each row's kept pages.
 
     qq [B,N,G,Sq,hd] fixed-grid queries; k/v_pool [P,ps,N,hd] page pools,
@@ -48,7 +49,9 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
     softmax (NEG = -1e30, invalid p = 0, l floored at 1e-30) runs across
     pages. int8 K and V decode as codes × scale, code -128 to NaN; an fp32
     pool's K is snapped to the fixed-point grid. Returns [B,N,G,Sq,hd]
-    (head gate applied by the caller)."""
+    (head gate applied by the caller); with ``partial`` the softmax state
+    instead, (acc [B,N,G,Sq,hd] unnormalized, m and l [B,N,G,Sq]), which
+    the kernel's blocks merge when they split a row's pages."""
     B, N, G, Sq, hd = qq.shape
     ps = k_pool.shape[1]
     R = G * Sq
@@ -59,6 +62,7 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
     sq_idx = torch.arange(R, device=qq.device) % Sq
     cols_in_page = torch.arange(ps, device=qq.device)
     out = torch.empty((B, N, R, hd), dtype=F32, device=qq.device)
+    ms, ls = torch.empty((2, B, N, R), dtype=F32, device=qq.device)
     for b, cnt in enumerate(counts.tolist()):
         m = torch.full((N, R), NEG, dtype=F32, device=qq.device)
         l = torch.zeros((N, R), dtype=F32, device=qq.device)
@@ -86,7 +90,13 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
             l = l * corr + p.sum(-1)
             m = m_new
             acc = acc * corr[..., None] + torch.einsum("nrp,pnh->nrh", p, v)
-        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+        if partial:
+            out[b], ms[b], ls[b] = acc, m, l
+        else:
+            out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+    if partial:
+        return (out.reshape(B, N, G, Sq, hd), ms.reshape(B, N, G, Sq),
+                ls.reshape(B, N, G, Sq))
     return out.reshape(B, N, G, Sq, hd).to(qq.dtype)
 
 

@@ -7,8 +7,9 @@ traffic of ``chip_smoke.py``) at full width on the card, runs three
 decode steps to warm up (admission happens in the first), then profiles
 ``--steps`` steps and
 prints one JSON line: wall time per step, device busy time per step (the
-sum of kernel time), the device's idle share, the FUM kernel's share,
-and the top operators by device time and by host time. ``--trace PATH``
+sum of kernel time), the device's idle share, the FUM kernel's share
+(its split pass and merge) and launches per mode, and the top operators
+by device time and by host time. ``--trace PATH``
 also writes the Chrome trace.
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.serving import Engine, Request
 
     cfg = get_config(args.arch)
@@ -56,6 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for _ in range(warmup):
         eng.step()
     torch.cuda.synchronize()
+    hdp_paged_fum_decode.launches_by_path = dict.fromkeys(
+        hdp_paged_fum_decode.launches_by_path, 0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -75,7 +79,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return e.self_device_time_total
 
     busy_us = sum(dev_us(e) for e in kernels)
-    fum_us = sum(dev_us(e) for e in kernels if "fum_decode" in e.key)
+    fum_us = sum(dev_us(e) for e in kernels if "fum_" in e.key)
     by_dev = sorted(kernels, key=dev_us, reverse=True)[:top]
     by_host = sorted(host, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:top]
@@ -87,6 +91,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "fum_kernel_ms_per_step": fum_us / 1e3 / args.steps,
+        "fum_launches_per_step": {
+            m: n / args.steps
+            for m, n in hdp_paged_fum_decode.launches_by_path.items()},
         "device_ops_per_step": n_kernels / args.steps,
         "top_device_ms_per_step": [[e.key[:100], dev_us(e) / 1e3 / args.steps]
                                    for e in by_dev],

@@ -59,7 +59,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             for fn in (hdp_scout, hdp_block_sparse_attention,
                        flash_attention):
                 fn.launches = 0
-            for fn in (hdp_block_sparse_attention, flash_attention):
+            for fn in (hdp_scout, hdp_block_sparse_attention,
+                       flash_attention):
                 fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -81,11 +82,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 "device_busy_ms_per_prefill": busy_us / 1e3 / args.runs,
                 "device_idle_share": 1.0 - busy_us / 1e6 / wall,
                 "launches_per_prefill": {
-                    "hdp_scout": hdp_scout.launches / args.runs,
-                    **{fn.__name__: {p: n / args.runs for p, n in
-                                     fn.launches_by_path.items()}
-                       for fn in (hdp_block_sparse_attention,
-                                  flash_attention)}},
+                    fn.__name__: {p: n / args.runs for p, n in
+                                  fn.launches_by_path.items()}
+                    for fn in (hdp_scout, hdp_block_sparse_attention,
+                               flash_attention)},
                 "top_device_ms_per_prefill": [
                     [e.key[:100], e.self_device_time_total / 1e3 / args.runs,
                      e.count / args.runs] for e in by_dev],

@@ -30,11 +30,17 @@ never JAX nor the JAX package. Phases:
    inputs; the reduced config's logits on the card equal the CPU's, in
    fp32 and in bf16, its scout on the dp4a path;
 5. serving — the same weights serve 8 requests through
-   ``Engine.submit``/``run``: the default engine launches the FUM kernel
-   once per layer per decode step (pages split across blocks),
-   ``Engine(attn="pallas_hdp_block")``
-   the block kernel on its tile path; a reduced config served on the
-   card must give the CPU's tokens;
+   ``Engine.submit``/``run``, first eagerly (``cuda_graph=False``, each
+   FUM call recorded and the busiest held against the plain version),
+   then on the decode step's CUDA graph at horizons 1 and 4 (the main
+   path): identical tokens, the FUM kernel once per layer per decode
+   step (pages split across blocks), as torch.profiler counts its runs
+   on the card over the whole graphed horizon-1 serve, and the graph
+   faster than the eager steps; ``Engine(attn="pallas_hdp_block")`` the
+   block kernel on its tile path, eagerly and graphed (profiled), with
+   identical tokens; prompts of 2,500
+   and 4,000 tokens through chunked prefill; the reduced config graphed
+   on the card, with one prompt chunked, must give the CPU's tokens;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -50,6 +56,7 @@ without that last line.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -759,7 +766,123 @@ def zero_launches():
 
 
 # ------------------------------------------------------------ phase 5
+SERVE_KW = dict(max_batch=8, max_len=1056, prefill_buckets=(256, 512, 1024),
+                collect_stats=True)
+LONG_PROMPTS, LONG_MAX_LEN = (2500, 4000), 4128
+
+
+#: decode kernel -> the names of its CUDA kernels as the profiler lists
+#: them (the block route's decode runs the tile path)
+DEVICE_KERNELS = {"fum": ("fum_decode_kernel", "fum_merge_kernel"),
+                  "block": ("tile_kernel",)}
+
+
+def serve(torch, eng, prompts, max_new, profiled=False):
+    """Serve ``prompts`` through ``eng`` with every launch count zeroed
+    first. Returns (tokens by uid, summary, wall s, FUM and block wrapper
+    launches by path, and with ``profiled`` the runs of each of their
+    CUDA kernels on the card over the whole serve, counted by
+    torch.profiler: the only count of what a graph's replays ran)."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.serving import Request
+    torch.cuda.synchronize()
+    zero_launches()
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with prof:
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=max_new))
+        res = eng.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seen = None
+    if profiled:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        seen = {k: {name: sum(e.count for e in kernels
+                              if re.search(rf"\b{name}\b", e.key))
+                    for name in names}
+                for k, names in DEVICE_KERNELS.items()}
+    s = eng.summary()
+    check(len(res) == len(prompts) and all(
+        r.complete and r.status == "ok" and len(r.tokens) == max_new
+        and all(0 <= t < eng.cfg.vocab_size for t in r.tokens)
+        for r in res.values()),
+        f"not every request completed with {max_new} tokens: "
+        f"{[(u, r.status, r.error, len(r.tokens)) for u, r in res.items()]}")
+    launches = {"fum": dict(hdp_paged_fum_decode.launches_by_path),
+                "block": dict(hdp_block_sparse_attention.launches_by_path)}
+    return {u: r.tokens for u, r in res.items()}, s, wall, launches, seen
+
+
+def check_decode_launches(s, launches, kernel, label, seen=None):
+    """The engine counts 28 launches of ``kernel`` ("fum" or "block") per
+    decode step and none of the other. Eagerly the wrapper counts the
+    same. Graphed, the wrapper is called twice per layer and capture:
+    the eager warm-up step and the capture, which records the kernel
+    and runs nothing; the replays never call it. The profiler's count
+    of each CUDA kernel of ``kernel`` (``seen``) must be the engine's
+    plus the warm-up step's: the launches the replays really ran."""
+    other = "block" if kernel == "fum" else "fum"
+    steps, caps = s["decode_steps"], s["graph_captures"]
+    n = s[f"{kernel}_kernel_launches"]
+    wrapper = sum(launches[kernel].values())
+    want_wrapper = 2 * N_LAYERS_QWEN * caps if caps else n
+    check(n == N_LAYERS_QWEN * steps and n > 0
+          and s[f"{other}_kernel_launches"] == 0
+          and not any(launches[other].values()),
+          f"{label}: {kernel} kernel launched {n} times by the decode steps "
+          f"(other kernel {s[f'{other}_kernel_launches']}), expected "
+          f"{N_LAYERS_QWEN} x {steps} decode steps")
+    check(wrapper == want_wrapper,
+          f"{label}: the {kernel} wrapper counted {wrapper} launches, "
+          f"expected {want_wrapper}")
+    if seen is not None:
+        want = n + N_LAYERS_QWEN * caps
+        check(all(c == want for c in seen[kernel].values())
+              and not any(seen[other].values()),
+              f"{label}: the profiler saw {seen}, expected {want} runs of "
+              f"each {kernel} kernel ({N_LAYERS_QWEN} layers x {steps} "
+              f"decode steps + {caps} warm-up step(s)) and none of "
+              f"{other}'s")
+        log(f"[serve] {label}: the profiler saw {seen[kernel]} on the card "
+            f"= {N_LAYERS_QWEN} layers x ({steps} decode steps + {caps} "
+            f"warm-up step), the engine counted {n} for the steps, the "
+            f"wrapper {launches[kernel]} (warm-up and capture)")
+
+
+def log_served(label, s, wall):
+    log(f"[serve] {label}: wall {wall:.2f} s, prefill_s "
+        f"{s['prefill_s']:.3f}, decode_tok_s {s['decode_tok_s']:.1f} "
+        f"(without the graph's capture {s['decode_tok_s_steady']:.1f}), "
+        f"decode_steps {s['decode_steps']}, decode_horizon "
+        f"{s['decode_horizon']}, cuda_graph {s['cuda_graph']}, FUM/block "
+        f"launches {s['fum_kernel_launches']}/{s['block_kernel_launches']}, "
+        f"block/head/page sparsity {s['block_sparsity']:.4f}/"
+        f"{s['head_sparsity']:.4f}/{s['page_sparsity']:.4f}")
+    if s["graph_captures"]:
+        log(f"[serve] {label}: decode graph captured "
+            f"{s['graph_captures']}x in {s['graph_capture_s']:.3f} s "
+            "(with its eager warm-up step), memory it holds: allocated "
+            f"{s['graph_allocated_bytes'] / 2**20:.2f} MiB, reserved "
+            f"{s['graph_reserved_bytes'] / 2**20:.2f} MiB")
+
+
 def phase_serving(torch, cfg, params):
+    """The serving traffic eagerly (the FUM kernel recorded and held
+    against its plain version at the path's call that kept the most
+    pages), then on the decode graph at horizons 1 and 4 (tokens equal
+    the eager run's, launches 28 per step, cross-checked by the
+    profiler); the block decode route eagerly and graphed; chunked
+    prefill of 2,500 and 4,000 tokens; the reduced config graphed on the
+    card against the CPU, with a chunked prompt."""
     import numpy as np
     import repro_torch.models.attention as attention
     from repro_torch.configs import reduced
@@ -767,63 +890,44 @@ def phase_serving(torch, cfg, params):
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     from repro_torch.serving import Engine, Request
-    serve_kw = dict(max_batch=8, max_len=1056,
-                    prefill_buckets=(256, 512, 1024), collect_stats=True)
-    eng = Engine(cfg, params, device="cuda", **serve_kw)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(200, 1001, size=8)]
-    # keep the inputs of every FUM call of the path, to hold the kernel
-    # against its plain version on the one that kept the most pages (the
-    # pool only grows past each call's kv_len, which the call masks)
+    log(f"[serve] prompt lengths {[len(p) for p in prompts]}")
+    out = {}
+
+    # eagerly, keeping the inputs of every FUM call of the path, to hold
+    # the kernel against its plain version on the one that kept the most
+    # pages (the pool only grows past each call's kv_len, which the call
+    # masks); a graph's replays would overwrite the recorded buffers
     calls = []
 
     def recording(*args, **kw):
         calls.append((args, kw))
         return hdp_paged_fum_decode(*args, **kw)
 
+    eng = Engine(cfg, params, device="cuda", cuda_graph=False, **SERVE_KW)
     torch.cuda.reset_peak_memory_stats()
     attention.hdp_paged_fum_decode = recording
-    zero_launches()
     try:
-        t0 = time.perf_counter()
-        for uid, p in enumerate(prompts):
-            eng.submit(Request(uid, p, max_new_tokens=32))
-        res = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = hdp_paged_fum_decode.launches
-        fum_paths = dict(hdp_paged_fum_decode.launches_by_path)
+        eager_tok, s, wall, launches, _ = serve(torch, eng, prompts, 32)
     finally:
         attention.hdp_paged_fum_decode = hdp_paged_fum_decode
-    s = eng.summary()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] prompt lengths {[len(p) for p in prompts]}")
-    log(f"[serve] wall {wall:.2f} s, prefill_s {s['prefill_s']:.3f}, "
-        f"decode_tok_s {s['decode_tok_s']:.1f}, decode_steps "
-        f"{s['decode_steps']}, block/head/page sparsity "
-        f"{s['block_sparsity']:.4f}/{s['head_sparsity']:.4f}/"
-        f"{s['page_sparsity']:.4f}, cache_bytes_per_token "
-        f"{s['cache_bytes_per_token']}, peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+    del eng
+    eager_tok_s = s["decode_tok_s"]
+    log_served("eager, horizon 1", s, wall)
     log(f"[serve] summary {json.dumps(s, default=str)}")
-    check(len(res) == 8 and all(r.complete and r.status == "ok"
-                                for r in res.values()),
-          f"not every request completed: "
-          f"{[(u, r.status, r.error) for u, r in res.items()]}")
-    check(all(len(r.tokens) == 32 and all(0 <= t < cfg.vocab_size
-                                          for t in r.tokens)
-              for r in res.values()), "wrong token counts or ids")
+    log(f"[serve] cache_bytes_per_token {s['cache_bytes_per_token']}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(s["attn_decode_stage3"].startswith("cuda"),
           f"decode stage 3 resolved to {s['attn_decode_stage3']}")
-    check(launches == N_LAYERS_QWEN * s["decode_steps"] and launches > 0,
-          f"FUM kernel launched {launches} times, expected "
-          f"{N_LAYERS_QWEN} x {s['decode_steps']} decode steps")
-    check(fum_paths["split"] == launches,
-          f"FUM launches by mode {fum_paths}: expected every launch split "
-          "across blocks")
-    log(f"[serve] FUM kernel launches {launches} = {N_LAYERS_QWEN} layers "
-        f"x {s['decode_steps']} decode steps, by mode {fum_paths}")
+    check_decode_launches(s, launches, "fum", "eager")
+    check(launches["fum"]["split"] == s["fum_kernel_launches"],
+          f"FUM launches by mode {launches['fum']}: expected every launch "
+          "split across blocks")
+    log(f"[serve] eager: FUM kernel launches {s['fum_kernel_launches']} = "
+        f"{N_LAYERS_QWEN} layers x {s['decode_steps']} decode steps, by "
+        f"mode {launches['fum']}")
     kept = torch.stack([args[5].sum() for args, _ in calls]).tolist()
     check(max(kept) > 0, "no FUM call of the path kept a page")
     args, kw = calls[max(range(len(calls)), key=kept.__getitem__)]
@@ -831,88 +935,155 @@ def phase_serving(torch, cfg, params):
     ref = hdp_paged_fum_decode_ref(*args, **kw)
     path_err = {}
     for mode, splits in (("split", None), ("single", 1)):
-        out = hdp_paged_fum_decode(*args, **kw, splits=splits)
+        got = hdp_paged_fum_decode(*args, **kw, splits=splits)
         torch.cuda.synchronize()
-        path_err[mode] = (out - ref).abs().max().item()
-        check(bool(torch.isfinite(out).all()) and torch.allclose(
-            out, ref, atol=ATOL, rtol=RTOL),
+        path_err[mode] = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=ATOL, rtol=RTOL),
             f"kernel [{mode}] vs plain at the path's own inputs: max |err| "
             f"{path_err[mode]:.3e}")
     log(f"[serve] kernel vs plain at the path's call that kept the most "
         f"pages (qq {tuple(args[0].shape)}, page lists "
         f"{tuple(args[3].shape)}, {max(kept)} pages kept): max |err| "
         f"{path_err}")
+    del args, kw, ref
 
-    # agreement with a reference on a small input: the reduced config on
-    # the card (kernel) and on the CPU (plain version), same weights
-    small = reduced(cfg)
-    kw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
-    gpu = Engine(small, device="cuda", seed=1, **kw)
-    cpu_params = {k: _tree_to(v, "cpu") for k, v in gpu.params.items()}
-    cpu = Engine(small, cpu_params, device="cpu", **kw)
-    prng = np.random.default_rng(3)
-    sp = [prng.integers(1, 250, size=int(prng.integers(4, 24))).tolist()
-          for _ in range(4)]
-    toks = []
-    for e in (gpu, cpu):
-        for uid, p in enumerate(sp):
-            e.submit(Request(uid, p, max_new_tokens=8))
-        toks.append({u: r.tokens for u, r in e.run().items()})
-    check(toks[0] == toks[1], f"reduced qwen2 tokens differ card vs CPU: "
-          f"{toks[0]} vs {toks[1]}")
-    log("[serve] reduced qwen2-1.5b: card tokens == CPU plain-path tokens")
+    # the main path: the decode step as one CUDA graph, horizons 1 and 4;
+    # the profiler counts what the horizon-1 run ran on the card (its
+    # decode_tok_s is taken under the profiler, horizon 4's without)
+    for horizon in (1, 4):
+        eng = Engine(cfg, params, device="cuda", decode_horizon=horizon,
+                     **SERVE_KW)
+        tok, s, wall, launches, seen = serve(torch, eng, prompts, 32,
+                                             profiled=horizon == 1)
+        del eng
+        label = f"graphed, horizon {horizon}"
+        log_served(label + (", under the profiler" if seen else ""), s, wall)
+        check(tok == eager_tok, f"{label}: tokens differ from the eager "
+              f"run's: {tok} vs {eager_tok}")
+        check(s["graph_captures"] == 1, f"{label}: {s['graph_captures']} "
+              "graph captures, expected 1")
+        check_decode_launches(s, launches, "fum", label, seen)
+        check(launches["fum"]["split"] == sum(launches["fum"].values()),
+              f"{label}: FUM launches by mode {launches['fum']}: expected "
+              "every launch split across blocks")
+        log(f"[serve] {label}: tokens == the eager run's; FUM kernel "
+            f"launches {s['fum_kernel_launches']} = {N_LAYERS_QWEN} layers "
+            f"x {s['decode_steps']} decode steps")
+        check(s["decode_tok_s"] > eager_tok_s,
+              f"{label}: decode_tok_s {s['decode_tok_s']:.1f} is not above "
+              f"the eager run's {eager_tok_s:.1f}")
+        if seen:
+            # every wrapper call was split, so the single mode ran nothing
+            out["fum"] = {"split": seen["fum"]["fum_decode_kernel"],
+                          "single": launches["fum"]["single"]}
 
     # the paged decode through the block-sparse kernel on a densified
-    # gather: once per layer per decode step, FUM kernel not at all
-    beng = Engine(cfg, params, device="cuda", attn="pallas_hdp_block",
-                  **serve_kw)
-    check(beng.resolved_backend("decode") == "pallas_hdp_block",
-          f"attn=pallas_hdp_block decode resolved to "
-          f"{beng.resolved_backend('decode')}")
-    rec = Recorder(hdp_block_sparse_attention, key=live_blocks)
-    attention.hdp_block_sparse_attention = rec
-    zero_launches()
-    try:
-        t0 = time.perf_counter()
-        for uid, p in enumerate(prompts):
-            beng.submit(Request(uid, p, max_new_tokens=16))
-        bres = beng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        blaunches = hdp_block_sparse_attention.launches
-        btile = hdp_block_sparse_attention.launches_by_path["tile"]
-        fum_after = hdp_paged_fum_decode.launches
-    finally:
-        attention.hdp_block_sparse_attention = hdp_block_sparse_attention
-    bs = beng.summary()
-    check(len(bres) == 8 and all(r.complete and r.status == "ok"
-                                 and len(r.tokens) == 16
-                                 for r in bres.values()),
-          f"attn=pallas_hdp_block: not every request completed: "
-          f"{[(u, r.status, r.error) for u, r in bres.items()]}")
-    check(bs["attn_decode_stage3"] == "cuda:hdp_block_sparse_attention",
-          f"decode stage 3 resolved to {bs['attn_decode_stage3']}")
-    check(blaunches == N_LAYERS_QWEN * bs["decode_steps"] and blaunches > 0
-          and fum_after == 0 and btile == blaunches,
-          f"block kernel launched {blaunches} times ({btile} on the tile "
-          f"path; FUM {fum_after}), "
-          f"expected {N_LAYERS_QWEN} x {bs['decode_steps']} decode steps")
-    log(f"[serve] attn=pallas_hdp_block: wall {wall:.2f} s, decode_tok_s "
-        f"{bs['decode_tok_s']:.1f}, block kernel launches (tile path) "
-        f"{blaunches} = "
-        f"{N_LAYERS_QWEN} layers x {bs['decode_steps']} decode steps, "
-        f"block/head/page sparsity {bs['block_sparsity']:.4f}/"
-        f"{bs['head_sparsity']:.4f}/{bs['page_sparsity']:.4f}")
+    # gather: once per layer per decode step, FUM kernel not at all;
+    # eagerly (recorded), then graphed at horizon 4
+    block_tok = {}
+    for graphed in (False, True):
+        beng = Engine(cfg, params, device="cuda", attn="pallas_hdp_block",
+                      cuda_graph=graphed, decode_horizon=4 if graphed else 1,
+                      **SERVE_KW)
+        check(beng.resolved_backend("decode") == "pallas_hdp_block",
+              f"attn=pallas_hdp_block decode resolved to "
+              f"{beng.resolved_backend('decode')}")
+        if not graphed:
+            rec = Recorder(hdp_block_sparse_attention, key=live_blocks)
+            attention.hdp_block_sparse_attention = rec
+        try:
+            block_tok[graphed], bs, wall, launches, seen = serve(
+                torch, beng, prompts, 16, profiled=graphed)
+        finally:
+            attention.hdp_block_sparse_attention = hdp_block_sparse_attention
+        del beng
+        label = ("attn=pallas_hdp_block, "
+                 + ("graphed, horizon 4" if graphed else "eager, horizon 1"))
+        log_served(label, bs, wall)
+        check(bs["attn_decode_stage3"] == "cuda:hdp_block_sparse_attention",
+              f"decode stage 3 resolved to {bs['attn_decode_stage3']}")
+        check_decode_launches(bs, launches, "block", label, seen)
+        check(launches["block"]["tile"] == sum(launches["block"].values()),
+              f"{label}: block launches {launches['block']}, expected all "
+              "on the tile path")
+        log(f"[serve] {label}: block kernel launches (tile path) "
+            f"{bs['block_kernel_launches']} = {N_LAYERS_QWEN} layers x "
+            f"{bs['decode_steps']} decode steps")
+        if graphed:
+            out["block_tile"] = seen["block"]["tile_kernel"]
+    check(block_tok[True] == block_tok[False],
+          "attn=pallas_hdp_block: graphed tokens differ from the eager run's")
+    log("[serve] attn=pallas_hdp_block: graphed horizon-4 tokens == eager")
     check(rec.score > 0, "no block-kernel call of the decode route loaded "
           "a block")
     args, kw = rec.best
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **kw)
-    block_err = check_block(
+    check_block(
         torch, f"hdp_block_sparse_attention at the decode route's call that "
         f"kept the most blocks ({rec.score}; q {tuple(args[0].shape)}, "
         f"k/v {tuple(args[1].shape)})", c, path="tile")
-    return fum_paths, path_err, blaunches, rec.best
+
+    # chunked prefill at full width: 1,024-token chunks plus the tail
+    long_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                    for n in LONG_PROMPTS]
+    leng = Engine(cfg, params, device="cuda", max_batch=2,
+                  max_len=LONG_MAX_LEN, prefill_buckets=(256, 512, 1024),
+                  decode_horizon=4, collect_stats=True)
+    chunks = []
+    chunk_step = leng._chunk_step
+
+    def counting(prompt, cache, off):
+        nxt = chunk_step(prompt, cache, off)
+        chunks.append((len(prompt), off, nxt - off))
+        return nxt
+
+    leng._chunk_step = counting
+    _, ls, wall, launches, _ = serve(torch, leng, long_prompts, 32)
+    del leng
+    want = []
+    for n in LONG_PROMPTS:
+        off = 0
+        while off < n:
+            clen = 1024 if n - off >= 1024 else next(
+                b for b in (256, 512, 1024) if b >= n - off)
+            want.append((n, off, clen))
+            off += clen
+    log_served(f"chunked prefill of {list(LONG_PROMPTS)} tokens", ls, wall)
+    check(chunks == want and ls["prefill_calls"] == 2
+          and ls["prefill_tokens"] == sum(c for *_, c in want),
+          f"chunked prefill ran chunks {chunks} ({ls['prefill_calls']} "
+          f"prefills, {ls['prefill_tokens']} tokens), expected {want}")
+    check_decode_launches(ls, launches, "fum", "chunked prefill")
+    log(f"[serve] chunked prefill: {len(chunks)} chunk calls "
+        f"(prompt, offset, length) {chunks}, prefill_s "
+        f"{ls['prefill_s']:.3f}, both requests complete")
+
+    # agreement with a reference on a small input: the reduced config
+    # graphed at horizon 4 on the card (kernels) and on the CPU (plain
+    # versions), same weights, one prompt chunked (40 > bucket 32)
+    small = reduced(cfg)
+    kw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
+    gpu = Engine(small, device="cuda", seed=1, decode_horizon=4, **kw)
+    cpu_params = {k: _tree_to(v, "cpu") for k, v in gpu.params.items()}
+    cpu = Engine(small, cpu_params, device="cpu", **kw)
+    prng = np.random.default_rng(3)
+    sp = [prng.integers(1, 250, size=int(prng.integers(4, 24))).tolist()
+          for _ in range(4)] + [prng.integers(1, 250, size=40).tolist()]
+    toks = []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        toks.append({u: r.tokens for u, r in e.run().items()})
+    check(gpu.metrics["graph_captures"] == 1 and
+          gpu.metrics["prefill_calls"] == cpu.metrics["prefill_calls"],
+          f"reduced qwen2: card engine {gpu.metrics}")
+    check(toks[0] == toks[1], f"reduced qwen2 tokens differ card vs CPU: "
+          f"{toks[0]} vs {toks[1]}")
+    log("[serve] reduced qwen2-1.5b (one prompt of 40 tokens chunked): "
+        "card tokens (graphed, horizon 4) == CPU plain-path tokens")
+    return out, path_err, rec.best
 
 
 def _tree_to(tree, dev):
@@ -1166,7 +1337,7 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.1f} s")
             prefill_launches, calls = phase_aligned_prefill(
                 torch, cfg, params)
-            fum_launches, path_err, block_engine_launches, block_tile_call = \
+            serve_launches, path_err, block_tile_call = \
                 phase_serving(torch, cfg, params)
             fum_timed = phase_timing(torch, main_case)
             timed = phase_timing_prefill(torch, calls, block_tile_call)
@@ -1182,7 +1353,7 @@ def main() -> int:
             "path": mode, "route": "cuda",
             "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
             "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
-            "launches": fum_launches[mode],
+            "launches": serve_launches["fum"][mode],
             "max_abs_err": max(fum_err[mode], path_err[mode]),
             "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
@@ -1205,7 +1376,7 @@ def main() -> int:
             prefill_launches["flash_attention"]),
         "hdp_block_sparse_attention[tile]": (
             "tile", "hdp_block_attn.cu", "hdp_block_attn.py:91",
-            block_engine_launches),
+            serve_launches["block_tile"]),
         "flash_attention[tile]": (
             "tile", "flash_attention.cu", "flash_attention.py:69",
             prefill_launches["flash_attention[tile]"]),

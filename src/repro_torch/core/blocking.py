@@ -39,7 +39,9 @@ def row_threshold(theta: torch.Tensor, rho_b,
 
     theta: [..., R, C]; valid: optional bool [..., R, C] marking blocks
     that take part in the statistics. Returns [..., R, 1]."""
-    rho = torch.tensor(rho_b, dtype=theta.dtype, device=theta.device)
+    # filled in on the device (not copied from the host): CUDA graph
+    # capture of the decode step records it
+    rho = torch.full((), rho_b, dtype=theta.dtype, device=theta.device)
     if valid is None:
         tmin = theta.amin(dim=-1, keepdim=True)
         tmax = theta.amax(dim=-1, keepdim=True)

@@ -15,7 +15,9 @@ products, ``fixed_limbs``) for bf16 V, hd 64 or 128 and blocks of 64 or
 128 rows and columns, the aligned prefill's shapes; the CUDA-core tile
 kernel for the rest (fp32 V, as the paged decode's densified route
 passes, and small blocks or head sizes). ``hdp_block_sparse_attention
-.launches`` counts kernel launches, ``.launches_by_path`` them per path.
+.launches`` counts kernel launches, ``.launches_by_path`` them per path;
+a call under CUDA graph capture counts once, where it records the
+kernel, and the graph's replays do not call the wrapper.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import hdp_block_sparse_attention_plain
+from repro_torch.kernels.ref import (f32_scalar,
+                                     hdp_block_sparse_attention_plain)
 
 F32 = torch.float32
 
@@ -151,8 +154,7 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
     lens = None if kv_len is None else kv_len.to(i32).contiguous()
     ss = None
     if score_scale is not None:
-        ss = torch.as_tensor(score_scale, dtype=torch.float32,
-                             device=q.device).reshape(1).contiguous()
+        ss = f32_scalar(score_scale, q.device).reshape(1).contiguous()
     out = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     lib = _library(path)
     vp = ctypes.c_void_p

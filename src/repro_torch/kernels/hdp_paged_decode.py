@@ -13,7 +13,9 @@ from shapes and the SM count alone (about one block per SM), so no call
 waits on ``counts``. S = 1 ("single") writes the output in one pass;
 S > 1 ("split") adds the merge. ``hdp_paged_fum_decode.launches`` counts
 wrapper launches (the plain version does not count),
-``.launches_by_path`` them per mode.
+``.launches_by_path`` them per mode; a call under CUDA graph capture
+counts once, where it records the kernel, and the graph's replays do
+not call the wrapper.
 """
 from __future__ import annotations
 

@@ -159,6 +159,15 @@ def hdp_block_attn_ref(q, k, v, keep, *, block_q: int, block_k: int,
     return out.to(q.dtype)
 
 
+def f32_scalar(x, device) -> torch.Tensor:
+    """A number (or tensor) as an fp32 tensor on ``device``. A number is
+    filled in on the device rather than copied from the host, so CUDA
+    graph capture can record it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=F32, device=device)
+    return torch.full((), float(x), dtype=F32, device=device)
+
+
 def keep_mask_to_indices(keep, theta, max_keep: int):
     """Keep mask -> (indices [.., nq, max_keep] int32, counts [.., nq]).
 
@@ -300,9 +309,9 @@ def hdp_block_sparse_attention_plain(q, k, v, kv_idx, counts, head_kept, *,
     hk = head_kept.reshape(BH) > 0
     lens = torch.full((BH,), Sk, device=dev) if kv_len is None \
         else torch.clamp(kv_len.reshape(BH), max=Sk)
-    sc = torch.tensor(np.float32(1.0 / (hd ** 0.5)), device=dev)
+    sc = f32_scalar(float(np.float32(1.0 / (hd ** 0.5))), dev)
     if score_scale is not None:
-        sc = sc * torch.as_tensor(score_scale, dtype=F32, device=dev)
+        sc = sc * f32_scalar(score_scale, dev)
     rows = (torch.arange(nq, device=dev)[:, None] * block_q
             + torch.arange(block_q, device=dev))                 # [nq,bq]
     m = torch.full((BH, nq, block_q), NEG, dtype=F32, device=dev)

@@ -1,21 +1,30 @@
 """Where a decode step's time goes: torch.profiler over steady decode.
 
-    python -m repro_torch.launch.profile_decode --arch qwen2-1.5b
+    python -m repro_torch.launch.profile_decode --arch qwen2-1.5b \\
+        --horizon 1 4 --eager
 
 serves ``--requests`` seeded random prompts of 200-1000 tokens (the
 traffic of ``chip_smoke.py``) at full width on the card, runs three
-decode steps to warm up (admission happens in the first), then profiles
-``--steps`` steps and
-prints one JSON line: wall time per step, device busy time per step (the
-sum of kernel time), the device's idle share, the FUM kernel's share
-(its split pass and merge) and launches per mode, and the top operators
-by device time and by host time. ``--trace PATH``
-also writes the Chrome trace.
+engine steps to warm up (admission and the decode graph's capture
+happen in the first), then profiles ``--steps`` engine steps, for each
+``--horizon`` (decode steps per engine step and host sync) on the
+engine's CUDA graph and, with ``--eager``, on the same engine stepping
+op by op (``cuda_graph=False``), all in one process on one set of
+weights. The same number of steps runs first without the profiler, for
+the wall time and tok/s it does not slow. Prints one JSON line per run,
+per token step (one decode step of the whole batch): wall time (with
+and without the profiler), device busy time (the sum of kernel
+time), the device's idle share, kernels (also by group: GEMMs,
+elementwise, index, sort, reduce, copies, the FUM kernels), the FUM
+kernel's time (split pass and merge) and launches, and the top
+operators by device time and by host time; with the card's name and
+power limit. ``--trace PREFIX`` also writes each run's Chrome trace.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from typing import Optional, Sequence
@@ -28,28 +37,47 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--horizon", type=int, nargs="+", default=[1])
+    ap.add_argument("--eager", action="store_true",
+                    help="also profile the engine stepping eagerly")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None)
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = parse_args(argv)
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+#: kernel groups of the breakdown, by a substring of the kernel's name
+#: (the first match wins; "other" takes the rest)
+GROUPS = (("fum", "fum_"), ("gemm", "nvjet"), ("gemm", "gemm"),
+          ("sort", "sort"), ("reduce", "reduce_kernel"),
+          ("index", "index"), ("index", "scatter"), ("index", "gather"),
+          ("elementwise", "elementwise_kernel"), ("copy", "copy"))
+
+
+def group_of(name: str) -> str:
+    return next((g for g, key in GROUPS if key in name), "other")
+
+
+def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.serving import Engine, Request
 
-    cfg = get_config(args.arch)
     warmup, top = 3, 12
-    max_new = warmup + args.steps + 1
+    max_new = (warmup + 2 * args.steps) * horizon + 1
     buckets = (256, 512, 1024)
-    eng = Engine(cfg, seed=args.seed, device="cuda",
-                 max_batch=args.requests,
-                 max_len=buckets[-1] + max_new, prefill_buckets=buckets)
+    eng = Engine(cfg, params, device="cuda", max_batch=args.requests,
+                 max_len=buckets[-1] + max_new, prefill_buckets=buckets,
+                 decode_horizon=horizon, cuda_graph=graph)
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):
         n = int(rng.integers(200, 1001))
@@ -57,9 +85,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            max_new_tokens=max_new))
     for _ in range(warmup):
         eng.step()
+    # the same number of steps first without the profiler (its tracing
+    # adds host time to every launch, graph launches included)
     torch.cuda.synchronize()
-    hdp_paged_fum_decode.launches_by_path = dict.fromkeys(
-        hdp_paged_fum_decode.launches_by_path, 0)
+    m0 = dict(eng.metrics)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    n_plain = eng.metrics["decode_steps"] - m0["decode_steps"]
+    m0 = dict(eng.metrics)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -67,8 +103,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    mode = "graph" if graph else "eager"
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        prof.export_chrome_trace(f"{args.trace}-{mode}-h{horizon}.json")
+    n_tok = eng.metrics["decode_steps"] - m0["decode_steps"]
     avgs = prof.key_averages()
     # device rows are the kernels themselves (host operator rows also
     # carry the time of the kernels they launched: counting both doubles)
@@ -79,28 +117,63 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return e.self_device_time_total
 
     busy_us = sum(dev_us(e) for e in kernels)
-    fum_us = sum(dev_us(e) for e in kernels if "fum_" in e.key)
+    fum = [e for e in kernels if "fum_" in e.key]
     by_dev = sorted(kernels, key=dev_us, reverse=True)[:top]
     by_host = sorted(host, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:top]
-    n_kernels = sum(e.count for e in kernels)
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(group_of(e.key), [0.0, 0.0])
+        g[0] += e.count / n_tok
+        g[1] += dev_us(e) / 1e3 / n_tok
     out = {
-        "device": torch.cuda.get_device_name(0),
-        "arch": args.arch, "batch": args.requests, "steps": args.steps,
-        "wall_ms_per_step": 1e3 * wall / args.steps,
-        "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
+        "device": torch.cuda.get_device_name(0), "card": card(),
+        "arch": args.arch, "batch": args.requests, "mode": mode,
+        "horizon": horizon, "engine_steps": args.steps, "token_steps": n_tok,
+        "unprofiled_wall_ms_per_token_step": 1e3 * wall_plain / n_plain,
+        "unprofiled_decode_tok_s": args.requests * n_plain / wall_plain,
+        "wall_ms_per_token_step": 1e3 * wall / n_tok,
+        "decode_tok_s": args.requests * n_tok / wall,
+        "device_busy_ms_per_token_step": busy_us / 1e3 / n_tok,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "fum_kernel_ms_per_step": fum_us / 1e3 / args.steps,
-        "fum_launches_per_step": {
-            m: n / args.steps
-            for m, n in hdp_paged_fum_decode.launches_by_path.items()},
-        "device_ops_per_step": n_kernels / args.steps,
-        "top_device_ms_per_step": [[e.key[:100], dev_us(e) / 1e3 / args.steps]
-                                   for e in by_dev],
-        "top_host_ms_per_step": [[e.key[:100], e.self_cpu_time_total / 1e3
-                                  / args.steps] for e in by_host],
+        "kernels_per_token_step": sum(e.count for e in kernels) / n_tok,
+        "fum_kernel_ms_per_token_step": sum(map(dev_us, fum)) / 1e3 / n_tok,
+        "fum_kernels_per_token_step": {e.key[:60]: e.count / n_tok
+                                       for e in fum},
+        "fum_launches_per_token_step": (eng.metrics["fum_kernel_launches"]
+                                        - m0["fum_kernel_launches"]) / n_tok,
+        "graph_reserved_bytes": eng.metrics["graph_reserved_bytes"],
+        "kernel_groups_per_token_step": {
+            g: {"kernels": n, "ms": ms} for g, (n, ms) in
+            sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        "top_device_ms_per_token_step": [
+            [e.key[:100], dev_us(e) / 1e3 / n_tok] for e in by_dev],
+        "top_host_ms_per_token_step": [
+            [e.key[:100], e.self_cpu_time_total / 1e3 / n_tok]
+            for e in by_host],
     }
-    print(json.dumps(out))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+
+    if not torch.cuda.is_available():
+        print("profile_decode needs a CUDA card", file=sys.stderr)
+        return 2
+    cfg = get_config(args.arch)
+    params = registry.init_params(cfg, args.seed, "cuda")
+    with torch.inference_mode():
+        for horizon in args.horizon:
+            for graph in ((False, True) if args.eager else (True,)):
+                print(json.dumps(profile_run(args, cfg, params, horizon,
+                                             graph)), flush=True)
     return 0
 
 

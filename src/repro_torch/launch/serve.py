@@ -7,9 +7,11 @@ runs on the CUDA card (the default ``--device cuda`` raises without
 one); ``--device cpu --reduced`` serves the tiny test-size config
 through the plain kernel versions. ``--backend`` picks the attention
 backend (a registry name or family tag, e.g. ``pallas_hdp_block`` for
-the block-sparse kernel in decode; default ``auto``). Weights are
-random, drawn from ``--seed``; prompt lengths are drawn from [bucket/4, bucket] of the
-largest prefill bucket (1024, or 32 with ``--reduced``).
+the block-sparse kernel in decode; default ``auto``);
+``--decode-horizon`` sets the engine's decode steps per host sync.
+Weights are random, drawn from ``--seed``; prompt lengths are drawn
+from [bucket/4, bucket] of the largest prefill bucket (1024, or 32 with
+``--reduced``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--backend", default="auto",
                     help="attention backend: a registry name, a family "
                          "tag (pallas | xla | reference) or auto")
+    ap.add_argument("--decode-horizon", type=int, default=None,
+                    help="decode steps per engine step and host sync "
+                         "(one CUDA graph replay each on the card), "
+                         "token-identical to 1; default honors "
+                         "REPRO_DECODE_HORIZON, else 1")
     return ap.parse_args(argv)
 
 
@@ -51,7 +58,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     eng = Engine(cfg, seed=args.seed, device=args.device,
                  max_batch=args.max_batch, max_len=hi + args.max_new,
                  prefill_buckets=buckets, collect_stats=True,
-                 attn=args.backend)
+                 attn=args.backend, decode_horizon=args.decode_horizon)
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):
         n = int(rng.integers(lo, hi + 1))

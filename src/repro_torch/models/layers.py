@@ -61,8 +61,10 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
 
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta filled in on the device (not copied from the host): CUDA
+    # graph capture of the decode step records it
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

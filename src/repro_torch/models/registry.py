@@ -17,9 +17,9 @@ _FAMILIES = {"dense": transformer}
 _PENDING = {
     "moe": "section 1, item 4 (moe/vlm model stack)",
     "vlm": "section 1, item 4 (moe/vlm model stack)",
-    "rwkv6": "section 1, item 11 (remaining families)",
-    "zamba2": "section 1, item 11 (remaining families)",
-    "whisper": "section 1, item 11 (remaining families)",
+    "rwkv6": "section 1, item 10 (remaining families)",
+    "zamba2": "section 1, item 10 (remaining families)",
+    "whisper": "section 1, item 10 (remaining families)",
 }
 
 

@@ -83,15 +83,19 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
-                  attn=None):
+                  pos_offset: int = 0, attn=None):
     """Run the prompt and return (last-position logits [B,1,V] fp32,
     cache, stats). With a request ``cache`` it is filled in place (K/V
     snapped to the int8 pool grid); with ``cache=None`` the prompt is an
     aligned self-attention prefill, which the full-sequence kernels
-    serve. ``attn`` selects the attention backend (an ``AttnSpec``)."""
+    serve. ``pos_offset`` is the absolute position of ``tokens[:, 0]``:
+    nonzero for chunked prefill, where each chunk appends to the cache
+    behind the previous ones and attends to all of them. ``attn``
+    selects the attention backend (an ``AttnSpec``)."""
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = pos_offset + torch.arange(tokens.shape[1],
+                                          device=tokens.device)
     x, stats = _stack(cfg, params, x, mode="prefill", positions=positions,
                       cache=cache, collect_stats=collect_stats, attn=attn)
     x = L.rms_norm(x[:, -1:], params["final_norm"]["w"])

@@ -73,7 +73,10 @@ class PagedKVCache:
         self.allocator = PageAllocator(self.num_pages, reserved=1)
         self._slot_pages: Dict[int, List[int]] = {}
         self._table = np.zeros((batch, self.pages_per_slot), np.int32)
-        self._table_dev: Optional[torch.Tensor] = None
+        # one static device table, rewritten in place row by row: a
+        # captured decode graph reads it at a fixed address
+        self._table_dev = torch.zeros((batch, self.pages_per_slot),
+                                      dtype=torch.int32, device=device)
         self.peak_pages = 0
 
     # ---------------------------------------------------------- host state
@@ -82,12 +85,13 @@ class PagedKVCache:
         return self.allocator.in_use
 
     def table(self) -> torch.Tensor:
-        """Device copy of the page table, uploaded again only after
-        alloc/free changed it."""
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self._table.copy()).to(
-                self.device)
+        """The device page table [batch, pages_per_slot] int32: one
+        buffer for the cache's lifetime, whose rows alloc/free rewrite in
+        place."""
         return self._table_dev
+
+    def _upload_row(self, slot: int) -> None:
+        self._table_dev[slot].copy_(torch.from_numpy(self._table[slot]))
 
     def assign(self, slot: int, pages: List[int]) -> None:
         """Install ``pages`` (each holding one ref owned by this slot) as
@@ -101,7 +105,7 @@ class PagedKVCache:
         self._slot_pages[slot] = list(pages)
         self._table[slot, :] = 0
         self._table[slot, :len(pages)] = pages
-        self._table_dev = None
+        self._upload_row(slot)
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
 
     def alloc(self, slot: int, n_tokens: int) -> List[int]:
@@ -120,7 +124,7 @@ class PagedKVCache:
         """Release the slot's page refs and zero its table row."""
         self.allocator.unref(self._slot_pages.pop(slot, []))
         self._table[slot, :] = 0
-        self._table_dev = None
+        self._upload_row(slot)
 
     # -------------------------------------------------------------- insert
     def insert(self, one_cache: Dict[str, torch.Tensor], slot: int,

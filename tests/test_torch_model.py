@@ -306,3 +306,14 @@ def test_bf16_block_kernel_prefill_keeps_model_dtype(weights):
     assert tl.dtype == torch.float32 and bool(torch.isfinite(tl).all())
     np.testing.assert_allclose(tl.numpy(), np.asarray(want), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("family", ["rwkv6", "zamba2", "whisper"])
+def test_unported_family_cites_its_roadmap_item(family):
+    """The remaining families are ROADMAP.md section 1 item 10; the
+    registry's message names that item."""
+    cfg = reduced(get_config("qwen2-1.5b")).replace(family=family)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md section 1, item 10 \(remaining "
+                             r"families\)"):
+        registry.module_for(cfg)

@@ -114,12 +114,20 @@ def test_run_budget_marks_incomplete(served):
 
 
 def test_submit_validation(served):
+    """A prompt past the largest bucket is chunked when the largest bucket
+    is a multiple of HDP's block_q (2 here), and refused, naming that
+    rule, when it is not."""
     eng = Engine(reduced(get_config("qwen2-1.5b")), served["params"],
                  device="cpu", **KW)
-    with pytest.raises(ValueError, match="largest prefill bucket"):
-        eng.submit(Request(0, [5] * 40, max_new_tokens=4))
+    eng.submit(Request(0, [5] * 40, max_new_tokens=4))
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(Request(1, [5] * 30, max_new_tokens=40))
+    odd = Engine(reduced(get_config("qwen2-1.5b")), served["params"],
+                 device="cpu", max_batch=2, max_len=64,
+                 prefill_buckets=(15,))
+    with pytest.raises(ValueError, match="largest prefill bucket .*multiple "
+                                         "of HDP's block_q"):
+        odd.submit(Request(0, [5] * 40, max_new_tokens=4))
 
 
 def test_engine_default_device_raises_without_cuda():

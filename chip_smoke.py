@@ -12,7 +12,9 @@ never JAX nor the JAX package. Phases:
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the reference tests' small shapes (2x2 blocks and ragged S
    included) and at qwen2-1.5b's full-width shapes: the paged FUM
-   decode on int8 and fp32 pools, split across blocks and in one pass;
+   decode on int8, fp32, fp8-V (int8 K, fp8 e4m3 V) and bf16 pools (the
+   last two also at granite-8b's shape), split across blocks and in one
+   pass, each with its poison checks;
    the integer scout on both of its paths (theta, keep and theta_head
    bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
    bad-input NaN); the block-sparse FUM attention on the
@@ -41,13 +43,27 @@ never JAX nor the JAX package. Phases:
    identical tokens; prompts of 2,500
    and 4,000 tokens through chunked prefill; the reduced config graphed
    on the card, with one prompt chunked, must give the CPU's tokens;
+5b. granite-8b at full width (36 layers, bf16, 16 GB of seeded weights
+   built on the card): 8 requests of up to 4,096 prompt tokens, 32 new
+   tokens each, on the int8 grid pool, the fp8_v pool and the bf16
+   ("fp32") pool through the FUM kernel, the absmax pool through the
+   plain stage 3, HDP off on the paged and the dense layout, and HDP on
+   on the dense layout (``xla_hdp``); each eagerly and graphed at
+   horizon 4 with equal tokens, tok/s, backends, pool format and cache
+   bytes per token printed, the FUM routes' graphed runs under the
+   profiler; then the reduced config on each route, card vs CPU;
+5c. windowed decode: h2o-danube-1.8b at full width cut to 4 layers,
+   its window cut to 512 under prompts of 600-1,000 tokens (decode on
+   ``paged_hdp_decode``), eager and graphed equal; the reduced config
+   (window 16) card vs CPU;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
    function, that call; the tile paths at the calls that take them (the
    decode route's block call; flash in fp32 at the prefill's shape); the
    scout's dp4a kernel and the FUM decode in one pass (the earlier
-   designs) at the same inputs as their successors.
+   designs) at the same inputs as their successors; the FUM decode's
+   fp8-V and bf16 pool variants at the int8 timing case's values.
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -137,26 +153,39 @@ def phase_build():
 
 
 # ------------------------------------------------------------ phase 3
-def make_case(torch, *, B, N, G, Sq, hd, ps, nP, quantized, live, seed):
+#: FUM pool formats: int8 codes, int8 K + fp8 V pages (scale 1.0), and
+#: unquantized pools in fp32 and in bf16 (the model dtype at full width)
+FUM_FORMATS = ("int8", "fp32", "fp8_v", "bf16")
+#: the tolerance of each format against the plain version: p is rounded
+#: to bf16 before p.V on a bf16 pool, relative to each block's running
+#: max when the pages are split, so the roundings differ there
+FUM_TOL = {"int8": ATOL, "fp32": ATOL, "fp8_v": ATOL, "bf16": TOL_BF16}
+
+
+def make_case(torch, *, B, N, G, Sq, hd, ps, nP, fmt, live, seed):
     """Paged FUM decode inputs the way the serving path builds them: a
-    pool whose rows own distinct pages, a keep mask, and the fetch list
-    compressed by the model's own ``_fetch_list``."""
-    from repro_torch.core.quant import pool_scale, quantize_fixed
+    pool in format ``fmt`` whose rows own distinct pages, a keep mask,
+    and the fetch list compressed by the model's own ``_fetch_list``."""
+    from repro_torch.core.quant import pool_scale, quantize_fixed, to_fp8_e4m3
     from repro_torch.models.attention import _fetch_list
     g = torch.Generator().manual_seed(seed)
     P = 1 + B * nP
     Sk = nP * ps
     qq = quantize_fixed(2.0 * torch.randn(B, N, G, Sq, hd, generator=g))
-    if quantized:
+    if fmt in ("int8", "fp8_v"):
         kp = torch.randint(-127, 128, (P, ps, N, hd), generator=g,
                            dtype=torch.int8)
         vp = torch.randint(-127, 128, (P, ps, N, hd), generator=g,
                            dtype=torch.int8)
         ks = torch.full((P, N), pool_scale(4))
         vs = torch.full((P, N), pool_scale(4))
+        if fmt == "fp8_v":
+            vp = to_fp8_e4m3(4.0 * torch.randn(P, ps, N, hd, generator=g))
+            vs = torch.ones((P, N))
     else:
-        kp = 4.0 * torch.randn(P, ps, N, hd, generator=g)
-        vp = torch.randn(P, ps, N, hd, generator=g)
+        dt = torch.bfloat16 if fmt == "bf16" else torch.float32
+        kp = (4.0 * torch.randn(P, ps, N, hd, generator=g)).to(dt)
+        vp = torch.randn(P, ps, N, hd, generator=g).to(dt)
         ks = vs = None
     table = torch.arange(1, P, dtype=torch.int32).reshape(B, nP)
     page_live = torch.rand(B, nP, generator=g) < live
@@ -169,11 +198,12 @@ def make_case(torch, *, B, N, G, Sq, hd, ps, nP, quantized, live, seed):
         fetched, table, keep, q_pos)
     return dict(qq=qq, k_pool=kp, v_pool=vp, page_ids=page_ids,
                 logical=logical, counts=counts, keep=keep_in, kv_len=kv_len,
-                k_scale=ks, v_scale=vs, table=table, fetched=fetched)
+                k_scale=ks, v_scale=vs, table=table, fetched=fetched,
+                fmt=fmt)
 
 
 def to_dev(case, dev):
-    return {k: (v.to(dev) if v is not None else None)
+    return {k: (v.to(dev) if hasattr(v, "to") else v)
             for k, v in case.items()}
 
 
@@ -183,62 +213,90 @@ def kernel_args(c):
             dict(k_scale=c["k_scale"], v_scale=c["v_scale"]))
 
 
-def phase_kernels(torch):
-    """The FUM decode kernel, split across blocks (``fum_splits``' S, and
-    S = 3) and in one pass (S = 1), against its plain version on every
-    case, with the two poison checks in each mode. Returns (worst
-    max |err| per mode, the qwen2 int8 case)."""
+def poison_pages(torch, c, pages, *, stage3_only):
+    """Copies of the case's pools and scales with ``pages`` poisoned: V
+    codes (int8 -128, fp8 NaN) and both scales of a quantized pool, with
+    ``stage3_only`` (the pruned pages: K codes are the scout's stream and
+    stay) or its K scale (a fetched page); NaN K and V of an unquantized
+    pool."""
     from repro_torch.core.quant import POISON_CODE
+    kp, vp = c["k_pool"].clone(), c["v_pool"].clone()
+    ks = None if c["k_scale"] is None else c["k_scale"].clone()
+    vs = None if c["v_scale"] is None else c["v_scale"].clone()
+    if ks is None:
+        kp[pages] = float("nan")
+        vp[pages] = float("nan")
+    elif stage3_only:
+        if vp.dtype == torch.int8:
+            vp[pages] = POISON_CODE
+        else:
+            vp[pages] = float("nan")
+        ks[pages] = float("nan")
+        vs[pages] = float("nan")
+    elif vp.dtype == torch.int8:
+        ks[pages] = float("nan")
+    else:
+        vp[pages] = float("nan")       # a NaN fp8 V code
+    return kp, vp, ks, vs
+
+
+def phase_kernels(torch):
+    """The FUM decode kernel on every pool format (int8, fp32, fp8 V,
+    bf16), split across blocks (``fum_splits``' S, and S = 3) and in one
+    pass (S = 1), against its plain version on every case, with the two
+    poison checks in each mode. Returns (worst max |err| per mode on the
+    int8 and fp32 pools, and per format of the split mode; the qwen2
+    int8 case)."""
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     cases = []
-    for quantized in (True, False):
+    for fmt in FUM_FORMATS:
         for Sq in (1, 3):
-            cases.append((f"test B2N2G2Sq{Sq}hd8ps4 "
-                          f"{'int8' if quantized else 'fp32'}",
+            cases.append((f"test B2N2G2Sq{Sq}hd8ps4 {fmt}",
                           dict(B=2, N=2, G=2, Sq=Sq, hd=8, ps=4, nP=8,
-                               quantized=quantized, live=0.5, seed=Sq)))
+                               fmt=fmt, live=0.5, seed=Sq)))
         for Sq in (1, 3):
-            cases.append((f"qwen2 B8N2G6Sq{Sq}hd128ps128 "
-                          f"{'int8' if quantized else 'fp32'}",
+            cases.append((f"qwen2 B8N2G6Sq{Sq}hd128ps128 {fmt}",
                           dict(B=8, N=2, G=6, Sq=Sq, hd=128, ps=128, nP=16,
-                               quantized=quantized, live=0.5,
+                               fmt=fmt, live=0.5,
                                seed=7 if Sq == 1 else 8)))
+        if fmt in ("fp8_v", "bf16"):
+            cases.append((f"granite B8N8G4Sq1hd128ps128 {fmt}",
+                          dict(B=8, N=8, G=4, Sq=1, hd=128, ps=128, nP=33,
+                               fmt=fmt, live=0.3, seed=9)))
     worst, main_case = {"split": 0.0, "single": 0.0}, None
+    worst.update({f: 0.0 for f in FUM_FORMATS})
     for label, kw in cases:
         c = to_dev(make_case(torch, **kw), "cuda")
         args, kws = kernel_args(c)
         ref = hdp_paged_fum_decode_ref(*args, **kws)
+        tol = FUM_TOL[kw["fmt"]]
         for mode, splits in (("split", None), ("split", 3), ("single", 1)):
             tag = f"{label} [{mode}, S={splits or 'fum_splits'}]"
+            fmt0 = hdp_paged_fum_decode.launches_by_format[kw["fmt"]]
             out, ran = on_path(tag, hdp_paged_fum_decode,
                                lambda: hdp_paged_fum_decode(
                                    *args, **kws, splits=splits), mode)
             torch.cuda.synchronize()
+            check(hdp_paged_fum_decode.launches_by_format[kw["fmt"]]
+                  == fmt0 + 1, f"{tag}: not launched as the {kw['fmt']} "
+                  f"format ({hdp_paged_fum_decode.launches_by_format})")
             check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output")
             err = (out - ref).abs().max().item()
-            check(torch.allclose(out, ref, atol=ATOL, rtol=RTOL),
-                  f"{tag}: kernel vs plain max |err| {err:.3e}")
+            check(torch.allclose(out, ref, atol=tol, rtol=tol),
+                  f"{tag}: kernel vs plain max |err| {err:.3e} (tol {tol})")
             # pruned pages are never read: poisoning them (V codes and
-            # both scales, or NaN fp32 K/V) leaves the output bit-identical
+            # both scales, or NaN K/V) leaves the output bit-identical
             pruned = c["table"][~c["fetched"]].long()
             check(pruned.numel() > 0, f"{tag}: no pruned pages")
-            kp, vp = c["k_pool"].clone(), c["v_pool"].clone()
-            ks = vs = None
-            if kw["quantized"]:
-                vp[pruned] = POISON_CODE
-                ks, vs = c["k_scale"].clone(), c["v_scale"].clone()
-                ks[pruned] = float("nan")
-                vs[pruned] = float("nan")
-            else:
-                kp[pruned] = float("nan")
-                vp[pruned] = float("nan")
+            kp, vp, ks, vs = poison_pages(torch, c, pruned, stage3_only=True)
             out_bad = hdp_paged_fum_decode(
                 c["qq"], kp, vp, *args[3:], k_scale=ks, v_scale=vs,
                 splits=splits)
             check(torch.equal(out, out_bad),
                   f"{tag}: poison on pruned pages changed the output")
-            # ... and poison on one fetched, visible page must surface as NaN
+            # ... and poison on one fetched, visible page must surface as
+            # NaN (a NaN K scale, NaN fp8 V codes, or NaN K values)
             ps = kw["ps"]
             mk = c["page_ids"].shape[1]
             seen = (torch.arange(mk, device=c["counts"].device)[None]
@@ -246,23 +304,21 @@ def phase_kernels(torch):
                 & (c["logical"] * ps < c["kv_len"][:, None])
             b, j = (int(x) for x in torch.nonzero(seen)[0])
             vis = int(c["page_ids"][b, j])
-            kp, ks = c["k_pool"].clone(), None
-            if kw["quantized"]:
-                ks = c["k_scale"].clone()
-                ks[vis] = float("nan")
-            else:
-                kp[vis] = float("nan")
+            kp, vp, ks, vs = poison_pages(torch, c, vis, stage3_only=False)
             out_nan = hdp_paged_fum_decode(
-                c["qq"], kp, c["v_pool"], *args[3:], k_scale=ks,
-                v_scale=c["v_scale"], splits=splits)
+                c["qq"], kp, vp, *args[3:], k_scale=ks, v_scale=vs,
+                splits=splits)
             torch.cuda.synchronize()
             check(bool(torch.isnan(out_nan[b]).any()),
-                  f"{tag}: NaN scale on a fetched page did not surface")
+                  f"{tag}: poison on a fetched page did not surface")
             log(f"[kernels] {tag}: max |kernel - plain| {err:.3e}, "
                 f"pages kept {int(c['counts'].sum())}/{c['table'].numel()}, "
                 "poison checks ok")
-            worst[mode] = max(worst[mode], err)
-        if label.startswith("qwen2 B8N2G6Sq1") and kw["quantized"]:
+            if kw["fmt"] in ("int8", "fp32"):
+                worst[mode] = max(worst[mode], err)
+            if mode == "split":
+                worst[kw["fmt"]] = max(worst[kw["fmt"]], err)
+        if label.startswith("qwen2 B8N2G6Sq1") and kw["fmt"] == "int8":
             main_case = c
     return worst, main_case
 
@@ -763,6 +819,8 @@ def zero_launches():
         fn.launches = 0
         if hasattr(fn, "launches_by_path"):
             fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+    hdp_paged_fum_decode.launches_by_format = dict.fromkeys(
+        hdp_paged_fum_decode.launches_by_format, 0)
 
 
 # ------------------------------------------------------------ phase 5
@@ -818,14 +876,16 @@ def serve(torch, eng, prompts, max_new, profiled=False):
         f"not every request completed with {max_new} tokens: "
         f"{[(u, r.status, r.error, len(r.tokens)) for u, r in res.items()]}")
     launches = {"fum": dict(hdp_paged_fum_decode.launches_by_path),
-                "block": dict(hdp_block_sparse_attention.launches_by_path)}
+                "block": dict(hdp_block_sparse_attention.launches_by_path),
+                "fum_format": dict(hdp_paged_fum_decode.launches_by_format)}
     return {u: r.tokens for u, r in res.items()}, s, wall, launches, seen
 
 
-def check_decode_launches(s, launches, kernel, label, seen=None):
-    """The engine counts 28 launches of ``kernel`` ("fum" or "block") per
-    decode step and none of the other. Eagerly the wrapper counts the
-    same. Graphed, the wrapper is called twice per layer and capture:
+def check_decode_launches(s, launches, kernel, label, seen=None,
+                          n_layers=N_LAYERS_QWEN):
+    """The engine counts ``n_layers`` launches of ``kernel`` ("fum" or
+    "block") per decode step and none of the other. Eagerly the wrapper
+    counts the same. Graphed, the wrapper is called twice per layer and capture:
     the eager warm-up step and the capture, which records the kernel
     and runs nothing; the replays never call it. The profiler's count
     of each CUDA kernel of ``kernel`` (``seen``) must be the engine's
@@ -834,26 +894,26 @@ def check_decode_launches(s, launches, kernel, label, seen=None):
     steps, caps = s["decode_steps"], s["graph_captures"]
     n = s[f"{kernel}_kernel_launches"]
     wrapper = sum(launches[kernel].values())
-    want_wrapper = 2 * N_LAYERS_QWEN * caps if caps else n
-    check(n == N_LAYERS_QWEN * steps and n > 0
+    want_wrapper = 2 * n_layers * caps if caps else n
+    check(n == n_layers * steps and n > 0
           and s[f"{other}_kernel_launches"] == 0
           and not any(launches[other].values()),
           f"{label}: {kernel} kernel launched {n} times by the decode steps "
           f"(other kernel {s[f'{other}_kernel_launches']}), expected "
-          f"{N_LAYERS_QWEN} x {steps} decode steps")
+          f"{n_layers} x {steps} decode steps")
     check(wrapper == want_wrapper,
           f"{label}: the {kernel} wrapper counted {wrapper} launches, "
           f"expected {want_wrapper}")
     if seen is not None:
-        want = n + N_LAYERS_QWEN * caps
+        want = n + n_layers * caps
         check(all(c == want for c in seen[kernel].values())
               and not any(seen[other].values()),
               f"{label}: the profiler saw {seen}, expected {want} runs of "
-              f"each {kernel} kernel ({N_LAYERS_QWEN} layers x {steps} "
+              f"each {kernel} kernel ({n_layers} layers x {steps} "
               f"decode steps + {caps} warm-up step(s)) and none of "
               f"{other}'s")
         log(f"[serve] {label}: the profiler saw {seen[kernel]} on the card "
-            f"= {N_LAYERS_QWEN} layers x ({steps} decode steps + {caps} "
+            f"= {n_layers} layers x ({steps} decode steps + {caps} "
             f"warm-up step), the engine counted {n} for the steps, the "
             f"wrapper {launches[kernel]} (warm-up and capture)")
 
@@ -1086,6 +1146,203 @@ def phase_serving(torch, cfg, params):
     return out, path_err, rec.best
 
 
+# ------------------------------------------- phase 5b: granite-8b serving
+N_LAYERS_GRANITE = 36
+GRANITE_KW = dict(max_batch=8, max_len=4096 + 32,
+                  prefill_buckets=(1024, 2048, 4096), collect_stats=True)
+
+
+def granite_runs(cfg):
+    """(label, config, attn spec, decode backend, decode stage 3, the FUM
+    kernel's pool format or None) of each serving route on granite-8b."""
+    from repro_torch.attention import AttnSpec
+    off = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
+    fum = "cuda:hdp_paged_fum_decode"
+    return [
+        ("int8 grid pool", cfg, AttnSpec(kv_dtype="int8"),
+         "pallas_paged_decode", fum, "int8"),
+        ("fp8_v pool", cfg, AttnSpec(kv_dtype="fp8_v"),
+         "pallas_paged_decode", fum, "fp8_v"),
+        ("bf16 pool (kv_dtype fp32)", cfg, AttnSpec(kv_dtype="fp32"),
+         "pallas_paged_decode", fum, "bf16"),
+        ("int8 absmax pool", cfg, AttnSpec(kv_dtype="int8",
+                                           kv_scale="absmax"),
+         "pallas_paged_decode", "paged_hdp_decode", None),
+        ("HDP off, paged int8 pool", off, AttnSpec(kv_dtype="int8"),
+         "xla_dense", "xla_dense", None),
+        ("HDP off, dense layout", off, AttnSpec(layout="dense"),
+         "xla_dense", "xla_dense", None),
+        ("HDP on, dense layout", cfg, AttnSpec(layout="dense"),
+         "xla_hdp", "xla_hdp", None),
+    ]
+
+
+def phase_granite(torch):
+    """granite-8b at full width (36 layers, bf16, seeded weights): 8
+    requests of up to 4,096 prompt tokens and 32 new tokens on every
+    serving route, eagerly and on the decode graph at horizon 4 with
+    equal tokens; the FUM routes' graphed runs under the profiler, which
+    counts the kernel's runs on the card. Then the reduced config on the
+    card (graphed) against the CPU on each pool and layout. Returns the
+    profiler's FUM runs per pool format and a summary per route."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    from repro_torch.serving import Engine, Request
+    cfg = get_config("granite-8b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings)
+          == (N_LAYERS_GRANITE, 4096, 32, 8, 128, 14336, 49152, False),
+          f"unexpected granite-8b config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    log(f"[granite] bf16 weights ({cfg.param_count() / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(17)
+    lens = [int(n) for n in rng.integers(256, 4097, size=7)] + [4096]
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
+    log(f"[granite] prompt lengths {lens}")
+    seen_by_fmt, routes = {}, {}
+    for label, c, spec, backend, stage3, fmt in granite_runs(cfg):
+        toks = {}
+        for graphed in (False, True):
+            torch.cuda.empty_cache()
+            eng = Engine(c, params, device="cuda", attn=spec,
+                         cuda_graph=graphed, decode_horizon=4 if graphed
+                         else 1, **GRANITE_KW)
+            tag = f"granite-8b {label}, " + (
+                "graphed, horizon 4" if graphed else "eager, horizon 1")
+            profiled = graphed and fmt is not None
+            toks[graphed], s, wall, launches, seen = serve(
+                torch, eng, prompts, 32, profiled=profiled)
+            pools = {k: str(v.dtype).replace("torch.", "")
+                     for k, v in eng._store.cache.items()}
+            del eng
+            log_served(tag + (", under the profiler" if profiled else ""),
+                       s, wall)
+            log(f"[granite] {tag}: backends prefill "
+                f"{s['attn_backend_prefill']} / decode "
+                f"{s['attn_backend_decode']} (stage 3 "
+                f"{s['attn_decode_stage3']}), layout {s['layout']}, "
+                f"kv_dtype {s['kv_dtype']}, kv_scale {s['kv_scale']}, "
+                f"pools {pools}, cache_bytes_per_token "
+                f"{s['cache_bytes_per_token']}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            check(s["attn_backend_decode"] == backend
+                  and s["attn_decode_stage3"] == stage3,
+                  f"{tag}: decode resolved to {s['attn_backend_decode']} "
+                  f"(stage 3 {s['attn_decode_stage3']}), expected "
+                  f"{backend} ({stage3})")
+            if fmt is not None:
+                check_decode_launches(s, launches, "fum", tag, seen,
+                                      n_layers=N_LAYERS_GRANITE)
+                got = launches["fum_format"]
+                check(got[fmt] == sum(got.values()),
+                      f"{tag}: FUM launches by format {got}, expected "
+                      f"all {fmt}")
+                if seen:
+                    seen_by_fmt[fmt] = seen["fum"]["fum_decode_kernel"]
+            else:
+                check(s["fum_kernel_launches"] == 0
+                      and not any(launches["fum"].values())
+                      and not (seen and any(seen["fum"].values())),
+                      f"{tag}: the FUM kernel ran ({launches['fum']})")
+            routes.setdefault(label, {})["graphed" if graphed else "eager"] \
+                = {k: s[k] for k in ("decode_tok_s", "decode_tok_s_steady",
+                                     "prefill_s", "cache_bytes_per_token")}
+        check(toks[True] == toks[False],
+              f"granite-8b {label}: graphed tokens differ from the eager "
+              f"run's: {toks[True]} vs {toks[False]}")
+        log(f"[granite] {label}: graphed horizon-4 tokens == eager")
+    del params
+    torch.cuda.empty_cache()
+
+    # agreement with a reference on a small input: reduced granite on
+    # the card (graphed, kernels) and on the CPU (plain versions), same
+    # weights, on every pool and layout of the routes above
+    small = reduced(cfg)
+    kw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
+    prng = np.random.default_rng(4)
+    sp = [prng.integers(1, 250, size=int(prng.integers(4, 24))).tolist()
+          for _ in range(3)] + [prng.integers(1, 250, size=40).tolist()]
+    for label, c, spec, *_ in granite_runs(small):
+        gpu = Engine(c, device="cuda", seed=2, attn=spec, decode_horizon=4,
+                     **kw)
+        cpu = Engine(c, {k: _tree_to(v, "cpu") for k, v in
+                         gpu.params.items()}, device="cpu", attn=spec, **kw)
+        toks = []
+        for e in (gpu, cpu):
+            for uid, p in enumerate(sp):
+                e.submit(Request(uid, p, max_new_tokens=8))
+            toks.append({u: r.tokens for u, r in e.run().items()})
+        check(toks[0] == toks[1], f"reduced granite-8b {label}: card tokens "
+              f"{toks[0]} != CPU tokens {toks[1]}")
+        log(f"[granite] reduced granite-8b {label}: card tokens (graphed, "
+            "horizon 4) == CPU plain-path tokens")
+    return seen_by_fmt, routes
+
+
+# ----------------------------------- phase 5c: windowed decode (h2o-danube)
+def phase_window(torch):
+    """h2o-danube-1.8b at full width, cut to 4 layers, with its sliding
+    window cut to 512 so that prompts of 600-1,000 tokens run past it:
+    the paged decode resolves to ``paged_hdp_decode`` (the kernels cannot
+    express the window's lower bound), eagerly and graphed with equal
+    tokens; the reduced config (window 16) card vs CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    from repro_torch.serving import Engine, Request
+    full = get_config("h2o-danube-1.8b")
+    check(full.sliding_window == 4096, f"unexpected h2o-danube {full}")
+    cfg = full.replace(n_layers=4, sliding_window=512)
+    params = registry.init_params(cfg, 0, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(600, 1001, size=4)]
+    kw = dict(max_batch=4, max_len=1056, prefill_buckets=(256, 512, 1024),
+              collect_stats=True)
+    toks = {}
+    for graphed in (False, True):
+        eng = Engine(cfg, params, device="cuda", cuda_graph=graphed,
+                     decode_horizon=4 if graphed else 1, **kw)
+        toks[graphed], s, wall, launches, _ = serve(torch, eng, prompts, 16)
+        del eng
+        tag = ("h2o-danube-1.8b (4 layers, window 512), "
+               + ("graphed, horizon 4" if graphed else "eager"))
+        log_served(tag, s, wall)
+        check(s["attn_backend_decode"] == "paged_hdp_decode"
+              and s["fum_kernel_launches"] == 0,
+              f"{tag}: decode resolved to {s['attn_backend_decode']}, FUM "
+              f"launches {s['fum_kernel_launches']}")
+        log(f"[window] {tag}: decode {s['attn_backend_decode']}, prompts "
+            f"{[len(p) for p in prompts]} > window {cfg.sliding_window}")
+    check(toks[True] == toks[False],
+          "h2o-danube: graphed tokens differ from the eager run's")
+    del params
+    small = reduced(full)
+    gkw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
+    gpu = Engine(small, device="cuda", seed=3, decode_horizon=4, **gkw)
+    cpu = Engine(small, {k: _tree_to(v, "cpu") for k, v in
+                         gpu.params.items()}, device="cpu", **gkw)
+    prng = np.random.default_rng(6)
+    sp = [prng.integers(1, 250, size=int(n)).tolist() for n in (20, 30, 40)]
+    out = []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        out.append({u: r.tokens for u, r in e.run().items()})
+    check(out[0] == out[1], f"reduced h2o-danube: card tokens {out[0]} != "
+          f"CPU tokens {out[1]}")
+    log(f"[window] reduced h2o-danube (window {small.sliding_window}, "
+        f"prompts {[len(p) for p in sp]}): card tokens (graphed) == CPU")
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -1140,10 +1397,25 @@ def fum_bound(torch, c):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def fum_variant(torch, c, fmt):
+    """The timing case's pools in another format, holding the same
+    values where the format can: fp8 V pages (scale 1.0) of the decoded
+    V, or the decoded K and V in bf16 (exact: codes x 2^-3)."""
+    from repro_torch.core.quant import decode_pool, to_fp8_e4m3
+    k = decode_pool(c["k_pool"], c["k_scale"][:, None, :, None])
+    v = decode_pool(c["v_pool"], c["v_scale"][:, None, :, None])
+    if fmt == "fp8_v":
+        return dict(c, v_pool=to_fp8_e4m3(v),
+                    v_scale=torch.ones_like(c["v_scale"]), fmt=fmt)
+    return dict(c, k_pool=k.to(torch.bfloat16), v_pool=v.to(torch.bfloat16),
+                k_scale=None, v_scale=None, fmt=fmt)
+
+
 def phase_timing(torch, c):
     """The FUM decode at the timing case, split across blocks
     (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
-    version. Returns {mode: (kernel ms, plain ms, bound ms, bound by)}."""
+    version; then the fp8-V and bf16 pool variants at the same case, split.
+    Returns {mode or format: (kernel ms, plain ms, bound ms, bound by)}."""
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
@@ -1165,6 +1437,18 @@ def phase_timing(torch, c):
             f"{c['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
             f"{flops} flop)")
+    for fmt in ("fp8_v", "bf16"):
+        cv = fum_variant(torch, c, fmt)
+        args, kws = kernel_args(cv)
+        bound, bound_by, nbytes, flops = fum_bound(torch, cv)
+        p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws),
+                       5, flush)
+        k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
+                       flush)
+        res[fmt] = (k_ms, p_ms, bound, bound_by)
+        log(f"[timing] hdp_paged_fum_decode [{fmt} pool, split, S={S}] at "
+            f"the same case: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {bound:.6f} ms ({bound_by}: {nbytes} B, {flops} flop)")
     return res
 
 
@@ -1339,6 +1623,9 @@ def main() -> int:
                 torch, cfg, params)
             serve_launches, path_err, block_tile_call = \
                 phase_serving(torch, cfg, params)
+            del params
+            fum_by_fmt, granite = phase_granite(torch)
+            phase_window(torch)
             fum_timed = phase_timing(torch, main_case)
             timed = phase_timing_prefill(torch, calls, block_tile_call)
     except SmokeError as e:
@@ -1362,6 +1649,21 @@ def main() -> int:
     kernels[-1]["note"] = ("the one-pass mode (S = 1), the earlier design, "
                            "timed beside the split; fum_splits gives S > 1 "
                            "at every shape the main path runs")
+    for fmt in ("fp8_v", "bf16"):
+        k_ms, p_ms, bound, bound_by = fum_timed[fmt]
+        kernels.append({
+            "name": f"hdp_paged_fum_decode[{fmt}]", "path": "split",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
+            "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
+            "launches": fum_by_fmt[fmt], "max_abs_err": fum_err[fmt],
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
+            "note": f"the {fmt} pool format, timed at the int8 timing case's "
+                    "values; launches over granite-8b's graphed serve on "
+                    "that pool",
+        })
     # entry: (path, source, TPU kernel, launches on the path that runs it)
     entries = {
         "hdp_scout": ("tensor_core", "hdp_scout_tc.cu", "hdp_scout.py:75",
@@ -1394,6 +1696,7 @@ def main() -> int:
         base = ename.split("[")[0]
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
+    log(f"[granite] routes {json.dumps(granite)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

@@ -7,32 +7,26 @@ ranks by that order on every device, see ``registry``):
 
 | backend             | runs                                           | calls it supports                    |
 |---------------------|------------------------------------------------|--------------------------------------|
-| xla_dense           | models.attention.chunked_attention             | HDP off (dense; paged decode)        |
-| xla_hdp             | models.attention.hdp_prefill_attention         | HDP on, dense layout                 |
+| xla_dense           | chunked/local/decode_attention                 | HDP off (dense; paged decode)        |
+| xla_hdp             | hdp_prefill/decode_attention                   | HDP on, dense layout                 |
 | paged_hdp_decode    | hdp_paged_decode_attention, stage 3 "xla"      | HDP on, paged decode                 |
 | pallas_flash        | kernels.ops.flash (CUDA flash_attention)       | HDP off, aligned self-attn prefill   |
 | pallas_hdp_block    | kernels.ops.hdp_attention_tpu / block stage 3  | HDP on, aligned prefill or paged     |
 | pallas_paged_decode | the gather-free FUM kernel (CUDA)              | HDP on, causal paged (+verify)       |
 
-Branches whose maths the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item: ``xla_dense``
-decode (local and paged), ``xla_hdp`` decode, ``paged_hdp_decode``
-(stage 3 "xla"), and the speculative draft/verify and absmax-scale
-variants of the paged stages. None of the kernel backends has a
-gradient, so none supports trainable calls; none expresses a sliding
-window's lower bound, so windowed calls fall back down the chain.
+The speculative draft/verify variants of the paged stages raise
+``NotImplementedError`` naming their ROADMAP.md item. None of the kernel
+backends has a gradient, so none supports trainable calls; none
+expresses a sliding window's lower bound, so windowed calls fall back
+down the chain.
 """
 from __future__ import annotations
 
+from repro_torch.attention.reference import _densify
 from repro_torch.attention.registry import register_backend
 from repro_torch.attention.spec import AttnCall
 from repro_torch.attention.stats import normalize_stats
 from repro_torch.models import attention as A
-
-_DENSE_DECODE = ("section 1, item 1: the dense decode layout "
-                 "(decode_attention, hdp_decode_attention) and HDP-off "
-                 "serving")
-
 
 def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
@@ -53,15 +47,22 @@ def _supports_xla_dense(call: AttnCall) -> bool:
                   tags=("xla",))
 def run_xla_dense(q, k, v, call, *, q_pos, k_pos, cache=None,
                   page_table=None):
+    if call.layout == "paged":
+        k, v, _ = _densify(cache, page_table)
     if call.mode == "decode":
-        raise _unported(f"xla_dense {call.layout} decode", _DENSE_DECODE)
-    if call.window and q.shape[3] > call.window and k.shape[1] == q.shape[3]:
-        raise _unported("local (sliding-window) attention",
-                        "section 1, item 1")
-    chunk = call.chunk if call.chunk else k.shape[1]
-    o = A.chunked_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                            chunk=min(chunk, max(k.shape[1], 1)),
-                            causal=call.causal, window=call.window)
+        o = A.decode_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               window=call.window, causal=call.causal)
+    elif (call.window and q.shape[3] > call.window
+          and k.shape[1] == q.shape[3]):
+        # the block-local path needs aligned q/k; a chunked serving
+        # prefill (q one chunk, k the whole cache) windows by masking
+        o = A.local_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                              window=call.window, causal=call.causal)
+    else:
+        chunk = call.chunk if call.chunk else k.shape[1]
+        o = A.chunked_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                chunk=min(chunk, max(k.shape[1], 1)),
+                                causal=call.causal, window=call.window)
     return o, None
 
 
@@ -74,10 +75,16 @@ def _supports_xla_hdp(call: AttnCall) -> bool:
                   tags=("xla",))
 def run_xla_hdp(q, k, v, call, *, q_pos, k_pos, cache=None, page_table=None):
     if call.mode == "decode":
-        raise _unported("xla_hdp decode", _DENSE_DECODE)
-    out, st = A.hdp_prefill_attention(
-        q, k, v, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp, window=call.window,
-        return_stats=call.needs_stats)
+        if call.draft is not None:
+            raise _unported("speculative draft decode", "section 1, item 3")
+        out, st = A.hdp_decode_attention(
+            q, k, v, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
+            window=call.window, return_stats=call.needs_stats,
+            per_query=call.verify)
+    else:
+        out, st = A.hdp_prefill_attention(
+            q, k, v, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
+            window=call.window, return_stats=call.needs_stats)
     return out, normalize_stats(st)
 
 
@@ -90,14 +97,14 @@ def _run_paged(q, call, *, q_pos, k_pos, cache, page_table, stage3):
     if call.draft is not None or call.verify:
         raise _unported("speculative draft/verify paged decode",
                         "section 1, item 3")
-    if call.kv_scale != "grid":
-        raise _unported(f"kv_scale={call.kv_scale!r} pools",
-                        "section 1, item 1")
+    # quantized pools carry per-page scales and no scout copy (the scout
+    # is a view of the int8 codes); the unquantized pool its k_scout copy
     out, st = A.hdp_paged_decode_attention(
-        q, cache["k_pages"], cache["v_pages"], page_table, q_pos=q_pos,
-        k_pos=k_pos, hdp=call.hdp, window=call.window,
+        q, cache["k_pages"], cache["v_pages"], cache.get("k_scout"),
+        page_table, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
+        window=call.window, return_stats=call.needs_stats, stage3=stage3,
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-        return_stats=call.needs_stats, stage3=stage3)
+        kv_scale=call.kv_scale)
     return out, normalize_stats(st)
 
 

@@ -96,6 +96,50 @@ def roundtrip_pool(x: torch.Tensor, int_bits: int = 4) -> torch.Tensor:
     return torch.clamp(torch.round(x.to(F32) / s), -127, 127) * s
 
 
+def absmax_page_scale(x: torch.Tensor, int_bits: int = 4) -> torch.Tensor:
+    """Per-page per-kv-head calibrated absmax scale of a page-shaped slab
+    [..., ps, N, hd]: s = max|x| / 127 over the page's positions and head
+    dim, so the page's largest value maps to code +/-127. All-zero pages
+    take the static grid step (a NaN scale is the freed-page poison and
+    never comes from encoding). Returns [..., N]. The division is a
+    product with the fp32 reciprocal of 127, as XLA compiles the
+    reference's."""
+    m = x.to(F32).abs().amax(dim=(-3, -1))
+    s0 = torch.full_like(m, pool_scale(int_bits))
+    return torch.where(m > 0, m * torch.full_like(m, 1.0 / 127.0), s0)
+
+
+def encode_pool_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Float values -> int8 pool codes under an explicit (per-page) scale
+    broadcastable against x, clamped to [-127, 127] as on the grid."""
+    return torch.clamp(torch.round(x.to(F32) / scale.to(F32)),
+                       -127, 127).to(torch.int8)
+
+
+#: largest |x| that float8_e4m3fn encodes (448) plus half its last step:
+#: values above it are NaN in the reference's cast, where torch saturates
+FP8_E4M3_LIMIT = 464.0
+
+
+def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """x -> float8_e4m3fn as the reference's cast does it: round to
+    nearest even, and NaN for |x| > 464 (448 is the largest finite code;
+    464 is the midpoint to the next step, and ties go to the even 448).
+    torch's own cast saturates those to +/-448 instead, so they are
+    mapped to NaN before it."""
+    nan = torch.full_like(x, float("nan"))
+    return torch.where(x.abs() > FP8_E4M3_LIMIT, nan, x).to(
+        torch.float8_e4m3fn)
+
+
+def scout_int_codes(x: torch.Tensor, int_bits: int = 4,
+                    frac_bits: int = 12) -> torch.Tensor:
+    """int8 integer-scout codes of K (trunc of the fixed-point grid): the
+    write-time copy an unquantized pool stores beside its pages."""
+    xq = quantize_fixed(x.to(F32), int_bits, frac_bits)
+    return torch.trunc(xq).to(torch.int8)
+
+
 def calib_scale(x: torch.Tensor, int_bits: int, mode: str) -> torch.Tensor:
     """Per-tensor scale mapping x onto the fixed-point grid ("max" |
     "rms" | "none"); scores are divided by s_q*s_k afterwards."""
@@ -106,10 +150,13 @@ def calib_scale(x: torch.Tensor, int_bits: int, mode: str) -> torch.Tensor:
         m = xf.abs().max()
         # tensor / tensor: a python scalar on the left would become
         # reciprocal(m) * c, which rounds differently from jnp's division
-        c = torch.tensor((2.0 ** int_bits) * 0.999, dtype=F32, device=x.device)
+        # (a device fill, not a host copy: a captured decode graph holds it)
+        c = torch.full((), (2.0 ** int_bits) * 0.999, dtype=F32,
+                       device=x.device)
         return c / torch.clamp(m, min=1e-6)
     if mode == "rms":
         r = torch.sqrt(torch.sum(xf * xf) * (1.0 / xf.numel()))
-        c = torch.tensor(2.0 ** max(int_bits - 2, 0), dtype=F32, device=x.device)
+        c = torch.full((), 2.0 ** max(int_bits - 2, 0), dtype=F32,
+                       device=x.device)
         return c / torch.clamp(r, min=1e-6)
     raise ValueError(f"unknown calibration mode {mode!r}")

@@ -5,18 +5,22 @@
 // function, stages 2 and 3 of every HDP decode layer: for batch row b
 // and kv head n it streams only the pool pages listed in
 // page_ids[b, :counts[b]] (ascending logical order), dequantizes them
-// (int8 codes x per-page [P,N] scale, code -128 -> NaN, a NaN scale
-// poisons the page; an fp32 pool's K is snapped to the fixed-point
+// (int8 codes x per-page [P,N] scale, code -128 -> NaN; fp8 e4m3 V
+// codes x their scale, 1.0 in the pool; a NaN scale poisons the page;
+// an unquantized pool's K, fp32 or bf16, is snapped to the fixed-point
 // grid), forms s = qq.K^T - frac(qq).frac(K)^T over sqrt(hd), masks
 // column c of query row r unless c < kv_len[b] + r % Sq and the row's
-// keep flag is set, and runs an online softmax across the pages. The
+// keep flag is set, and runs an online softmax across the pages (p is
+// rounded to bf16 before p.V on a bf16 pool, as the TPU kernel casts p
+// to V's dtype). The
 // G*Sq query rows of the GQA group (and of a multi-query verify call)
 // share one page stream. A page that is not listed is never loaded, and
 // every listed page is loaded for every kv head (as the TPU kernel DMAs
 // it), so a NaN on a listed page reaches the output even where p = 0.
 //
 // Bound: bytes. Per (b, n) the kernel must read the listed pages' K and
-// V (ps x hd int8 codes each); the arithmetic is ~6*hd flops per (row,
+// V (ps x hd int8 or fp8 codes each, twice that for a bf16 pool, four
+// times for fp32); the arithmetic is ~6*hd flops per (row,
 // column), at most a few times the bytes. At qwen2-1.5b's decode (B 8,
 // N 2) one block per (b, n) would leave 116 of 132 SMs idle and walk its
 // pages one after another, latency-bound.
@@ -36,9 +40,11 @@
 //   memory; an int8 page's K and V codes are loaded 16 bytes a thread
 //   (int4) into registers while the block computes the previous page
 //   (two pages in flight), then dequantized on the way into shared
-//   memory as fp32; fp32 pools are loaded as float4 and snapped on the
-//   way in, one page at a time (their registers would not hold a second
-//   page);
+//   memory as fp32 (fp8 V through an exact bit decode of e4m3);
+//   unquantized pools are loaded four elements a thread (float4, or
+//   8 bytes of bf16) and snapped on the way in, one page at a time
+//   (their registers would not hold a second page). The pool format is a
+//   template argument, so each format compiles to its own loads;
 // * per page: scores with one thread per (column, group of RPT rows),
 //   each K value and its fraction read once (float4 along d) for all of
 //   the thread's rows; per-row m and l (one warp per row); p.V with one
@@ -53,6 +59,7 @@
 // devices and contiguity, picks S, allocates the output and the
 // workspace and launches on PyTorch's current stream.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -64,9 +71,13 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
 
+// pool formats: int8 K and V with scales; int8 K with scales and fp8
+// e4m3 V (scale 1.0); unquantized fp32 or bf16 K and V
+enum Fmt { kI8 = 0, kI8Fp8 = 1, kF32 = 2, kBf16 = 3 };
+
 struct Args {
   const float* qq;        // [B,N,G,Sq,hd]
-  const void* k_pool;     // [P,ps,N,hd] int8 codes or fp32
+  const void* k_pool;     // [P,ps,N,hd] int8 codes, fp32 or bf16
   const void* v_pool;     // [P,ps,N,hd]
   const float* k_scale;   // [P,N] (quantized pools only)
   const float* v_scale;   // [P,N]
@@ -87,6 +98,23 @@ __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 __device__ __forceinline__ float dequant(int8_t c, float s) {
   return c == -128 ? nan_f() : static_cast<float>(c) * s;
+}
+
+// float8_e4m3fn code -> float, exactly: bias 7, no infinity, S.1111.111
+// is NaN, exponent 0 is subnormal (m x 2^-9)
+__device__ __forceinline__ float fp8_e4m3(int8_t code) {
+  const unsigned c = static_cast<unsigned char>(code);
+  const unsigned sign = (c & 0x80u) << 24, e = (c >> 3) & 0xFu, m = c & 7u;
+  if (e == 15u && m == 7u) return nan_f();
+  if (e == 0u) {
+    const float v = static_cast<float>(m) * 0.001953125f;
+    return sign ? -v : v;
+  }
+  return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // quantize_fixed: round half to even onto the grid, then clamp; NaN
@@ -116,10 +144,10 @@ __device__ __forceinline__ int8_t byte_at(int v, int x) {
   return static_cast<int8_t>(v >> (8 * (x & 3)));
 }
 
-// One int8 page's K and V codes for head n, held in registers: VB codes
-// per load (16 when hd % 16 == 0, else 4), up to ps*hd/VB/kThreads loads
-// a thread for each of K and V.
-template <int VB>
+// One int8 page's K and V codes (V int8 or fp8 e4m3 bytes, FP8) for
+// head n, held in registers: VB codes per load (16 when hd % 16 == 0,
+// else 4), up to ps*hd/VB/kThreads loads a thread for each of K and V.
+template <int VB, bool FP8>
 struct Codes {
   using Vec = typename std::conditional<VB == 16, int4, int>::type;
   static constexpr int kMax = 128 * 128 / VB / kThreads;
@@ -143,6 +171,10 @@ struct Codes {
     }
   }
 
+  __device__ __forceinline__ float vdec(int8_t c) const {
+    return FP8 ? fp8_e4m3(c) * vs : dequant(c, vs);
+  }
+
   // dequantize into k_s [ps, hd+4] and v_s [ps, hd], four values a store
   __device__ __forceinline__ void store(const Args& a, float* k_s, float* v_s) const {
     const int per_row = a.hd / VB, total = a.ps * per_row;
@@ -157,37 +189,51 @@ struct Codes {
               dequant(byte_at(k[u], x), ks), dequant(byte_at(k[u], x + 1), ks),
               dequant(byte_at(k[u], x + 2), ks), dequant(byte_at(k[u], x + 3), ks));
           *reinterpret_cast<float4*>(v_s + pos * a.hd + d + x) = make_float4(
-              dequant(byte_at(v[u], x), vs), dequant(byte_at(v[u], x + 1), vs),
-              dequant(byte_at(v[u], x + 2), vs), dequant(byte_at(v[u], x + 3), vs));
+              vdec(byte_at(v[u], x)), vdec(byte_at(v[u], x + 1)),
+              vdec(byte_at(v[u], x + 2)), vdec(byte_at(v[u], x + 3)));
         }
       }
     }
   }
 };
 
-// One fp32 page's K (snapped to the grid) and V for head n into shared
-// memory, four elements per load.
-__device__ __forceinline__ void load_fp32(const Args& a, int pid, int n,
-                                          float* k_s, float* v_s) {
+// Four consecutive pool elements as floats: one float4 of fp32, or one
+// 8-byte load of bf16 (a bf16 is the top half of its float).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// One unquantized page's K (snapped to the grid) and V for head n into
+// shared memory, four elements per load; T is float or __nv_bfloat16.
+template <typename T>
+__device__ __forceinline__ void load_float(const Args& a, int pid, int n,
+                                           float* k_s, float* v_s) {
   const int hd4 = a.hd / 4;
   const size_t page0 = (size_t)pid * a.ps * a.N;
 #pragma unroll 4
   for (int i = threadIdx.x; i < a.ps * hd4; i += kThreads) {
     const int pos = i / hd4, d = (i - pos * hd4) * 4;
     const size_t g = (page0 + (size_t)pos * a.N + n) * a.hd + d;
-    const float4 kf = *reinterpret_cast<const float4*>(static_cast<const float*>(a.k_pool) + g);
-    const float4 vf = *reinterpret_cast<const float4*>(static_cast<const float*>(a.v_pool) + g);
+    const float4 kf = load4(static_cast<const T*>(a.k_pool) + g);
+    const float4 vf = load4(static_cast<const T*>(a.v_pool) + g);
     *reinterpret_cast<float4*>(k_s + pos * (a.hd + 4) + d) =
         make_float4(snap(kf.x, a), snap(kf.y, a), snap(kf.z, a), snap(kf.w, a));
     *reinterpret_cast<float4*>(v_s + pos * a.hd + d) = vf;
   }
 }
 
-// Q: int8 pool (else fp32); VB: codes per int8 load; RPT: rows per
+// F: the pool format (Fmt); VB: codes per int8 load; RPT: rows per
 // thread group (the groups, Rp / RPT, fit 256 / ps and 256 / hd).
-template <bool Q, int VB, int RPT>
+template <int F, int VB, int RPT>
 __global__ void __launch_bounds__(kThreads)
 fum_decode_kernel(const Args a) {
+  constexpr bool Q = F == kI8 || F == kI8Fp8;
   const int n = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int R = a.R, Rp = a.Rp, hd = a.hd, ps = a.ps, S = a.S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -246,7 +292,7 @@ fum_decode_kernel(const Args a) {
 #pragma unroll
   for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
 
-  Codes<VB> codes;
+  Codes<VB, F == kI8Fp8> codes;
   if constexpr (Q) {
     if (s < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + s], n);
   }
@@ -257,7 +303,8 @@ fum_decode_kernel(const Args a) {
       codes.store(a, k_s, v_s);
       if (j + S < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + j + S], n);
     } else {
-      load_fp32(a, a.page_ids[(size_t)b * a.mk + j], n, k_s, v_s);
+      using T = typename std::conditional<F == kBf16, __nv_bfloat16, float>::type;
+      load_float<T>(a, a.page_ids[(size_t)b * a.mk + j], n, k_s, v_s);
     }
     for (int r = tid; r < R; r += kThreads)
       keep_s[r] = a.keep[(((size_t)b * a.mk + j) * a.N + n) * R + r];
@@ -296,7 +343,8 @@ fum_decode_kernel(const Args a) {
     }
     __syncthreads();
 
-    // per-row online-softmax statistics; p overwrites the scores
+    // per-row online-softmax statistics; p overwrites the scores (l sums
+    // p before a bf16 pool's rounding, as the TPU kernel does)
     for (int r = warp; r < R; r += nwarps) {
       float mx = kNeg;
       for (int cc = lane; cc < ps; cc += 32) mx = fmaxf(mx, s_s[r * ps + cc]);
@@ -309,7 +357,7 @@ fum_decode_kernel(const Args a) {
       for (int cc = lane; cc < ps; cc += 32) {
         const bool valid = row_keep && col0 + cc < lim;
         const float p = valid ? expf(s_s[r * ps + cc] - m_new) : 0.f;
-        s_s[r * ps + cc] = p;
+        s_s[r * ps + cc] = F == kBf16 ? round_bf16(p) : p;
         sum += p;
       }
       sum = warp_sum(sum);
@@ -407,17 +455,17 @@ size_t smem_bytes(int R, int Rp, int hd, int ps) {
          sizeof(int) * (size_t)R;
 }
 
-template <bool Q, int VB, int RPT>
+template <int F, int VB, int RPT>
 int launch(Args a, cudaStream_t st) {
   a.Rp = (a.R + RPT - 1) / RPT * RPT;
   // above the 227 KB a block may use, the attribute call (and so the
   // launch) is refused with cudaErrorInvalidValue
   const size_t smem = smem_bytes(a.R, a.Rp, a.hd, a.ps);
   cudaError_t err = cudaFuncSetAttribute(
-      fum_decode_kernel<Q, VB, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fum_decode_kernel<F, VB, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fum_decode_kernel<Q, VB, RPT><<<dim3(a.N, a.B, a.S), kThreads, smem, st>>>(a);
+  fum_decode_kernel<F, VB, RPT><<<dim3(a.N, a.B, a.S), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,16 +475,17 @@ extern "C" {
 
 // Launches the kernel (and, for S > 1, the merge) on `stream`; returns
 // the first cudaError_t (0 = success). `part` holds B*N*S*G*Sq*(hd+2)
-// floats when S > 1 (unused for S = 1). ps <= 128, hd <= 128 and
-// hd % 4 == 0; G*Sq <= 16 * (256 / max(ps, hd)) (else
-// cudaErrorInvalidValue).
+// floats when S > 1 (unused for S = 1). `fmt` is the pool format (Fmt:
+// 0 int8, 1 int8 K + fp8 V, 2 fp32, 3 bf16; the first two with scales).
+// ps <= 128, hd <= 128 and hd % 4 == 0; G*Sq <= 16 * (256 / max(ps,
+// hd)) (else cudaErrorInvalidValue).
 // Nothing is synchronised and nothing is allocated.
 int hdp_paged_fum_decode_launch(
     const float* qq, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* page_ids,
     const int* logical, const int* counts, const int* keep,
     const int* kv_len, float* out, float* part, int B, int N, int G, int Sq,
-    int hd, int ps, int mk, int P, int S, int quantized, int approx,
+    int hd, int ps, int mk, int P, int S, int fmt, int approx,
     int int_bits, int frac_bits, float scale, void* stream) {
   Args a;
   a.qq = qq; a.k_pool = k_pool; a.v_pool = v_pool;
@@ -450,7 +499,8 @@ int hdp_paged_fum_decode_launch(
   a.lo = -ldexpf(1.f, int_bits);
   a.hi = ldexpf(1.f, int_bits) - ldexpf(1.f, -frac_bits);
   a.scale = scale;   // 1/sqrt(hd) rounded once, as the plain version does
-  if (ps < 1 || ps > 128 || hd < 4 || hd > 128 || hd % 4 || S < 1)
+  if (ps < 1 || ps > 128 || hd < 4 || hd > 128 || hd % 4 || S < 1 ||
+      fmt < kI8 || fmt > kBf16)
     return static_cast<int>(cudaErrorInvalidValue);
   // rows a thread group takes: 4, or 16 when more groups than the
   // threads hold would be needed
@@ -459,12 +509,20 @@ int hdp_paged_fum_decode_launch(
   if (!few && (a.R + 15) / 16 > groups) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = hd % 16 == 0 && reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
   int err;
-  if (!quantized) err = few ? launch<false, 4, 4>(a, st) : launch<false, 4, 16>(a, st);
-  else if (hd % 16 == 0 && reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(v_pool) % 16 == 0)
-    err = few ? launch<true, 16, 4>(a, st) : launch<true, 16, 16>(a, st);
-  else err = few ? launch<true, 4, 4>(a, st) : launch<true, 4, 16>(a, st);
+  switch (fmt) {
+    case kF32: err = few ? launch<kF32, 4, 4>(a, st) : launch<kF32, 4, 16>(a, st); break;
+    case kBf16: err = few ? launch<kBf16, 4, 4>(a, st) : launch<kBf16, 4, 16>(a, st); break;
+    case kI8Fp8:
+      if (wide) err = few ? launch<kI8Fp8, 16, 4>(a, st) : launch<kI8Fp8, 16, 16>(a, st);
+      else err = few ? launch<kI8Fp8, 4, 4>(a, st) : launch<kI8Fp8, 4, 16>(a, st);
+      break;
+    default:
+      if (wide) err = few ? launch<kI8, 16, 4>(a, st) : launch<kI8, 16, 16>(a, st);
+      else err = few ? launch<kI8, 4, 4>(a, st) : launch<kI8, 4, 16>(a, st);
+  }
   if (err != 0 || S == 1) return err;
   fum_merge_kernel<<<dim3(B * N, a.R), hd, 0, st>>>(part, out, a.R, hd, S);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,8 @@ from shapes and the SM count alone (about one block per SM), so no call
 waits on ``counts``. S = 1 ("single") writes the output in one pass;
 S > 1 ("split") adds the merge. ``hdp_paged_fum_decode.launches`` counts
 wrapper launches (the plain version does not count),
-``.launches_by_path`` them per mode; a call under CUDA graph capture
+``.launches_by_path`` them per mode and ``.launches_by_format`` per pool
+format; a call under CUDA graph capture
 counts once, where it records the kernel, and the graph's replays do
 not call the wrapper.
 """
@@ -29,6 +30,15 @@ from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
 
 #: the kernel's two modes: one pass, or pages split across blocks + merge
 PATHS = ("single", "split")
+#: pool formats the kernel takes, (K dtype, V dtype, with scales) -> the
+#: C interface's code: int8 codes; int8 K and fp8 e4m3 V (scale 1.0);
+#: unquantized pools in fp32 or bf16 (K snapped to the fixed-point grid)
+FORMATS = {(torch.int8, torch.int8, True): 0,
+           (torch.int8, torch.float8_e4m3fn, True): 1,
+           (torch.float32, torch.float32, False): 2,
+           (torch.bfloat16, torch.bfloat16, False): 3}
+#: the formats' names, by code (``launches_by_format``'s keys)
+FORMAT_NAMES = ("int8", "fp8_v", "fp32", "bf16")
 #: the most rows (G*Sq) one thread takes; G*Sq <= this * (256 // max(ps, hd))
 ROWS_PER_THREAD = 16
 
@@ -65,11 +75,12 @@ def _check(qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("pass both k_scale and v_scale, or neither")
-    pool_dt = torch.int8 if quantized else torch.float32
-    if k_pool.dtype != pool_dt or v_pool.dtype != pool_dt:
+    fmt = FORMATS.get((k_pool.dtype, v_pool.dtype, quantized))
+    if fmt is None:
         raise ValueError(
-            f"{'int8 pools with scales' if quantized else 'float32 pools'} "
-            f"expected, got {k_pool.dtype}/{v_pool.dtype}")
+            ("int8 K pools with scales expected (V int8 or float8_e4m3fn)"
+             if quantized else "float32 pools expected (or bfloat16 K and "
+             "V) without scales") + f", got {k_pool.dtype}/{v_pool.dtype}")
     mk = page_ids.shape[-1]
     want = {"page_ids": (page_ids, (B, mk)), "logical": (logical, (B, mk)),
             "counts": (counts, (B,)), "keep": (keep, (B, mk, N, G, Sq)),
@@ -90,7 +101,7 @@ def _check(qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-    return quantized
+    return fmt
 
 
 def fum_splits(B: int, N: int, mk: int, n_sm: int) -> int:
@@ -114,8 +125,9 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
                          k_scale=None, v_scale=None,
                          splits: Optional[int] = None) -> torch.Tensor:
     """qq [B,N,G,Sq,hd] fp32 fixed-grid queries; k/v_pool [P,ps,N,hd]
-    page pools (int8 codes with ``k_scale``/``v_scale`` [P,N] fp32, or
-    fp32 values without); page_ids/logical [B,mk] int32 pool id / slot
+    page pools (int8 K codes and int8 or float8_e4m3fn V with
+    ``k_scale``/``v_scale`` [P,N] fp32, or fp32 or bf16 values without,
+    see ``FORMATS``); page_ids/logical [B,mk] int32 pool id / slot
     position of each kept page, ascending and scratch-0-padded past
     ``counts`` [B] int32; keep [B,mk,N,G,Sq] int32 per-row keep; kv_len
     [B] int32 valid KV extent of query row 0 (row j's is kv_len + j).
@@ -123,8 +135,9 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
     absent from ``page_ids[:, :counts]`` are never read. ``splits`` forces
     S (1: the one-pass kernel), to hold the modes against each other; by
     default the wrapper takes ``fum_splits``'s choice."""
-    quantized = _check(qq, k_pool, v_pool, page_ids, logical, counts, keep,
-                       kv_len, k_scale, v_scale)
+    fmt = _check(qq, k_pool, v_pool, page_ids, logical, counts, keep,
+                 kv_len, k_scale, v_scale)
+    quantized = k_scale is not None
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     if qq.device.type == "cpu":
@@ -163,7 +176,7 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
             vp(page_ids.data_ptr()), vp(logical.data_ptr()),
             vp(counts.data_ptr()), vp(keep.data_ptr()),
             vp(kv_len.data_ptr()), vp(out.data_ptr()), vp(part.data_ptr()),
-            B, N, G, Sq, hd, ps, mk, P, S, int(quantized),
+            B, N, G, Sq, hd, ps, mk, P, S, fmt,
             int(approx), int_bits, frac_bits,
             ctypes.c_float(1.0 / (hd ** 0.5)), vp(stream))
     if err != 0:
@@ -173,8 +186,10 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
                            f"G*Sq={G * Sq}, hd={hd}, ps={ps}, S={S}: {msg}")
     hdp_paged_fum_decode.launches += 1
     hdp_paged_fum_decode.launches_by_path["single" if S == 1 else "split"] += 1
+    hdp_paged_fum_decode.launches_by_format[FORMAT_NAMES[fmt]] += 1
     return out
 
 
 hdp_paged_fum_decode.launches = 0
 hdp_paged_fum_decode.launches_by_path = dict.fromkeys(PATHS, 0)
+hdp_paged_fum_decode.launches_by_format = dict.fromkeys(FORMAT_NAMES, 0)

@@ -38,7 +38,8 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
     """Gather-free FUM decode, as a loop over each row's kept pages.
 
     qq [B,N,G,Sq,hd] fixed-grid queries; k/v_pool [P,ps,N,hd] page pools,
-    int8 codes with ``k_scale``/``v_scale`` [P,N] or fp32 values without;
+    int8 K codes and int8 or float8_e4m3fn V with ``k_scale``/``v_scale``
+    [P,N], or unquantized (fp32, bf16) values without;
     page_ids/logical [B,mk] int32 pool id / logical slot of each kept
     page (ascending, scratch-0-padded past ``counts``); counts [B]; keep
     [B,mk,N,G,Sq] int32; kv_len [B] valid extent of query row 0 (row j
@@ -47,8 +48,10 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
     Scores are QQ·Kᵀ − frac(QQ)·frac(K)ᵀ over 1/√hd, column c of row r
     counts where ``c < kv_len + r % Sq`` and keep is set, and an online
     softmax (NEG = -1e30, invalid p = 0, l floored at 1e-30) runs across
-    pages. int8 K and V decode as codes × scale, code -128 to NaN; an fp32
-    pool's K is snapped to the fixed-point grid. Returns [B,N,G,Sq,hd]
+    pages. int8 K and V decode as codes × scale, code -128 to NaN, fp8 V
+    as its value × scale; an unquantized pool's K is snapped to the
+    fixed-point grid, and p is rounded to its dtype before p·V (the TPU
+    kernel's ``p.astype(v.dtype)``). Returns [B,N,G,Sq,hd]
     (head gate applied by the caller); with ``partial`` the softmax state
     instead, (acc [B,N,G,Sq,hd] unnormalized, m and l [B,N,G,Sq]), which
     the kernel's blocks merge when they split a row's pages."""
@@ -71,7 +74,10 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
             pid = page_ids[b, j].long()
             if quantized:
                 kq = decode_pool(k_pool[pid], k_scale[pid][None, :, None])
-                v = decode_pool(v_pool[pid], v_scale[pid][None, :, None])
+                vs = v_scale[pid][None, :, None]
+                v = (decode_pool(v_pool[pid], vs)
+                     if v_pool.dtype == torch.int8
+                     else v_pool[pid].to(F32) * vs)
             else:
                 kq = quantize_fixed(k_pool[pid].to(F32), int_bits, frac_bits)
                 v = v_pool[pid].to(F32)
@@ -89,6 +95,8 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             m = m_new
+            if not quantized:
+                p = p.to(v_pool.dtype).to(F32)
             acc = acc * corr[..., None] + torch.einsum("nrp,pnh->nrh", p, v)
         if partial:
             out[b], ms[b], ls[b] = acc, m, l

@@ -19,6 +19,9 @@ elementwise, index, sort, reduce, copies, the FUM kernels), the FUM
 kernel's time (split pass and merge) and launches, and the top
 operators by device time and by host time; with the card's name and
 power limit. ``--trace PREFIX`` also writes each run's Chrome trace.
+``--kv-dtype``, ``--kv-scale``, ``--layout`` and ``--no-hdp`` pick the
+cache and the attention as ``launch/serve.py``'s flags of the same names
+do.
 """
 from __future__ import annotations
 
@@ -42,6 +45,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="also profile the engine stepping eagerly")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--kv-dtype", default="auto",
+                    choices=["auto", "fp32", "int8", "fp8_v"])
+    ap.add_argument("--kv-scale", default="grid", choices=["grid", "absmax"])
+    ap.add_argument("--layout", default="auto",
+                    choices=["auto", "paged", "dense"])
+    ap.add_argument("--no-hdp", action="store_true")
     return ap.parse_args(argv)
 
 
@@ -70,6 +79,7 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.attention import AttnSpec
     from repro_torch.serving import Engine, Request
 
     warmup, top = 3, 12
@@ -77,7 +87,9 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     buckets = (256, 512, 1024)
     eng = Engine(cfg, params, device="cuda", max_batch=args.requests,
                  max_len=buckets[-1] + max_new, prefill_buckets=buckets,
-                 decode_horizon=horizon, cuda_graph=graph)
+                 decode_horizon=horizon, cuda_graph=graph,
+                 attn=AttnSpec(layout=args.layout, kv_dtype=args.kv_dtype,
+                               kv_scale=args.kv_scale))
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):
         n = int(rng.integers(200, 1001))
@@ -129,6 +141,9 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     out = {
         "device": torch.cuda.get_device_name(0), "card": card(),
         "arch": args.arch, "batch": args.requests, "mode": mode,
+        "hdp": not args.no_hdp, "layout": args.layout,
+        "kv_dtype": eng.kv_dtype, "kv_scale": eng.kv_scale,
+        "attn_backend_decode": eng.resolved_backend("decode"),
         "horizon": horizon, "engine_steps": args.steps, "token_steps": n_tok,
         "unprofiled_wall_ms_per_token_step": 1e3 * wall_plain / n_plain,
         "unprofiled_decode_tok_s": args.requests * n_plain / wall_plain,
@@ -169,6 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     cfg = get_config(args.arch)
     params = registry.init_params(cfg, args.seed, "cuda")
+    if args.no_hdp:
+        cfg = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
     with torch.inference_mode():
         for horizon in args.horizon:
             for graph in ((False, True) if args.eager else (True,)):

@@ -7,16 +7,21 @@ behind the registry's backends:
 
 * ``chunked_attention`` — exact attention as an online softmax over KV
   chunks (``xla_dense`` prefill, the HDP-off path without a kernel);
+  ``local_attention`` the sliding window's block-local form, and
+  ``decode_attention`` exact decode against a whole cache;
 * ``hdp_prefill_attention`` — the two-pass blockwise HDP (integer scout,
   then approximate attention on surviving blocks), used for prefill into
-  a dense request cache (``xla_hdp``). A quantized-pool engine first
-  snaps K/V to the pool grid, so prefill and the int8 decode see the
-  same K;
-* ``hdp_paged_decode_attention`` — decode over the int8 block-paged
-  pool: stage 1 streams the int8 scout view of every allocated page,
+  a dense request cache (``xla_hdp``). A quantized-pool engine on the
+  static grid first snaps K/V to the pool format, so prefill and the
+  decode see the same values; ``hdp_decode_attention`` is HDP decode
+  over the dense slot cache;
+* ``hdp_paged_decode_attention`` — decode over the block-paged pool
+  (int8, int8 K + fp8 V, or unquantized pages with an int8 scout copy of
+  K): stage 1 streams the integer scout view of every allocated page,
   stage 2 keeps the pages some head still needs (Fetch-Upon-Mask), and
-  stage 3 runs on those pages only, in the gather-free paged FUM kernel
-  (``pallas_paged_decode``) or the block-sparse kernel on a densified
+  stage 3 runs on those pages only: in plain PyTorch over page chunks
+  (``paged_hdp_decode``), in the gather-free paged FUM kernel
+  (``pallas_paged_decode``) or in the block-sparse kernel on a densified
   gather (``pallas_hdp_block``).
 
 Aligned self-attention prefill (no cache) resolves to the full-sequence
@@ -38,9 +43,12 @@ from repro_torch.attention import AttnCall, AttnSpec, attention
 from repro_torch.core import blocking
 from repro_torch.core.config import HDPConfig
 from repro_torch.core.hdp import calibrated_split, decode_scout
-from repro_torch.core.quant import (decode_pool, encode_pool, pool_int_bits,
-                                    pool_view_finite, quantize_and_split,
-                                    quantize_fixed, roundtrip_pool)
+from repro_torch.core.quant import (POISON_CODE, encode_pool,
+                                    encode_pool_scaled, pool_int_bits,
+                                    pool_scale, pool_view_finite,
+                                    quantize_and_split, quantize_fixed,
+                                    roundtrip_pool, scout_int_codes,
+                                    to_fp8_e4m3)
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
 from repro_torch.kernels.ref import keep_mask_to_indices
@@ -48,8 +56,6 @@ from repro_torch.models import layers as L
 
 _NEG = -1e30
 F32 = torch.float32
-
-_UNPORTED = "is not ported yet (ROADMAP.md section 1, item 1)"
 
 
 # ------------------------------------------------------------------ params
@@ -129,6 +135,58 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, chunk: int,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def local_attention(q, k, v, *, q_pos, k_pos, window: int,
+                    causal: bool = True):
+    """Block-local sliding window: each q block of ``window`` rows attends
+    to its own KV block and the previous one (cost O(S * 2w * hd)).
+    Aligned self-attention only (q and k of one length)."""
+    B, N, G, Sq, hd = q.shape
+    Sk = k.shape[1]
+    c = window
+    Sqp, Skp = _ceil_to(Sq, c), _ceil_to(Sk, c)
+    if Sqp != Skp:
+        raise ValueError("local attention expects aligned q/k (self-attn)")
+    nb = Sqp // c
+    qb = _pad_axis(q, 3, Sqp).reshape(B, N, G, nb, c, hd)
+    kb = _pad_axis(k, 1, Skp).reshape(B, nb, c, N, hd)
+    vb = _pad_axis(v, 1, Skp).reshape(B, nb, c, N, hd)
+    qp = _pad_axis(q_pos + 1, 0, Sqp).reshape(nb, c) - 1
+    kp = _pad_axis(k_pos + 1, 0, Skp).reshape(nb, c) - 1
+
+    def pair(x):   # the previous block beside each block: [B, nb, 2c, N, hd]
+        prev = torch.roll(x, 1, dims=1)
+        prev[:, 0] = 0
+        return torch.cat([prev, x], dim=2)
+
+    k2, v2 = pair(kb), pair(vb)
+    kp_prev = torch.roll(kp, 1, dims=0)
+    kp_prev[0] = -1
+    kp2 = torch.cat([kp_prev, kp], dim=1)
+    scale = 1.0 / (hd ** 0.5)
+    s = _einsum_f32("bngtqh,btcnh->bngtqc", qb, k2) * scale
+    valid = _mask_bias(qp, kp2, causal, window)      # [nb, c, 2c]
+    s = torch.where(valid, s, _NEG)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(valid, p, 0.0)
+    den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = _einsum_f32("bngtqc,btcnh->bngtqh", (p / den).to(v.dtype), v2)
+    return out.reshape(B, N, G, Sqp, hd)[:, :, :, :Sq].to(q.dtype)
+
+
+def decode_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
+                     causal: bool = True):
+    """Exact attention of a few query tokens against a whole cache.
+    q [B,N,G,Sq,hd], k/v [B,Sk,N,hd]; returns q's dtype."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = _einsum_f32("bngqh,bsnh->bngqs", q, k) * scale
+    valid = _mask_bias(q_pos, k_pos, causal, window)
+    s = torch.where(valid, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid, p, 0.0)
+    out = _einsum_f32("bngqs,bsnh->bngqh", p.to(v.dtype), v)
     return out.to(q.dtype)
 
 
@@ -246,6 +304,59 @@ def _block_sparsity_stats(keep, bvalid, head_kept):
             "head_sparsity": 1.0 - head_kept.to(F32).sum(hax) * (1.0 / n_heads)}
 
 
+def _approx_block_attention(qq, fq, kq, fk, v, keep, valid, head_kept, *,
+                            block_k, scale, approx):
+    """The shared decode stage: FUM scores (QK^T - FQ FK^T) on the blocks
+    ``keep`` leaves, masked softmax, early head gate. ``scale`` folds
+    1/sqrt(hd) and any calibration rescale; ``block_k`` is the width the
+    [..., nk] keep mask expands by to the score columns."""
+    s = _einsum_f32("bngqh,bsnh->bngqs", qq, kq)
+    if approx:
+        s = s - _einsum_f32("bngqh,bsnh->bngqs", fq, fk)
+    s = s * scale
+    keep_e = _expand_keep(keep, block_k, valid, s.dim())
+    s = torch.where(keep_e, s, _NEG)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(keep_e, p, 0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = _einsum_f32("bngqs,bsnh->bngqh", p.to(v.dtype), v)
+    return _head_gate(out, head_kept)
+
+
+def hdp_decode_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
+                         window: int = 0, return_stats: bool = False,
+                         per_query: bool = False):
+    """HDP decode over a dense cache: the integer scout prunes KV blocks
+    of ``block_k`` positions (and heads), and the FUM attention runs on
+    the surviving blocks. q [B,N,G,Sq,hd], k/v [B,Sk,N,hd], calibrated
+    by ``hdp.calib`` over the call's q and the whole cache.
+    ``per_query`` scouts each query row for itself (the verify shape)."""
+    if hdp.approx_softmax:
+        raise NotImplementedError(
+            "approx_softmax is not ported yet (ROADMAP.md section 1, item 5)")
+    hd = q.shape[-1]
+    Sk = k.shape[1]
+    bk = hdp.block_k
+    Skp = _ceil_to(Sk, bk)
+    scale = 1.0 / (hd ** 0.5)
+    sq, qq, iq, fq = calibrated_split(q.float(), hdp)
+    sk, kq, ik, fk = calibrated_split(_pad_axis(k, 1, Skp).float(), hdp)
+    vp = _pad_axis(v, 1, Skp)
+    kp = _pad_axis(k_pos + 1, k_pos.dim() - 1, Skp) - 1
+    s_int = _einsum_f32("bngqh,bsnh->bngqs", iq, ik)
+    valid = _mask_bias(q_pos, kp, hdp.causal, window)
+    keep, bvalid, _, theta_head, head_kept = decode_scout(
+        s_int, valid, hdp, per_query=per_query)
+    out = _approx_block_attention(
+        qq, fq, kq, fk, vp, keep, valid, head_kept, block_k=bk,
+        scale=scale * torch.reciprocal(sq * sk), approx=hdp.approx)
+    stats = None
+    if return_stats:
+        stats = {**_block_sparsity_stats(keep, bvalid, head_kept),
+                 "theta_head": theta_head}
+    return out.to(q.dtype), stats
+
+
 def _fixed_split(x, hdp: HDPConfig):
     """Calibration-free fixed-point split (xq, I, F) on the static grid
     the write-time pool quantization assumes."""
@@ -268,20 +379,69 @@ def resolve_write_pages(positions, page_table, page_size, write_floor=None):
     return pidx
 
 
-def _paged_scout(q, k_pool, table, *, q_pos, k_pos, hdp: HDPConfig,
-                 window: int = 0):
-    """Stages 1 and 2 over an int8 pool.
+def scout_int8(k, hdp: HDPConfig):
+    """Write-time int8 scout copy of K that an unquantized pool stores:
+    the same codes a quantized pool derives as its stage-1 view."""
+    return scout_int_codes(k, hdp.int_bits, hdp.frac_bits)
 
-    Stage 1 reads the finite static-grid view of every allocated page's
-    codes (poison sentinels -> 0) and runs the decode scout; stage 2 ORs
-    ``keep & head_kept`` over heads into the per-row page fetch list.
-    Returns (qq, fq, keep, bvalid, theta, theta_head, head_kept,
-    fetched)."""
+
+def _dequant_pages(pages, scale):
+    """Gathered pool pages [..., ps, N, hd] + per-page scales [..., N]
+    -> fp32 values. int8 codes: the poison code -128 decodes to NaN; fp8
+    V: the exponent does the scale's job (its scale stays 1.0). A NaN
+    scale poisons the page either way."""
+    if pages.dtype == torch.int8:
+        vals = torch.where(pages == POISON_CODE,
+                           torch.full(pages.shape, float("nan"), dtype=F32,
+                                      device=pages.device), pages.to(F32))
+    else:
+        vals = pages.to(F32)
+    return vals * scale[..., None, :, None].to(F32)
+
+
+def _gather_pages(k_pool, v_pool, idx, k_scale, v_scale):
+    """Pool pages at ``idx`` [B, n] -> K and V [B, n, ps, N, hd]: fp32
+    values of a quantized pool, the pool's own dtype otherwise."""
+    if k_pool.dtype == torch.int8:
+        return (_dequant_pages(k_pool[idx], k_scale[idx]),
+                _dequant_pages(v_pool[idx], v_scale[idx]))
+    return k_pool[idx], v_pool[idx]
+
+
+def _paged_scout(q, k_pool, table, *, q_pos, k_pos, hdp: HDPConfig,
+                 window: int = 0, ik_pool=None, k_scale=None,
+                 kv_scale: str = "grid"):
+    """Stages 1 and 2 of the paged decode.
+
+    Stage 1 reads the integer scout stream of every allocated page: an
+    int8 pool's finite static-grid view of its codes (poison -> 0), or,
+    under ``kv_scale="absmax"``, the codes times a sanitized copy of the
+    page scales (NaN freed-page poison -> the static step); an
+    unquantized pool's write-time ``ik_pool`` copy. Then the decode
+    scout; stage 2 ORs ``keep & head_kept`` over heads into the per-row
+    page fetch list. Returns (qq, fq, keep, bvalid, theta, theta_head,
+    head_kept, fetched)."""
     B = q.shape[0]
     nP = table.shape[1]
     ps, N, hd = k_pool.shape[1:]
-    k_fin = pool_view_finite(k_pool[table.long()], hdp.int_bits)
-    ik = torch.trunc(k_fin.reshape(B, nP * ps, N, hd))
+    tbl = table.long()
+    if k_pool.dtype != torch.int8:
+        if ik_pool is None:
+            raise ValueError("an unquantized pool needs its int8 scout copy "
+                             "(ik_pool)")
+        ik = ik_pool[tbl].reshape(B, nP * ps, N, hd).to(F32)
+    elif kv_scale == "absmax":
+        codes = k_pool[tbl]                              # [B,nP,ps,N,hd]
+        ksc = k_scale[tbl]                               # [B,nP,N]
+        ksc = torch.where(torch.isfinite(ksc), ksc,
+                          torch.full_like(ksc, pool_scale(hdp.int_bits)))
+        cf = torch.where(codes == POISON_CODE, torch.zeros_like(codes),
+                         codes).to(F32)
+        ik = torch.trunc((cf * ksc[:, :, None, :, None]).reshape(
+            B, nP * ps, N, hd))
+    else:
+        k_fin = pool_view_finite(k_pool[tbl], hdp.int_bits)
+        ik = torch.trunc(k_fin.reshape(B, nP * ps, N, hd))
     qq, iq, fq = _fixed_split(q, hdp)
     s_int = _einsum_f32("bngqh,bsnh->bngqs", iq, ik)
     valid = _mask_bias(q_pos, k_pos, hdp.causal, window)
@@ -339,8 +499,9 @@ def _paged_block_kernel_stage3(qq, k_pool, v_pool, table, keep, theta,
                                k_scale, v_scale):
     """Stage 3 through the block-sparse kernel on a densified gather.
 
-    Surviving pages are dequantized into contiguous [B,H,nP*ps,hd] K
-    (snapped to the fixed-point grid) and V; pruned pages' gather
+    Surviving pages are gathered into contiguous [B,H,nP*ps,hd] K
+    (snapped to the fixed-point grid) and V (dequantized to fp32 from a
+    quantized pool, in the pool's dtype otherwise); pruned pages' gather
     indices point at the scratch page. The page keep mask and its
     importances become per-head block lists, and every query row's valid
     extent is its own position + 1 (the aligned prefill's causal mask is
@@ -350,14 +511,13 @@ def _paged_block_kernel_stage3(qq, k_pool, v_pool, table, keep, theta,
     ps = k_pool.shape[1]
     H = N * G
     gather = torch.where(fetched, table, 0).long()            # pruned -> 0
-    k = decode_pool(k_pool[gather], k_scale[gather][:, :, None, :, None])
-    v = decode_pool(v_pool[gather], v_scale[gather][:, :, None, :, None])
+    k, v = _gather_pages(k_pool, v_pool, gather, k_scale, v_scale)
 
     def per_head(x):   # [B,nP,ps,N,hd] -> [B,H,nP*ps,hd]
         x = x.reshape(B, nP * ps, N, hd).transpose(1, 2)
         return x.repeat_interleave(G, dim=1).contiguous()
 
-    kq = per_head(quantize_fixed(k, hdp.int_bits, hdp.frac_bits))
+    kq = per_head(quantize_fixed(k.to(F32), hdp.int_bits, hdp.frac_bits))
     kv_idx, counts = keep_mask_to_indices(
         keep.reshape(B, H, 1, nP), theta.reshape(B, H, 1, nP), nP)
     lens = (q_pos.reshape(B, Sq)[:, :1] + 1).expand(B, H).to(torch.int32)
@@ -368,48 +528,132 @@ def _paged_block_kernel_stage3(qq, k_pool, v_pool, table, keep, theta,
     return out.reshape(B, N, G, Sq, hd)
 
 
-#: stage-3 implementations of the paged decode that the port has
-STAGE3 = ("pallas_paged", "pallas_block")
+def _paged_scan_attention(qq, fq, k_pool, v_pool, gather_idx, keep, valid,
+                          head_kept, *, hdp: HDPConfig, ps: int, cpp: int,
+                          scale: float, k_scale=None, v_scale=None):
+    """Stages 2 and 3 as an online softmax over chunks of ``cpp`` pages
+    (a Python loop takes the place of the reference's ``lax.scan``).
+
+    Peak stage-2 memory is one chunk of gathered pages instead of the
+    whole context; pruned pages' gather indices point at the scratch
+    page, and a quantized pool is dequantized chunk by chunk. The sums
+    group by page chunk, so the output differs from the one-slab softmax
+    in the last bits only."""
+    B, N, G, Sq, hd = qq.shape
+    nP = gather_idx.shape[1]
+    nc = -(-nP // cpp)
+    pad = nc * cpp - nP
+    idx_p = _pad_axis(gather_idx, 1, nc * cpp)                # pads -> 0
+    keep_p = _pad_axis(keep, keep.dim() - 1, nc * cpp)
+    valid_p = _pad_axis(valid.expand(B, 1, 1, Sq, nP * ps), 4,
+                        (nP + pad) * ps)
+    m = torch.full((B, N, G, Sq), _NEG, dtype=F32, device=qq.device)
+    l = torch.zeros((B, N, G, Sq), dtype=F32, device=qq.device)
+    acc = torch.zeros((B, N, G, Sq, hd), dtype=F32, device=qq.device)
+    for c in range(nc):
+        pages = slice(c * cpp, (c + 1) * cpp)
+        k_i, v_i = _gather_pages(k_pool, v_pool, idx_p[:, pages], k_scale,
+                                 v_scale)
+        k_i = k_i.reshape(B, cpp * ps, N, hd)
+        v_i = v_i.reshape(B, cpp * ps, N, hd)
+        kq_i, _, fk_i = _fixed_split(k_i, hdp)
+        s = _einsum_f32("bngqh,bsnh->bngqs", qq, kq_i)
+        if hdp.approx:
+            s = s - _einsum_f32("bngqh,bsnh->bngqs", fq, fk_i)
+        s = s * scale
+        keep_e = _expand_keep(keep_p[..., pages], ps,
+                              valid_p[..., c * cpp * ps:(c + 1) * cpp * ps],
+                              s.dim())
+        s = torch.where(keep_e, s, _NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(keep_e, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _einsum_f32(
+            "bngqs,bsnh->bngqh", p.to(v_i.dtype), v_i)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return _head_gate(out, head_kept)
 
 
-def hdp_paged_decode_attention(q, k_pool, v_pool, table, *, q_pos, k_pos,
-                               hdp: HDPConfig, k_scale, v_scale,
-                               window: int = 0, return_stats: bool = False,
-                               stage3: str = "pallas_paged"):
-    """HDP decode over the int8 block-paged pool (static ``grid`` scale).
+#: stage-3 implementations of the paged decode
+STAGE3 = ("xla", "pallas_paged", "pallas_block")
 
-    q [B,N,G,Sq,hd]; k/v_pool [P,ps,N,hd] int8 codes (page 0 is the
-    scratch page); k/v_scale [P,N] fp32 per-page scales; table [B,nP]
-    int32 page table (0-padded); q_pos [B,1,1,Sq], k_pos [B,1,1,nP*ps].
-    ``stage3`` selects stages 2-3: "pallas_paged", the gather-free FUM
-    kernel, or "pallas_block", the block-sparse kernel on a densified
-    gather (single-query decode only). The reference's "xla" stage 3 is
-    not ported yet (ROADMAP.md section 1, item 1).
-    Returns (out [B,N,G,Sq,hd] in q's dtype, stats or None)."""
-    if k_pool.dtype != torch.int8:
-        raise NotImplementedError(
-            f"{k_pool.dtype} pools: only the int8 grid pool is ported "
-            "(ROADMAP.md section 1: fp32 and fp8_v pools)")
-    if window:
-        raise NotImplementedError(f"windowed paged decode {_UNPORTED}")
+
+def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
+                               k_pos, hdp: HDPConfig, window: int = 0,
+                               return_stats: bool = False,
+                               stage3: str = "xla", page_chunk: int = 128,
+                               k_scale=None, v_scale=None,
+                               kv_scale: str = "grid"):
+    """HDP decode over the block-paged pool: the Fetch-Upon-Mask dataflow.
+
+    q [B,N,G,Sq,hd]; k/v_pool [P,ps,N,hd] page pools (page 0 is the
+    scratch page): int8 codes, or int8 K and fp8 V, with ``k_scale``/
+    ``v_scale`` [P,N] fp32 per-page scales; or unquantized pages in the
+    model's dtype with ``ik_pool``, their int8 scout copy of K. table
+    [B,nP] int32 page table (0-padded); q_pos [B,1,1,Sq], k_pos
+    [B,1,1,nP*ps].
+
+    Stage 1 streams the integer scout view of every allocated page and
+    derives the keep mask and head gate (``_paged_scout``); stage 2
+    fetches only the pages some head still needs; stage 3 runs the FUM
+    attention QK^T - FQ FK^T on them, chosen by ``stage3``:
+
+    * ``"xla"`` — plain PyTorch: contexts up to ``page_chunk`` columns
+      gather the kept pages into one slab (the dense layout's reduction
+      order), longer ones run an online softmax over page chunks;
+    * ``"pallas_paged"`` — the gather-free FUM kernel;
+    * ``"pallas_block"`` — the block-sparse kernel on a densified gather
+      (single-query decode).
+
+    The kernels' per-row validity is an upper bound (cols < kv_len), so
+    a sliding window falls back to "xla", as does "pallas_paged" under
+    ``kv_scale="absmax"``: the kernel's scout view assumes the static
+    grid. Returns (out [B,N,G,Sq,hd] in q's dtype, stats or None)."""
     if stage3 not in STAGE3:
-        raise NotImplementedError(
-            f"paged decode stage3={stage3!r} is not ported yet (ROADMAP.md "
-            f"section 1, item 1); the port has {STAGE3}")
-    if stage3 == "pallas_block" and q.shape[3] != 1:
+        raise ValueError(f"stage3 must be one of {STAGE3}, got {stage3!r}")
+    B, N, G, Sq, hd = q.shape
+    ps = k_pool.shape[1]
+    nP = table.shape[1]
+    scale = 1.0 / (hd ** 0.5)
+    quantized = k_pool.dtype == torch.int8
+    absmax = quantized and kv_scale == "absmax"
+    if stage3 == "pallas_block" and Sq != 1:
         raise ValueError("the densifying block stage serves single-query "
                          "decode only")
-    qq, _, keep, bvalid, theta, theta_head, head_kept, fetched = \
-        _paged_scout(q, k_pool, table, q_pos=q_pos, k_pos=k_pos, hdp=hdp)
+    qq, fq, keep, bvalid, theta, theta_head, head_kept, fetched = \
+        _paged_scout(q, k_pool, table, q_pos=q_pos, k_pos=k_pos, hdp=hdp,
+                     window=window, ik_pool=ik_pool, k_scale=k_scale,
+                     kv_scale=kv_scale)
+    if stage3 != "xla" and window:
+        stage3 = "xla"
+    if stage3 == "pallas_paged" and absmax:
+        stage3 = "xla"
+    ks, vs = (k_scale, v_scale) if quantized else (None, None)
     if stage3 == "pallas_paged":
         out = _paged_fum_kernel_stage3(qq, k_pool, v_pool, table, keep,
                                        head_kept, q_pos, fetched, hdp=hdp,
-                                       k_scale=k_scale, v_scale=v_scale)
-    else:
+                                       k_scale=ks, v_scale=vs)
+    elif stage3 == "pallas_block":
         out = _paged_block_kernel_stage3(qq, k_pool, v_pool, table, keep,
                                          theta, head_kept, q_pos, fetched,
-                                         hdp=hdp, k_scale=k_scale,
-                                         v_scale=v_scale)
+                                         hdp=hdp, k_scale=ks, v_scale=vs)
+    else:
+        valid = _mask_bias(q_pos, k_pos, hdp.causal, window)
+        gather = torch.where(fetched, table, 0).long()      # pruned -> 0
+        cpp = max(1, page_chunk // ps)                      # pages a chunk
+        if nP <= cpp:
+            k, v = _gather_pages(k_pool, v_pool, gather, ks, vs)
+            kq, _, fk = _fixed_split(k.reshape(B, nP * ps, N, hd), hdp)
+            out = _approx_block_attention(
+                qq, fq, kq, fk, v.reshape(B, nP * ps, N, hd), keep, valid,
+                head_kept, block_k=ps, scale=scale, approx=hdp.approx)
+        else:
+            out = _paged_scan_attention(qq, fq, k_pool, v_pool, gather, keep,
+                                        valid, head_kept, hdp=hdp, ps=ps,
+                                        cpp=cpp, scale=scale, k_scale=ks,
+                                        v_scale=vs)
     stats = None
     if return_stats:
         alloc = torch.clamp((table > 0).to(F32).sum(-1), min=1.0)   # [B]
@@ -424,7 +668,7 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, table, *, q_pos, k_pos,
 def build_attn_call(cfg, *, mode: str, paged: bool = False,
                     per_slot: bool = False, self_aligned: bool = False,
                     causal: bool = True, collect_stats: bool = False,
-                    verify: bool = False) -> AttnCall:
+                    verify: bool = False, kv_scale: str = "grid") -> AttnCall:
     """The AttnCall ``attn_apply`` dispatches on. The serving engine uses
     the same function to report the resolved backend per phase, so the
     report cannot drift from the dispatch."""
@@ -441,7 +685,50 @@ def build_attn_call(cfg, *, mode: str, paged: bool = False,
         chunk=cfg.attn_chunk,
         needs_stats=collect_stats,
         verify=verify and mode == "decode",
+        kv_scale=kv_scale if paged else "grid",
     )
+
+
+def _spec_pool(attn: Optional[AttnSpec]) -> Tuple[str, str]:
+    """(kv_dtype, kv_scale) of the pool an ``attn`` spec serves from; no
+    spec, or kv_dtype "auto", means the default int8 pool."""
+    if attn is None:
+        return "int8", "grid"
+    return ("int8" if attn.kv_dtype == "auto" else attn.kv_dtype,
+            attn.kv_scale)
+
+
+def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str) -> None:
+    """Write the step's K/V [B,S,N,hd] into the pool at (page, offset),
+    in place, in the pool's format. A calibrated (absmax) pool encodes
+    against the destination page's current scale (set at insert; a fresh
+    decode page keeps the static step), NaN freed-page poison sanitized
+    to the static step; fp8 V pages take the cast (NaN past its range);
+    an unquantized pool also writes its int8 scout copy of K."""
+    pidx, off = pidx.long(), off.long()
+    ib = pool_int_bits(cfg.hdp)
+    v_fp8 = cache["v_pages"].dtype == torch.float8_e4m3fn
+    if cache["k_pages"].dtype == torch.int8 and kv_scale == "absmax":
+        s0 = pool_scale(ib)
+
+        def page_scale(name):
+            sc = cache[name][pidx]                           # [B,S,N]
+            return torch.where(torch.isfinite(sc), sc,
+                               torch.full_like(sc, s0))[..., None]
+
+        k_store = encode_pool_scaled(k, page_scale("k_scale"))
+        v_store = to_fp8_e4m3(v) if v_fp8 else \
+            encode_pool_scaled(v, page_scale("v_scale"))
+    elif cache["k_pages"].dtype == torch.int8:
+        k_store = encode_pool(k, ib)
+        v_store = to_fp8_e4m3(v) if v_fp8 else encode_pool(v, ib)
+    else:
+        k_store = k.to(cache["k_pages"].dtype)
+        v_store = v.to(cache["v_pages"].dtype)
+    cache["k_pages"][pidx, off] = k_store
+    cache["v_pages"][pidx, off] = v_store
+    if "k_scout" in cache:
+        cache["k_scout"][pidx, off] = scout_int8(k, cfg.hdp)
 
 
 def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
@@ -453,13 +740,17 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     mode "prefill": positions [S]; without ``cache`` this is aligned
     self-attention over the whole sequence (the full-sequence kernels'
     call); ``cache`` is this layer's dense request cache {"k","v"}
-    [B,Smax,N,hd] of an int8-pool engine, written in place at
-    positions[0] with K/V snapped to the pool grid.
+    [B,Smax,N,hd], written in place at positions[0]. A quantized-pool
+    engine on the static grid (``attn.kv_dtype`` "int8" or "fp8_v", or
+    no spec: the default int8 pool) first snaps K to the pool grid and V
+    to the grid or through fp8, so prefill attention and the pool insert
+    see one set of values; absmax pools and the unquantized pool skip it.
     mode "decode": positions [B,S] per slot; ``cache`` is this layer's
-    paged pool {"k_pages","v_pages","k_scale","v_scale"}, written in
-    place (the K/V scatter) before attention reads it; ``write_floor``
-    [B] fences shared prefix pages. ``attn`` selects the backend (None:
-    the default spec, which honors REPRO_ATTN_BACKEND).
+    paged pool {"k_pages","v_pages", "k_scale","v_scale" | "k_scout"}
+    or its dense slot cache {"k","v"} [B,Smax,N,hd], written in place
+    (the K/V scatter) before attention reads it; ``write_floor`` [B]
+    fences shared prefix pages. ``attn`` selects the backend (None: the
+    default spec, which honors REPRO_ATTN_BACKEND).
     Returns (y, cache, stats|None); y is in x's dtype. An fp32
     attention output (the block-sparse kernel's) meets a bf16 ``wo`` in
     fp32, as the reference promotes it, and the product is rounded once
@@ -477,14 +768,14 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
+    kv_dtype, kv_scale = _spec_pool(attn)
     paged = cache is not None and "k_pages" in cache
-    if mode == "prefill" and cache is not None:
-        # round-trip K/V through the pool grid BEFORE the request-cache
-        # write: prefill attention and the int8 pool insert then see one
-        # set of values
+    if (mode == "prefill" and cache is not None and not paged
+            and kv_dtype != "fp32" and kv_scale != "absmax"):
         ib = pool_int_bits(cfg.hdp)
         k = roundtrip_pool(k, ib).to(k.dtype)
-        v = roundtrip_pool(v, ib).to(v.dtype)
+        v = (to_fp8_e4m3(v) if kv_dtype == "fp8_v"
+             else roundtrip_pool(v, ib)).to(v.dtype)
 
     if paged:
         if mode != "decode" or positions.dim() != 2:
@@ -492,18 +783,32 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
         ps = cache["k_pages"].shape[1]
         nP = page_table.shape[1]
         pidx = resolve_write_pages(positions, page_table, ps, write_floor)
-        off = positions % ps
-        ib = pool_int_bits(cfg.hdp)
         # in place: the per-layer pool views alias the engine's pool
-        cache["k_pages"][pidx.long(), off.long()] = encode_pool(k, ib)
-        cache["v_pages"][pidx.long(), off.long()] = encode_pool(v, ib)
+        _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale)
         ar = torch.arange(nP * ps, device=x.device)
         k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
         k_pos = k_pos[:, None, None, :]                  # [B,1,1,nP*ps]
         k_full = v_full = None                           # read via the table
+    elif cache is not None and positions.dim() == 2:
+        if mode != "decode":
+            raise ValueError("per-slot positions are a decode-time shape")
+        # per-slot decode into the dense slot cache: each row writes at
+        # its own offset (clamped into the cache, as a dynamic update
+        # slice is)
+        smax = cache["k"].shape[1]
+        p0 = torch.clamp(positions[:, :1], 0, smax - S)
+        cols = p0 + torch.arange(S, device=x.device)
+        rows = torch.arange(B, device=x.device)[:, None]
+        cache["k"][rows, cols] = k.to(cache["k"].dtype)
+        cache["v"][rows, cols] = v.to(cache["v"].dtype)
+        k_full, v_full = cache["k"], cache["v"]
+        ar = torch.arange(smax, device=x.device)
+        k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
+        k_pos = k_pos[:, None, None, :]                  # [B,1,1,Smax]
     elif cache is not None:
         if mode != "prefill" or positions.dim() != 1:
-            raise NotImplementedError(f"dense-cache decode {_UNPORTED}")
+            raise ValueError("a request cache is filled by prefill with "
+                             "shared positions")
         pos0 = int(positions[0])
         cache["k"][:, pos0:pos0 + S] = k.to(cache["k"].dtype)
         cache["v"][:, pos0:pos0 + S] = v.to(cache["v"].dtype)
@@ -518,7 +823,8 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     call = build_attn_call(
         cfg, mode=mode, paged=paged, per_slot=positions.dim() == 2,
         self_aligned=cache is None and positions.dim() == 1,
-        collect_stats=collect_stats, verify=mode == "decode" and S > 1)
+        collect_stats=collect_stats, verify=mode == "decode" and S > 1,
+        kv_scale=kv_scale)
     o, stats = attention(qg, k_full, v_full, call, spec=attn, q_pos=q_pos,
                          k_pos=k_pos, cache=cache if paged else None,
                          page_table=page_table)

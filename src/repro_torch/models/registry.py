@@ -29,12 +29,11 @@ def module_for(cfg):
         item = _PENDING.get(cfg.family, "section 1")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md {item})")
-    if (cfg.norm, cfg.act, cfg.pos_emb, cfg.qk_norm, cfg.sliding_window) \
-            != ("rmsnorm", "silu_glu", "rope", False, 0):
+    if (cfg.norm, cfg.act, cfg.pos_emb, cfg.qk_norm) \
+            != ("rmsnorm", "silu_glu", "rope", False):
         raise NotImplementedError(
             f"{cfg.name}: only rmsnorm + silu_glu + rope dense models without "
-            "qk-norm or a sliding window are ported (ROADMAP.md section 1, "
-            "item 4)")
+            "qk-norm are ported (ROADMAP.md section 1, item 4)")
     return mod
 
 

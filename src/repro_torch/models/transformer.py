@@ -25,12 +25,6 @@ def _layer_init(cfg, gen, dtype, device) -> Dict:
             "ffn": L.mlp_init(cfg, gen, dtype, device)}
 
 
-def _stack_trees(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -45,10 +39,31 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     gen.manual_seed(seed)
     dtype = L.torch_dtype(cfg.dtype)
     emb = L.embed_init(cfg, gen, dtype, device)
-    layers = _stack_trees([_layer_init(cfg, gen, dtype, device)
-                           for _ in range(cfg.n_layers)])
+    # each layer is drawn and copied into its row of the stacked [L, ...]
+    # leaves at once, so the weights are never held twice
+    layers = None
+    for li in range(cfg.n_layers):
+        one = _layer_init(cfg, gen, dtype, device)
+        if layers is None:
+            layers = _map(lambda t: t.new_empty((cfg.n_layers, *t.shape)),
+                          one)
+        _map2(lambda dst, src: dst[li].copy_(src), layers, one)
     return {"embed": emb, "layers": layers,
             "final_norm": L.norm_init(cfg, dtype, device)}
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _map2(fn, a, b):
+    if isinstance(a, dict):
+        for k in a:
+            _map2(fn, a[k], b[k])
+    else:
+        fn(a, b)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None,
@@ -86,9 +101,9 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
                   pos_offset: int = 0, attn=None):
     """Run the prompt and return (last-position logits [B,1,V] fp32,
     cache, stats). With a request ``cache`` it is filled in place (K/V
-    snapped to the int8 pool grid); with ``cache=None`` the prompt is an
-    aligned self-attention prefill, which the full-sequence kernels
-    serve. ``pos_offset`` is the absolute position of ``tokens[:, 0]``:
+    snapped to the pool format, see ``attn_apply``); with ``cache=None``
+    the prompt is an aligned self-attention prefill, which the
+    full-sequence kernels serve. ``pos_offset`` is the absolute position of ``tokens[:, 0]``:
     nonzero for chunked prefill, where each chunk appends to the cache
     behind the previous ones and attends to all of them. ``attn``
     selects the attention backend (an ``AttnSpec``)."""
@@ -105,10 +120,11 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
 def apply_decode(cfg, params, token, cache, pos, *,
                  collect_stats: bool = False, page_table=None,
                  write_floor=None, attn=None):
-    """One decode step over the paged pool. token [B,1]; pos [B,1] int
-    positions; ``cache`` the pool dict with [L,...] leaves (updated in
-    place); page_table [B,nP] int32. Returns (logits [B,1,V] fp32,
-    cache, stats)."""
+    """One decode step. token [B,1]; pos [B,1] int positions; ``cache``
+    the paged pool dict with [L,...] leaves and page_table [B,nP] int32,
+    or the dense slot cache {"k","v"} [L,B,Smax,N,hd] without a table
+    (updated in place either way). Returns (logits [B,1,V] fp32, cache,
+    stats)."""
     x = L.embed_tokens(params["embed"], token)
     x, stats = _stack(cfg, params, x, mode="decode", positions=pos,
                       cache=cache, collect_stats=collect_stats,

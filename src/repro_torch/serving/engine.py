@@ -1,25 +1,30 @@
-"""Batched serving engine with HDP over the int8 block-paged pool.
+"""Batched serving engine with HDP over a block-paged or dense KV cache.
 
 PyTorch counterpart of the greedy core of ``repro.serving.Engine`` for
-dense transformer families:
+dense transformer families. The KV cache is the block-paged pool
+(``PagedKVCache``: int8, int8 K + fp8 V, or unquantized pages in the
+model's dtype, on the static grid or with absmax page scales; the
+default for the dense family) or the dense per-slot layout
+(``SlotCache``), with HDP on or off:
 
 * **batched bucketed prefill** — queued requests are grouped by pad
   bucket and stacked into one prefill per group (each prompt right-padded
   with its last token); the dense request cache it fills is scattered
-  into the slot's freshly allocated pool pages;
+  into the slot's freshly allocated pool pages, or copied into its slot;
 * **chunked prefill** — a prompt longer than the largest bucket is
   prefilled alone, in chunks of the largest bucket appended at a
   position offset (the last chunk padded to the smallest bucket that
   fits), into a request cache of ``max_len`` positions; this needs the
-  largest bucket to be a multiple of HDP's ``block_q``, so that chunk
-  boundaries sit on scout block rows;
+  largest bucket to be a multiple of HDP's ``block_q`` (with HDP on),
+  so that chunk boundaries sit on scout block rows;
 * **fused greedy decode** — each ``step()`` runs up to
   ``decode_horizon`` decode steps over all ``max_batch`` slots with one
   host sync. The per-slot state (last token, position, active mask,
   remaining budget, EOS id) lives on the device; every step masks done,
   faulted and parked slots there and writes its outputs into history
   rows the host reads once per horizon. Parked slots get a zeroed table
-  row, so their writes land in the scratch page. On a CUDA device the
+  row, so their writes land in the scratch page (in the dense layout at
+  position 0 of their own, free, slot). On a CUDA device the
   step is one CUDA graph, captured at the first decode and replayed
   (``cuda_graph=False`` steps eagerly instead, as the CPU does). Each
   layer's attention goes through the backend the registry resolves for
@@ -28,7 +33,7 @@ dense transformer families:
   gather (``attn="pallas_hdp_block"``);
 * EOS and budget handling, and the per-slot non-finite tripwire (only
   the faulted request aborts); a finished request frees its pages at
-  once.
+  once (a dense slot is cleared).
 
 Not ported yet (ROADMAP.md section 1): the prefix cache, speculative
 decode, the stream scheduler, fault handling and tensor parallelism.
@@ -50,10 +55,13 @@ from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
 from repro_torch.models import registry
 from repro_torch.models.attention import build_attn_call
 from repro_torch.models.layers import resolve_device
-from repro_torch.serving.kv_cache import KV_DTYPE, PagedKVCache
+from repro_torch.serving.kv_cache import (KV_DTYPES, PagedKVCache, SlotCache,
+                                          cache_bytes)
 
 #: env default of ``decode_horizon`` (the reference's name)
 HORIZON_ENV = "REPRO_DECODE_HORIZON"
+#: env default of the paged pool's format (the reference's name)
+KV_DTYPE_ENV = "REPRO_KV_DTYPE"
 
 #: decode backend -> its stage-3 implementation (on the card, on the CPU)
 _STAGE3_IMPL = {
@@ -67,7 +75,8 @@ _STAGE3_IMPL = {
 _DECODE_KERNELS = {"fum_kernel_launches": hdp_paged_fum_decode,
                    "block_kernel_launches": hdp_block_sparse_attention}
 
-#: the per-slot decode stats leaves kept in the history rows
+#: the per-slot decode stats leaves kept in the history rows (the dense
+#: layout has no pages; HDP off has no stats)
 _STAT_NAMES = ("block_sparsity", "head_sparsity", "page_sparsity")
 
 
@@ -103,7 +112,7 @@ class Engine:
 
     Parameters
     ----------
-    cfg: ModelConfig (dense family with HDP enabled).
+    cfg: ModelConfig (dense family, HDP on or off).
     params: model parameter dict; drawn from ``seed`` when None.
     device: "cuda" (default) or "cpu"; CUDA raises when absent.
     max_batch: decode slot count.
@@ -111,8 +120,11 @@ class Engine:
     prefill_buckets: pad-to lengths of the batched prefill.
     collect_stats: aggregate HDP block/head/page sparsity.
     attn: AttnSpec, or a backend name or family tag, selecting the
-        attention backend per phase; None uses the default spec (which
-        honors REPRO_ATTN_BACKEND).
+        attention backend per phase and the cache: ``layout`` ("auto":
+        paged), ``kv_dtype`` of the paged pool ("auto": REPRO_KV_DTYPE,
+        else "int8"; the dense layout always serves the model dtype,
+        reported as "fp32") and ``kv_scale``; None uses the default spec
+        (which honors REPRO_ATTN_BACKEND).
     decode_horizon: decode steps per ``step()`` and host sync; None
         reads REPRO_DECODE_HORIZON (default 1).
     cuda_graph: on a CUDA device, run the decode step as one captured
@@ -130,13 +142,30 @@ class Engine:
                  cuda_graph: bool = True):
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
-        self.attn_spec = attn if attn is not None else default_spec()
+        spec = attn if attn is not None else default_spec()
         self.device = resolve_device(device)
+        layout = "paged" if spec.layout == "auto" else spec.layout
+        kv_dtype = spec.kv_dtype
+        if kv_dtype == "auto":
+            kv_dtype = os.environ.get(KV_DTYPE_ENV, "") or "int8"
+            if kv_dtype not in KV_DTYPES:
+                raise ValueError(f"{KV_DTYPE_ENV}={kv_dtype!r}: must be one "
+                                 f"of {KV_DTYPES}")
+        if layout != "paged":
+            kv_dtype = "fp32"     # dense slot caches have no quantized store
+        if spec.kv_scale == "absmax" and kv_dtype == "fp32":
+            raise ValueError(
+                "kv_scale='absmax' calibrates a quantized pool's scales; "
+                "it needs kv_dtype='int8'/'fp8_v' and the paged layout")
+        # the resolved format goes back into the spec: attn_apply keys its
+        # prefill round trip off attn.kv_dtype and attn.kv_scale
+        self.attn_spec = spec.replace(kv_dtype=kv_dtype)
+        self.paged = layout == "paged"
+        self.kv_dtype = kv_dtype
+        self.kv_scale = spec.kv_scale if self.paged else "grid"
         hdp = cfg.hdp
-        if hdp is None or not hdp.enabled:
-            raise NotImplementedError(
-                "HDP-off serving is not ported yet (ROADMAP.md section 1)")
-        if hdp.calib != "none":
+        self.hdp_on = hdp is not None and hdp.enabled
+        if self.paged and self.hdp_on and hdp.calib != "none":
             # the pool's scout view is quantized at write time, so a
             # data-dependent calibration scale cannot be honoured: the
             # static grid applies to prefill and decode alike
@@ -162,7 +191,15 @@ class Engine:
         if params is None:
             params = registry.init_params(cfg, seed, self.device)
         self.params = params
-        self.pages = PagedKVCache(cfg, max_batch, max_len, device=self.device)
+        if self.paged:
+            self.pages = PagedKVCache(cfg, max_batch, max_len,
+                                      device=self.device, kv_dtype=kv_dtype,
+                                      kv_scale=self.kv_scale)
+        else:
+            self.slots = SlotCache(cfg, max_batch, max_len,
+                                   device=self.device)
+        self._stat_names = (() if not self.hdp_on else _STAT_NAMES
+                            if self.paged else _STAT_NAMES[:2])
         self._free = list(range(max_batch))
         self._active: Dict[int, Dict[str, Any]] = {}   # slot -> state
         self._results: Dict[int, Result] = {}
@@ -188,8 +225,9 @@ class Engine:
         self._t = torch.zeros(1, dtype=i64, device=dev)
         self._hist = torch.zeros((H, 3, B), dtype=i64, device=dev)
         self._hist_stats = torch.zeros(
-            (H, len(_STAT_NAMES), self.cfg.n_layers, B), dtype=torch.float32,
-            device=dev) if self.collect_stats else None
+            (H, len(self._stat_names), self.cfg.n_layers, B),
+            dtype=torch.float32, device=dev) \
+            if self.collect_stats and self._stat_names else None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         #: launches of each decode kernel recorded into the graph
         self._graph_launches: Dict[str, int] = {}
@@ -197,10 +235,12 @@ class Engine:
     # --------------------------------------------------------------- public
     @property
     def _can_chunk(self) -> bool:
-        """Chunk boundaries must sit on HDP q-block boundaries, or the
-        scout's per-block-row pooling shifts against a one-shot prefill
-        (the port serves only rope dense models, which chunk)."""
-        return self.buckets[-1] % self.cfg.hdp.block_q == 0
+        """With HDP on, chunk boundaries must sit on HDP q-block
+        boundaries, or the scout's per-block-row pooling shifts against a
+        one-shot prefill (the port serves only rope dense models, which
+        chunk)."""
+        return (not self.hdp_on
+                or self.buckets[-1] % self.cfg.hdp.block_q == 0)
 
     def submit(self, req: Request) -> None:
         """Enqueue a request."""
@@ -288,6 +328,12 @@ class Engine:
             self._queue.extend(long_reqs)
             raise
 
+    @property
+    def _store(self):
+        """The serving cache: the page pool or the dense slot cache (each
+        takes ``insert(one_cache, slot, row)`` and holds ``.cache``)."""
+        return self.pages if self.paged else self.slots
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -306,8 +352,10 @@ class Engine:
             toks[r, plen:] = toks[r, plen - 1]
         slots = [self._free.pop(0) for _ in reqs]
         try:
-            for req, slot in zip(reqs, slots):
-                self.pages.alloc(slot, len(req.prompt) + req.max_new_tokens)
+            if self.paged:
+                for req, slot in zip(reqs, slots):
+                    self.pages.alloc(slot,
+                                     len(req.prompt) + req.max_new_tokens)
             t0 = time.perf_counter()
             cache = registry.init_cache(self.cfg, nb, bucket,
                                         device=self.device)
@@ -316,13 +364,14 @@ class Engine:
                 {"tokens": torch.from_numpy(toks).to(self.device)}, cache,
                 collect_stats=self.collect_stats, attn=self.attn_spec)
             for r, slot in enumerate(slots):
-                self.pages.insert(cache, slot, row=r)
+                self._store.insert(cache, slot, row=r)
             self._sync()
             dt = time.perf_counter() - t0
         except BaseException:
             # roll admission back: nothing leaks, nothing drops
-            for slot in slots:
-                self.pages.free(slot)
+            if self.paged:
+                for slot in slots:
+                    self.pages.free(slot)
             self._free[:0] = slots
             self._queue[:0] = reqs
             raise
@@ -386,12 +435,14 @@ class Engine:
         """Give a prefilled request a slot and pages, and arm it."""
         slot = self._free.pop(0)
         try:
-            self.pages.alloc(slot, len(req.prompt) + req.max_new_tokens)
-            self.pages.insert(one_cache, slot, row)
+            if self.paged:
+                self.pages.alloc(slot, len(req.prompt) + req.max_new_tokens)
+            self._store.insert(one_cache, slot, row=row)
             self._activate(req, slot, prefill_s)
         except BaseException:
             # roll the slot back (requeueing is the caller's job)
-            self.pages.free(slot)
+            if self.paged:
+                self.pages.free(slot)
             self._active.pop(slot, None)
             self._free.insert(0, slot)
             raise
@@ -420,9 +471,10 @@ class Engine:
         history row ``_t``. Nothing is read back to the host, so a CUDA
         graph can hold it."""
         act = self._act
-        table = torch.where(act[:, None], self.pages.table(), 0)
+        table = (torch.where(act[:, None], self.pages.table(), 0)
+                 if self.paged else None)
         logits, _, stats = registry.apply_decode(
-            self.cfg, self.params, self._tok, self.pages.cache,
+            self.cfg, self.params, self._tok, self._store.cache,
             self._pos[:, None], collect_stats=self.collect_stats,
             page_table=table, attn=self.attn_spec)
         last = logits[:, -1]
@@ -437,7 +489,7 @@ class Engine:
             0, self._t, torch.stack([nxt, act.long(), fault.long()])[None])
         if self._hist_stats is not None:
             self._hist_stats.index_copy_(0, self._t, torch.stack(
-                [stats[n] for n in _STAT_NAMES])[None])
+                [stats[n] for n in self._stat_names])[None])
         self._t.add_(1)
         self._rem.sub_(act.long())
         self._tok.copy_(torch.where(gone, 0, nxt)[:, None])
@@ -467,12 +519,15 @@ class Engine:
         for the warm-up (an eager run on a side stream, which builds and
         loads the kernels, creates the cuBLAS handles and loads lazy
         modules before capture) so its pool writes land in the scratch
-        page; then the state is restored. The wrappers' counts taken over
-        the capture are what each replay launches."""
+        page, or, in the dense layout, at position 0 of every slot, which
+        is saved beside the state; then both are restored. The wrappers'
+        counts taken over the capture are what each replay launches."""
         t0 = time.perf_counter()
         state = (self._tok, self._pos, self._act, self._rem, self._t)
+        if not self.paged:
+            state += tuple(c[:, :, 0] for c in self.slots.cache.values())
         saved = [x.clone() for x in state]
-        for x in state[:-1]:
+        for x in state[:4]:
             x.zero_()
         try:
             side = torch.cuda.Stream(self.device)
@@ -534,7 +589,7 @@ class Engine:
         self.metrics["decode_steps"] += ran
         if stats is not None:
             for t in range(ran):
-                self._record_stats(dict(zip(_STAT_NAMES, stats[t])),
+                self._record_stats(dict(zip(self._stat_names, stats[t])),
                                    mask=act[t])
         for t in range(ran):
             for slot in list(self._active):
@@ -563,8 +618,11 @@ class Engine:
         res.status, res.error = status, error
         # park the slot (the decode step has parked its device state
         # already): its table row is zeroed, so later decode writes of
-        # the parked slot land in the scratch page
-        self.pages.free(slot)
+        # the parked slot land in the scratch page; a dense slot is cleared
+        if self.paged:
+            self.pages.free(slot)
+        else:
+            self.slots.clear(slot)
         self._tok[slot] = 0
         self._pos[slot] = 0
         self._act[slot] = False
@@ -614,9 +672,10 @@ class Engine:
             raise ValueError(f"phase must be prefill or decode, got "
                              f"{phase!r}")
         decode = phase == "decode"
-        call = build_attn_call(self.cfg, mode=phase, paged=decode,
-                               per_slot=decode,
-                               collect_stats=self.collect_stats)
+        call = build_attn_call(self.cfg, mode=phase,
+                               paged=self.paged and decode, per_slot=decode,
+                               collect_stats=self.collect_stats,
+                               kv_scale=self.kv_scale)
         return resolve_backend(call, self.attn_spec).name
 
     def summary(self) -> Dict[str, Any]:
@@ -639,14 +698,25 @@ class Engine:
         m["attn_backend_prefill"] = self.resolved_backend("prefill")
         m["attn_backend_decode"] = decode = self.resolved_backend("decode")
         # the decode stage-3 implementation: the resolved backend's kernel
-        # on the card, its plain version for CPU tensors
-        m["attn_decode_stage3"] = _STAGE3_IMPL.get(decode, (decode,) * 2)[
+        # on the card, its plain version for CPU tensors; the FUM kernel's
+        # scout view assumes the static grid, so absmax pools fall back
+        # to the plain PyTorch stage (paged_hdp_decode's)
+        stage3 = ("paged_hdp_decode" if decode == "pallas_paged_decode"
+                  and self.kv_scale == "absmax" else decode)
+        m["attn_decode_stage3"] = _STAGE3_IMPL.get(stage3, (stage3,) * 2)[
             self.device.type != "cuda"]
-        m["kv_dtype"] = KV_DTYPE
-        m["cache_bytes"] = self.pages.active_bytes(self.pages.peak_pages)
-        m["cache_bytes_pool"] = self.pages.pool_bytes()
-        m["cache_bytes_per_token"] = self.pages.bytes_per_token()
-        m["pages_peak"] = self.pages.peak_pages
-        m["pages_in_use"] = self.pages.pages_in_use
-        m["page_size"] = self.pages.page_size
+        m["layout"] = "paged" if self.paged else "dense"
+        m["kv_dtype"] = self.kv_dtype
+        m["kv_scale"] = self.kv_scale
+        if self.paged:
+            # resident bytes at the allocation high-water mark
+            m["cache_bytes"] = self.pages.active_bytes(self.pages.peak_pages)
+            m["cache_bytes_pool"] = self.pages.pool_bytes()
+            m["cache_bytes_per_token"] = self.pages.bytes_per_token()
+            m["pages_peak"] = self.pages.peak_pages
+            m["pages_in_use"] = self.pages.pages_in_use
+            m["page_size"] = self.pages.page_size
+        else:
+            m["cache_bytes"] = cache_bytes(self.slots.cache)
+            m["cache_bytes_per_token"] = self.slots.bytes_per_token()
         return m

@@ -8,8 +8,7 @@
   ``REPRO_ATTN_BACKEND``.
 * Conformance: every port backend that supports a call agrees with the
   JAX ``reference`` oracle on the same numpy inputs (within the
-  reference suite's ATOL = 2e-5), or raises ``NotImplementedError`` for
-  a branch the port has not ported yet — and only for those.
+  reference suite's ATOL = 2e-5).
 """
 from __future__ import annotations
 
@@ -42,9 +41,6 @@ HDP_KW = dict(block_q=4, block_k=4, rho_b=0.5, tau_h=0.0,
               normalize_head_score=True, calib="max")
 NAMES = ("reference", "xla_dense", "xla_hdp", "paged_hdp_decode",
          "pallas_flash", "pallas_hdp_block", "pallas_paged_decode")
-#: (backend, call kind) pairs whose maths the port does not have yet
-UNPORTED = {("xla_dense", "decode"), ("xla_hdp", "decode"),
-            ("paged_hdp_decode", "decode")}
 
 
 def _calls(**kw):
@@ -232,10 +228,6 @@ def test_backends_agree_with_jax_reference(cell):
         spec = AttnSpec(backend=b.name, allow_fallback=False)
         kw = dict(spec=spec, q_pos=tx["q_pos"], k_pos=tx["k_pos"],
                   cache=tx["cache"], page_table=tx["page_table"])
-        if (b.name, cell["mode"]) in UNPORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                attention(tx["q"], tx["k"], tx["v"], tcall, **kw)
-            continue
         with torch.no_grad():
             out, _ = attention(tx["q"], tx["k"], tx["v"], tcall, **kw)
         np.testing.assert_allclose(

@@ -47,11 +47,12 @@ def rng():
 
 
 def test_configs_match_field_for_field():
-    for cfg, jcfg in ((get_config("qwen2-1.5b"), jax_get_config("qwen2-1.5b")),
-                      (reduced(get_config("qwen2-1.5b")),
-                       jax_reduced(jax_get_config("qwen2-1.5b")))):
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-        assert cfg.hd == jcfg.hd
+    for arch in ("qwen2-1.5b", "granite-8b", "h2o-danube-1.8b"):
+        for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
+                          (reduced(get_config(arch)),
+                           jax_reduced(jax_get_config(arch)))):
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), arch
+            assert cfg.hd == jcfg.hd
     assert dataclasses.asdict(HDPConfig()) == dataclasses.asdict(JHDPConfig())
 
 

@@ -12,7 +12,8 @@ The port of ``tests/test_decode_hotpath.py``'s horizon tests, plus:
 * one horizon is one host read, and ``_decode_body`` reads nothing back
   to the host (what lets a CUDA graph hold it): it runs under a dispatch
   mode that raises on scalar reads, ``nonzero`` and tensors made from
-  host data;
+  host data, on every decode route (each pool format and the absmax
+  scales, the block kernel, the dense layout, HDP off);
 * a replayed step counts the launches recorded into it.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
 from repro.serving import Engine as JEngine
 from repro.serving import Request as JRequest
+from repro_torch.attention import AttnSpec as TAttnSpec
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
@@ -199,11 +201,29 @@ def _opaque(kernel):
     return call
 
 
-@pytest.mark.parametrize("attn", [None, "pallas_hdp_block"])
-def test_decode_body_reads_nothing_back(weights, attn, monkeypatch):
+#: decode routes of the body: the FUM kernel on the int8 grid pool (the
+#: default), the block kernel, the FUM kernel on the fp8_v and the
+#: unquantized pool, the plain stage 3 of an absmax pool, and the dense
+#: layout's HDP decode; with HDP off, the paged and the dense layout
+BODY_ROUTES = [(None, True), ("pallas_hdp_block", True),
+               (TAttnSpec(kv_dtype="fp8_v"), True),
+               (TAttnSpec(kv_dtype="fp32"), True),
+               (TAttnSpec(kv_dtype="int8", kv_scale="absmax"), True),
+               (TAttnSpec(layout="dense"), True),
+               (TAttnSpec(kv_dtype="int8"), False),
+               (TAttnSpec(layout="dense"), False)]
+
+
+@pytest.mark.parametrize(
+    "attn,hdp_on", BODY_ROUTES,
+    ids=["None", "pallas_hdp_block", "fp8_v", "fp32", "absmax", "dense",
+         "hdp_off-paged", "hdp_off-dense"])
+def test_decode_body_reads_nothing_back(weights, attn, hdp_on, monkeypatch):
     monkeypatch.setattr(attention, "hdp_paged_fum_decode",
                         _opaque(hdp_paged_fum_decode))
-    eng = Engine(_cfg(), weights[1], device="cpu", collect_stats=True,
+    cfg = _cfg() if hdp_on else _cfg().replace(
+        hdp=_cfg().hdp.replace(enabled=False))
+    eng = Engine(cfg, weights[1], device="cpu", collect_stats=True,
                  attn=attn, **KW)
     prompt = PROMPTS[0]
     eng.submit(Request(0, prompt, max_new_tokens=4))
@@ -218,7 +238,10 @@ def test_decode_body_reads_nothing_back(weights, attn, monkeypatch):
     assert row[1].tolist() == [1, 0] and row[2].tolist() == [0, 0]
     assert int(eng._pos[0]) == len(prompt)
     assert eng._tok[0, 0] == row[0, 0] and eng._rem.tolist() == [3, 0]
-    assert bool(torch.isfinite(eng._hist_stats[0]).all())
+    if hdp_on:
+        assert bool(torch.isfinite(eng._hist_stats[0]).all())
+    else:
+        assert eng._hist_stats is None
 
 
 class _EagerGraph:

@@ -235,8 +235,9 @@ def test_paged_decode_attention_matches_reference(stage3, head_pruning):
     q, kc, vc, scl, table, q_pos, k_pos, hdp, jhdp = _pipeline_inputs(
         11, head_pruning)
     out, st = hdp_paged_decode_attention(
-        _t(q), _t(kc), _t(vc), _t(table), q_pos=_t(q_pos), k_pos=_t(k_pos),
-        hdp=hdp, k_scale=_t(scl), v_scale=_t(scl), return_stats=True)
+        _t(q), _t(kc), _t(vc), None, _t(table), q_pos=_t(q_pos),
+        k_pos=_t(k_pos), hdp=hdp, k_scale=_t(scl), v_scale=_t(scl),
+        return_stats=True, stage3=stage3)
     jout, jst = j_paged_attention(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), None,
         jnp.asarray(table), q_pos=jnp.asarray(q_pos),
@@ -258,9 +259,10 @@ def test_fum_poison_contract():
     NaN. K codes stay intact: they are the stage-1 scout stream."""
     q, kc, vc, scl, table, q_pos, k_pos, hdp, _ = _pipeline_inputs(3, False)
     kw = dict(q_pos=_t(q_pos), k_pos=_t(k_pos), hdp=hdp)
-    out, _ = hdp_paged_decode_attention(_t(q), _t(kc), _t(vc), _t(table),
-                                        k_scale=_t(scl), v_scale=_t(scl),
-                                        **kw)
+    out, _ = hdp_paged_decode_attention(_t(q), _t(kc), _t(vc), None,
+                                        _t(table), k_scale=_t(scl),
+                                        v_scale=_t(scl),
+                                        stage3="pallas_paged", **kw)
     assert torch.isfinite(out).all()
     *_, fetched = _paged_scout(_t(q), _t(kc), _t(table), **kw)
     pruned = table[~fetched.numpy()]
@@ -270,15 +272,15 @@ def test_fum_poison_contract():
     ks_bad[pruned] = np.nan
     vs_bad[pruned] = np.nan
     out_bad, _ = hdp_paged_decode_attention(
-        _t(q), _t(kc), _t(vc_bad), _t(table), k_scale=_t(ks_bad),
-        v_scale=_t(vs_bad), **kw)
+        _t(q), _t(kc), _t(vc_bad), None, _t(table), k_scale=_t(ks_bad),
+        v_scale=_t(vs_bad), stage3="pallas_paged", **kw)
     assert torch.equal(out, out_bad), "poison leaked: a pruned page was read"
     vis = table[0][fetched[0].numpy()][0]
     ks_nan = scl.copy()
     ks_nan[vis] = np.nan
     out_nan, _ = hdp_paged_decode_attention(
-        _t(q), _t(kc), _t(vc), _t(table), k_scale=_t(ks_nan),
-        v_scale=_t(scl), **kw)
+        _t(q), _t(kc), _t(vc), None, _t(table), k_scale=_t(ks_nan),
+        v_scale=_t(scl), stage3="pallas_paged", **kw)
     assert torch.isnan(out_nan[0]).any(), \
         "NaN-scale poison on a fetched page did not surface"
 
@@ -294,8 +296,8 @@ def test_block_stage3_matches_reference(head_pruning):
     kw = dict(q_pos=_t(q_pos), k_pos=_t(k_pos), hdp=hdp,
               stage3="pallas_block", return_stats=True)
     out, st = hdp_paged_decode_attention(
-        _t(q), _t(kc), _t(vc), _t(table), k_scale=_t(scl), v_scale=_t(scl),
-        **kw)
+        _t(q), _t(kc), _t(vc), None, _t(table), k_scale=_t(scl),
+        v_scale=_t(scl), **kw)
     for jstage in ("pallas_block", "xla"):
         jout, jst = j_paged_attention(
             jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), None,
@@ -318,6 +320,6 @@ def test_block_stage3_matches_reference(head_pruning):
     ks_bad[pruned] = np.nan
     vs_bad[pruned] = np.nan
     out_bad, _ = hdp_paged_decode_attention(
-        _t(q), _t(kc), _t(vc_bad), _t(table), k_scale=_t(ks_bad),
+        _t(q), _t(kc), _t(vc_bad), None, _t(table), k_scale=_t(ks_bad),
         v_scale=_t(vs_bad), **kw)
     assert torch.equal(out, out_bad), "poison leaked: a pruned page was read"

@@ -13,8 +13,9 @@ never JAX nor the JAX package. Phases:
    at the reference tests' small shapes (2x2 blocks and ragged S
    included) and at qwen2-1.5b's full-width shapes: the paged FUM
    decode on int8, fp32, fp8-V (int8 K, fp8 e4m3 V) and bf16 pools (the
-   last two also at granite-8b's shape), split across blocks and in one
-   pass, each with its poison checks;
+   last two also at granite-8b's shape), at Sq 1, 3 and 8 (the verify
+   shape; 48 rows split over two row blocks), split across blocks and in
+   one pass, each with its poison checks;
    the integer scout on both of its paths (theta, keep and theta_head
    bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
    bad-input NaN); the block-sparse FUM attention on the
@@ -36,10 +37,11 @@ never JAX nor the JAX package. Phases:
    FUM call recorded and the busiest held against the plain version),
    then on the decode step's CUDA graph at horizons 1 and 4 (the main
    path): identical tokens, the FUM kernel once per layer per decode
-   step (pages split across blocks), as torch.profiler counts its runs
-   on the card over the whole graphed horizon-1 serve, and the graph
-   faster than the eager steps; ``Engine(attn="pallas_hdp_block")`` the
-   block kernel on its tile path, eagerly and graphed (profiled), with
+   step (pages split across blocks), as the kernel's own count of its
+   runs on the card (``.runs``) shows over every serve, graph replays
+   included, and the graph faster than the eager steps;
+   ``Engine(attn="pallas_hdp_block")`` the block kernel on its tile
+   path, eagerly and graphed (counted on the card alike), with
    identical tokens; prompts of 2,500
    and 4,000 tokens through chunked prefill; the reduced config graphed
    on the card, with one prompt chunked, must give the CPU's tokens;
@@ -50,20 +52,39 @@ never JAX nor the JAX package. Phases:
    plain stage 3, HDP off on the paged and the dense layout, and HDP on
    on the dense layout (``xla_hdp``); each eagerly and graphed at
    horizon 4 with equal tokens, tok/s, backends, pool format and cache
-   bytes per token printed, the FUM routes' graphed runs under the
-   profiler; then the reduced config on each route, card vs CPU;
+   bytes per token printed, the FUM kernel's runs counted on the card;
+   then the reduced config on each route, card vs CPU;
 5c. windowed decode: h2o-danube-1.8b at full width cut to 4 layers,
    its window cut to 512 under prompts of 600-1,000 tokens (decode on
    ``paged_hdp_decode``), eager and graphed equal; the reduced config
    (window 16) card vs CPU;
+5d. prefix cache and speculative decode, qwen2-1.5b at full width (run
+   right after phase 5, on its weights): a 1,024-token shared prompt
+   (a warm-up request, then 6 hits with tails of 32-480 tokens through
+   chunked prefill and 2 full hits of its first 512 and 1,024 tokens)
+   through the graphed engine at horizon 4 with the prefix cache and
+   without, head pruning off: equal tokens, 8 hits, 2 COWs, a drained
+   pool, prefill_s hot against cold, then hot on the stock config;
+   phase 5's traffic by speculative decode, graphed, at draft lengths 4
+   and 8 (one CUDA graph per round width), tokens equal to the graphed
+   horizon-1 engine's, the FUM kernel 28 times per verify and never in
+   a draft step (the wrappers' counts over each capture, and the
+   kernel's count on the card at both draft lengths, read before and
+   after each round and so split by the round's width), and the
+   kernel against its plain version at the path's verify call that
+   listed the most pages, each of its rows bit-equal to the single step
+   at that row's position; the bf16 ("fp32") pool with its fraction
+   copy cut to 8 layers, spec equal to horizon 1; the reduced config
+   with both features, card (graphed) vs CPU;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
    function, that call; the tile paths at the calls that take them (the
    decode route's block call; flash in fp32 at the prefill's shape); the
    scout's dp4a kernel and the FUM decode in one pass (the earlier
-   designs) at the same inputs as their successors; the FUM decode's
-   fp8-V and bf16 pool variants at the int8 timing case's values.
+   designs) at the same inputs as their successors; the FUM decode at
+   the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
+   and bf16 pool variants at the int8 timing case's values.
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -72,10 +93,10 @@ without that last line.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -255,7 +276,7 @@ def phase_kernels(torch):
             cases.append((f"test B2N2G2Sq{Sq}hd8ps4 {fmt}",
                           dict(B=2, N=2, G=2, Sq=Sq, hd=8, ps=4, nP=8,
                                fmt=fmt, live=0.5, seed=Sq)))
-        for Sq in (1, 3):
+        for Sq in (1, 3, 8):
             cases.append((f"qwen2 B8N2G6Sq{Sq}hd128ps128 {fmt}",
                           dict(B=8, N=2, G=6, Sq=Sq, hd=128, ps=128, nP=16,
                                fmt=fmt, live=0.5,
@@ -634,17 +655,34 @@ def phase_new_kernels(torch):
 # ------------------------------------------------ phase 4: aligned prefill
 class Recorder:
     """Wraps a kernel wrapper; keeps the inputs of the call with the
-    largest ``key`` (the last call when key is None)."""
+    largest ``key`` (the last call when key is None; a key of None skips
+    the call). With ``clone`` it keeps copies, for a path that later
+    rewrites what the call read (a speculative round rolls back and
+    poisons pool pages)."""
 
-    def __init__(self, fn, key=None):
-        self.fn, self.key = fn, key
+    def __init__(self, fn, key=None, clone=False):
+        self.fn, self.key, self.clone = fn, key, clone
         self.best, self.score = None, None
 
     def __call__(self, *args, **kw):
         score = 0 if self.key is None else self.key(args)
-        if self.score is None or score >= self.score:
+        if score is not None and (self.score is None or score >= self.score):
+            if self.clone:
+                args = tuple(a.clone() for a in args)
+                kw = {k: (v.clone() if hasattr(v, "clone") else v)
+                      for k, v in kw.items()}
             self.best, self.score = (args, kw), score
         return self.fn(*args, **kw)
+
+
+def listed_pages(args):
+    """The pages a FUM-kernel call lists (its counts summed)."""
+    return int(args[5].sum())
+
+
+def listed_pages_verify(args):
+    """``listed_pages`` of a verify call (Sq > 1); None for a step."""
+    return listed_pages(args) if args[0].shape[3] > 1 else None
 
 
 def live_blocks(args):
@@ -809,7 +847,8 @@ def phase_aligned_prefill(torch, cfg, params):
 
 
 def zero_launches():
-    """Sets every kernel wrapper's launch counts to 0."""
+    """Sets every kernel wrapper's launch counts, and the kernels' own
+    counts of their runs on the card, to 0."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
@@ -821,6 +860,8 @@ def zero_launches():
             fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
     hdp_paged_fum_decode.launches_by_format = dict.fromkeys(
         hdp_paged_fum_decode.launches_by_format, 0)
+    hdp_paged_fum_decode.runs.zero()
+    hdp_block_sparse_attention.runs.zero()
 
 
 # ------------------------------------------------------------ phase 5
@@ -829,45 +870,25 @@ SERVE_KW = dict(max_batch=8, max_len=1056, prefill_buckets=(256, 512, 1024),
 LONG_PROMPTS, LONG_MAX_LEN = (2500, 4000), 4128
 
 
-#: decode kernel -> the names of its CUDA kernels as the profiler lists
-#: them (the block route's decode runs the tile path)
-DEVICE_KERNELS = {"fum": ("fum_decode_kernel", "fum_merge_kernel"),
-                  "block": ("tile_kernel",)}
-
-
-def serve(torch, eng, prompts, max_new, profiled=False):
+def serve(torch, eng, prompts, max_new):
     """Serve ``prompts`` through ``eng`` with every launch count zeroed
     first. Returns (tokens by uid, summary, wall s, FUM and block wrapper
-    launches by path, and with ``profiled`` the runs of each of their
-    CUDA kernels on the card over the whole serve, counted by
-    torch.profiler: the only count of what a graph's replays ran)."""
-    import contextlib
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    launches by path, and the runs of the FUM and the block tile kernel
+    on the card over the whole serve, by their own counts: the only
+    count of what a graph's replays ran)."""
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.serving import Request
     torch.cuda.synchronize()
     zero_launches()
-    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
-            else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with prof:
-        for uid, p in enumerate(prompts):
-            eng.submit(Request(uid, p, max_new_tokens=max_new))
-        res = eng.run()
-        torch.cuda.synchronize()
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid, p, max_new_tokens=max_new))
+    res = eng.run()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    seen = None
-    if profiled:
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        seen = {k: {name: sum(e.count for e in kernels
-                              if re.search(rf"\b{name}\b", e.key))
-                    for name in names}
-                for k, names in DEVICE_KERNELS.items()}
+    runs = {"fum": hdp_paged_fum_decode.runs.read(),
+            "block": hdp_block_sparse_attention.runs.read()}
     s = eng.summary()
     check(len(res) == len(prompts) and all(
         r.complete and r.status == "ok" and len(r.tokens) == max_new
@@ -878,18 +899,18 @@ def serve(torch, eng, prompts, max_new, profiled=False):
     launches = {"fum": dict(hdp_paged_fum_decode.launches_by_path),
                 "block": dict(hdp_block_sparse_attention.launches_by_path),
                 "fum_format": dict(hdp_paged_fum_decode.launches_by_format)}
-    return {u: r.tokens for u, r in res.items()}, s, wall, launches, seen
+    return {u: r.tokens for u, r in res.items()}, s, wall, launches, runs
 
 
-def check_decode_launches(s, launches, kernel, label, seen=None,
+def check_decode_launches(s, launches, kernel, label, runs,
                           n_layers=N_LAYERS_QWEN):
     """The engine counts ``n_layers`` launches of ``kernel`` ("fum" or
     "block") per decode step and none of the other. Eagerly the wrapper
     counts the same. Graphed, the wrapper is called twice per layer and capture:
     the eager warm-up step and the capture, which records the kernel
-    and runs nothing; the replays never call it. The profiler's count
-    of each CUDA kernel of ``kernel`` (``seen``) must be the engine's
-    plus the warm-up step's: the launches the replays really ran."""
+    and runs nothing; the replays never call it. The kernel's own count
+    of its runs on the card (``runs``) must be the engine's plus the
+    warm-up step's: the launches the replays really ran."""
     other = "block" if kernel == "fum" else "fum"
     steps, caps = s["decode_steps"], s["graph_captures"]
     n = s[f"{kernel}_kernel_launches"]
@@ -904,18 +925,15 @@ def check_decode_launches(s, launches, kernel, label, seen=None,
     check(wrapper == want_wrapper,
           f"{label}: the {kernel} wrapper counted {wrapper} launches, "
           f"expected {want_wrapper}")
-    if seen is not None:
-        want = n + n_layers * caps
-        check(all(c == want for c in seen[kernel].values())
-              and not any(seen[other].values()),
-              f"{label}: the profiler saw {seen}, expected {want} runs of "
-              f"each {kernel} kernel ({n_layers} layers x {steps} "
-              f"decode steps + {caps} warm-up step(s)) and none of "
-              f"{other}'s")
-        log(f"[serve] {label}: the profiler saw {seen[kernel]} on the card "
-            f"= {n_layers} layers x ({steps} decode steps + {caps} "
-            f"warm-up step), the engine counted {n} for the steps, the "
-            f"wrapper {launches[kernel]} (warm-up and capture)")
+    want = n + n_layers * caps
+    check(runs[kernel] == want and runs[other] == 0,
+          f"{label}: the kernels counted {runs} runs on the card, expected "
+          f"{want} of {kernel} ({n_layers} layers x {steps} decode steps + "
+          f"{caps} warm-up step(s)) and none of {other}")
+    log(f"[serve] {label}: {runs[kernel]} runs of the {kernel} kernel on "
+        f"the card = {n_layers} layers x ({steps} decode steps + {caps} "
+        f"warm-up step(s)), the engine counted {n} for the steps, the "
+        f"wrapper {launches[kernel]}")
 
 
 def log_served(label, s, wall):
@@ -937,10 +955,10 @@ def log_served(label, s, wall):
 
 def phase_serving(torch, cfg, params):
     """The serving traffic eagerly (the FUM kernel recorded and held
-    against its plain version at the path's call that kept the most
+    against its plain version at the path's call that listed the most
     pages), then on the decode graph at horizons 1 and 4 (tokens equal
-    the eager run's, launches 28 per step, cross-checked by the
-    profiler); the block decode route eagerly and graphed; chunked
+    the eager run's, launches 28 per step, cross-checked by the kernel's
+    count on the card); the block decode route eagerly and graphed; chunked
     prefill of 2,500 and 4,000 tokens; the reduced config graphed on the
     card against the CPU, with a chunked prompt."""
     import numpy as np
@@ -956,21 +974,15 @@ def phase_serving(torch, cfg, params):
     log(f"[serve] prompt lengths {[len(p) for p in prompts]}")
     out = {}
 
-    # eagerly, keeping the inputs of every FUM call of the path, to hold
-    # the kernel against its plain version on the one that kept the most
-    # pages (the pool only grows past each call's kv_len, which the call
-    # masks); a graph's replays would overwrite the recorded buffers
-    calls = []
-
-    def recording(*args, **kw):
-        calls.append((args, kw))
-        return hdp_paged_fum_decode(*args, **kw)
-
+    # eagerly, keeping the inputs of the FUM call of the path that
+    # listed the most pages, to hold the kernel against its plain version
+    # there; a graph's replays would overwrite the recorded buffers
+    rec = Recorder(hdp_paged_fum_decode, key=listed_pages, clone=True)
     eng = Engine(cfg, params, device="cuda", cuda_graph=False, **SERVE_KW)
     torch.cuda.reset_peak_memory_stats()
-    attention.hdp_paged_fum_decode = recording
+    attention.hdp_paged_fum_decode = rec
     try:
-        eager_tok, s, wall, launches, _ = serve(torch, eng, prompts, 32)
+        eager_tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
     finally:
         attention.hdp_paged_fum_decode = hdp_paged_fum_decode
     del eng
@@ -981,17 +993,15 @@ def phase_serving(torch, cfg, params):
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(s["attn_decode_stage3"].startswith("cuda"),
           f"decode stage 3 resolved to {s['attn_decode_stage3']}")
-    check_decode_launches(s, launches, "fum", "eager")
+    check_decode_launches(s, launches, "fum", "eager", runs)
     check(launches["fum"]["split"] == s["fum_kernel_launches"],
           f"FUM launches by mode {launches['fum']}: expected every launch "
           "split across blocks")
     log(f"[serve] eager: FUM kernel launches {s['fum_kernel_launches']} = "
         f"{N_LAYERS_QWEN} layers x {s['decode_steps']} decode steps, by "
         f"mode {launches['fum']}")
-    kept = torch.stack([args[5].sum() for args, _ in calls]).tolist()
-    check(max(kept) > 0, "no FUM call of the path kept a page")
-    args, kw = calls[max(range(len(calls)), key=kept.__getitem__)]
-    calls.clear()
+    check(rec.score > 0, "no FUM call of the path listed a page")
+    (args, kw), rec = rec.best, None
     ref = hdp_paged_fum_decode_ref(*args, **kw)
     path_err = {}
     for mode, splits in (("split", None), ("single", 1)):
@@ -1002,28 +1012,27 @@ def phase_serving(torch, cfg, params):
             got, ref, atol=ATOL, rtol=RTOL),
             f"kernel [{mode}] vs plain at the path's own inputs: max |err| "
             f"{path_err[mode]:.3e}")
-    log(f"[serve] kernel vs plain at the path's call that kept the most "
+    log(f"[serve] kernel vs plain at the path's call that listed the most "
         f"pages (qq {tuple(args[0].shape)}, page lists "
-        f"{tuple(args[3].shape)}, {max(kept)} pages kept): max |err| "
-        f"{path_err}")
+        f"{tuple(args[3].shape)}, {listed_pages(args)} pages listed): max "
+        f"|err| {path_err}")
     del args, kw, ref
 
-    # the main path: the decode step as one CUDA graph, horizons 1 and 4;
-    # the profiler counts what the horizon-1 run ran on the card (its
-    # decode_tok_s is taken under the profiler, horizon 4's without)
+    # the main path: the decode step as one CUDA graph, horizons 1 and 4
     for horizon in (1, 4):
         eng = Engine(cfg, params, device="cuda", decode_horizon=horizon,
                      **SERVE_KW)
-        tok, s, wall, launches, seen = serve(torch, eng, prompts, 32,
-                                             profiled=horizon == 1)
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
         del eng
         label = f"graphed, horizon {horizon}"
-        log_served(label + (", under the profiler" if seen else ""), s, wall)
+        log_served(label, s, wall)
         check(tok == eager_tok, f"{label}: tokens differ from the eager "
               f"run's: {tok} vs {eager_tok}")
+        if horizon == 1:
+            out["h1_tokens"] = tok
         check(s["graph_captures"] == 1, f"{label}: {s['graph_captures']} "
               "graph captures, expected 1")
-        check_decode_launches(s, launches, "fum", label, seen)
+        check_decode_launches(s, launches, "fum", label, runs)
         check(launches["fum"]["split"] == sum(launches["fum"].values()),
               f"{label}: FUM launches by mode {launches['fum']}: expected "
               "every launch split across blocks")
@@ -1033,9 +1042,9 @@ def phase_serving(torch, cfg, params):
         check(s["decode_tok_s"] > eager_tok_s,
               f"{label}: decode_tok_s {s['decode_tok_s']:.1f} is not above "
               f"the eager run's {eager_tok_s:.1f}")
-        if seen:
+        if horizon == 1:
             # every wrapper call was split, so the single mode ran nothing
-            out["fum"] = {"split": seen["fum"]["fum_decode_kernel"],
+            out["fum"] = {"split": runs["fum"],
                           "single": launches["fum"]["single"]}
 
     # the paged decode through the block-sparse kernel on a densified
@@ -1053,8 +1062,8 @@ def phase_serving(torch, cfg, params):
             rec = Recorder(hdp_block_sparse_attention, key=live_blocks)
             attention.hdp_block_sparse_attention = rec
         try:
-            block_tok[graphed], bs, wall, launches, seen = serve(
-                torch, beng, prompts, 16, profiled=graphed)
+            block_tok[graphed], bs, wall, launches, runs = serve(
+                torch, beng, prompts, 16)
         finally:
             attention.hdp_block_sparse_attention = hdp_block_sparse_attention
         del beng
@@ -1063,7 +1072,7 @@ def phase_serving(torch, cfg, params):
         log_served(label, bs, wall)
         check(bs["attn_decode_stage3"] == "cuda:hdp_block_sparse_attention",
               f"decode stage 3 resolved to {bs['attn_decode_stage3']}")
-        check_decode_launches(bs, launches, "block", label, seen)
+        check_decode_launches(bs, launches, "block", label, runs)
         check(launches["block"]["tile"] == sum(launches["block"].values()),
               f"{label}: block launches {launches['block']}, expected all "
               "on the tile path")
@@ -1071,7 +1080,7 @@ def phase_serving(torch, cfg, params):
             f"{bs['block_kernel_launches']} = {N_LAYERS_QWEN} layers x "
             f"{bs['decode_steps']} decode steps")
         if graphed:
-            out["block_tile"] = seen["block"]["tile_kernel"]
+            out["block_tile"] = runs["block"]
     check(block_tok[True] == block_tok[False],
           "attn=pallas_hdp_block: graphed tokens differ from the eager run's")
     log("[serve] attn=pallas_hdp_block: graphed horizon-4 tokens == eager")
@@ -1100,7 +1109,8 @@ def phase_serving(torch, cfg, params):
         return nxt
 
     leng._chunk_step = counting
-    _, ls, wall, launches, _ = serve(torch, leng, long_prompts, 32)
+    _, ls, wall, launches, runs = serve(torch, leng, long_prompts, 32)
+    del leng._chunk_step   # the closure holds the engine: free it with del
     del leng
     want = []
     for n in LONG_PROMPTS:
@@ -1115,7 +1125,7 @@ def phase_serving(torch, cfg, params):
           and ls["prefill_tokens"] == sum(c for *_, c in want),
           f"chunked prefill ran chunks {chunks} ({ls['prefill_calls']} "
           f"prefills, {ls['prefill_tokens']} tokens), expected {want}")
-    check_decode_launches(ls, launches, "fum", "chunked prefill")
+    check_decode_launches(ls, launches, "fum", "chunked prefill", runs)
     log(f"[serve] chunked prefill: {len(chunks)} chunk calls "
         f"(prompt, offset, length) {chunks}, prefill_s "
         f"{ls['prefill_s']:.3f}, both requests complete")
@@ -1144,6 +1154,328 @@ def phase_serving(torch, cfg, params):
     log("[serve] reduced qwen2-1.5b (one prompt of 40 tokens chunked): "
         "card tokens (graphed, horizon 4) == CPU plain-path tokens")
     return out, path_err, rec.best
+
+
+# ------------------------- phase 5d: prefix cache and speculative decode
+PREFIX_KW = dict(max_batch=8, max_len=2048, prefill_buckets=(256, 512, 1024),
+                 decode_horizon=4)
+SHARED_LEN = 1024
+#: the draft lengths of the graphed speculative serves
+DRAFT_LENS = (4, 8)
+#: depth of the fp32-pool speculative run (qwen2-1.5b cut to it)
+FP32_POOL_LAYERS = 8
+
+
+def prefix_traffic(vocab):
+    """Seed 0: a 1,024-token shared prompt; the warm-up request (the
+    prompt and a 64-token tail), then 6 requests of the prompt and
+    distinct tails of 32-480 tokens (chunked: past the largest bucket),
+    and 2 that are exactly its first 512 and 1,024 tokens (full hits)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, vocab, size=SHARED_LEN).tolist()
+    warm = shared + rng.integers(1, vocab, size=64).tolist()
+    tails = [shared + rng.integers(1, vocab, size=int(n)).tolist()
+             for n in rng.integers(32, 481, size=6)]
+    return warm, tails + [shared[:512], shared[:SHARED_LEN]]
+
+
+def serve_prefix(torch, cfg, params, prefix_cache):
+    """The prefix traffic through one engine: the warm-up request alone,
+    then the 8 others. Returns (tokens of all 9, summary, engine)."""
+    from repro_torch.serving import Engine, Request
+    eng = Engine(cfg, params, device="cuda", prefix_cache=prefix_cache,
+                 **PREFIX_KW)
+    warm, rest = prefix_traffic(cfg.vocab_size)
+    eng.submit(Request(0, warm, max_new_tokens=32))
+    eng.run()
+    for uid, p in enumerate(rest, start=1):
+        eng.submit(Request(uid, p, max_new_tokens=32))
+    res = eng.run()
+    torch.cuda.synchronize()
+    check(len(res) == 9 and all(r.complete and len(r.tokens) == 32
+                                for r in res.values()),
+          f"prefix traffic: not every request completed: "
+          f"{[(u, r.status, len(r.tokens)) for u, r in res.items()]}")
+    return {u: r.tokens for u, r in res.items()}, eng.summary(), eng
+
+
+def single_step_lists(torch, args, j):
+    """The inputs of the single decode step at verify row j: row j's
+    query, its keep flags, its extent, and the page list restricted to
+    the pages some head keeps for row j (ascending, scratch-padded)."""
+    qq, kp, vp, page_ids, logical, counts, keep, kv_len = args
+    B, mk = page_ids.shape
+    listed = torch.arange(mk, device=page_ids.device)[None] < counts[:, None]
+    mine = listed & (keep[..., j] > 0).flatten(2).any(-1)          # [B,mk]
+    order = torch.sort(torch.where(mine, torch.arange(
+        mk, device=mine.device)[None], mk), dim=1).values
+    cnt = mine.sum(1).to(torch.int32)
+    valid = torch.arange(mk, device=mine.device)[None] < cnt[:, None]
+    idx = torch.clamp(order, max=mk - 1).long()
+    pick = lambda t: torch.where(valid, torch.gather(t, 1, idx), 0).to(
+        torch.int32).contiguous()
+    keep_j = torch.gather(keep[..., j:j + 1], 1, idx[:, :, None, None, None]
+                          .expand(-1, -1, *keep.shape[2:4], 1))
+    keep_j = torch.where(valid[:, :, None, None, None], keep_j, 0)
+    return (qq[:, :, :, j:j + 1].contiguous(), kp, vp, pick(page_ids),
+            pick(logical), cnt.contiguous(), keep_j.contiguous(),
+            (kv_len + j).to(torch.int32).contiguous())
+
+
+def check_verify_call(torch, label, rec):
+    """The FUM kernel at the path's recorded verify call against its plain
+    version (phase 3's tolerances), and each of its rows bit-equal to
+    the single step at that row's position. Returns max |err|."""
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
+    check(rec.best is not None and rec.score > 0,
+          f"{label}: no verify call of the path listed a page")
+    args, kw = rec.best
+    Sq = args[0].shape[3]
+    tol = ATOL if args[2].dtype == torch.int8 else TOL_BF16
+    got = hdp_paged_fum_decode(*args, **kw)
+    ref = hdp_paged_fum_decode_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got, ref, atol=tol, rtol=tol),
+        f"{label}: kernel vs plain at the verify call: max |err| {err:.3e}")
+    worst = 0.0
+    for j in range(Sq):
+        one = hdp_paged_fum_decode(*single_step_lists(torch, args, j), **kw)
+        worst = max(worst, (got[:, :, :, j] - one[:, :, :, 0]).abs().max()
+                    .item())
+    check(worst == 0.0, f"{label}: verify rows differ from the single "
+          f"steps at their positions by up to {worst:.3e}")
+    log(f"[spec] {label}: FUM kernel vs plain at the verify call that "
+        f"listed the most pages (qq {tuple(args[0].shape)}, {rec.score} "
+        f"pages listed): max |err| {err:.3e}; each of its {Sq} rows "
+        "bit-equal to the single step at its position")
+    return err
+
+
+def first_divergence(a, b):
+    """Per request: (first index where the token lists differ, the two
+    tokens) for the requests whose lists differ."""
+    out = {}
+    for u in a:
+        if a[u] != b[u]:
+            i = next((i for i, (x, y) in enumerate(zip(a[u], b[u]))
+                      if x != y), min(len(a[u]), len(b[u])))
+            out[u] = (i, a[u][i:i + 1], b[u][i:i + 1])
+    return out
+
+
+def phase_spec_prefix(torch, cfg, params, h1_tokens):
+    """qwen2-1.5b at full width: the prefix traffic hot and cold (head
+    pruning off, the reference's identity setting) with equal tokens, 8
+    hits, 2 COWs and a drained pool, then hot on the stock config;
+    speculative decode, graphed, at draft lengths 4 and 8 on phase 5's
+    traffic with the graphed horizon-1 engine's tokens (``h1_tokens``),
+    the FUM kernel 28 times a verify and never in a draft step, held
+    against its plain version at the path's verify call; the fp32
+    ("model dtype") pool with its fraction copy, cut to 8 layers; the
+    reduced config with both features, card vs CPU. Returns
+    {draft_len: (launches at that width, max |err|)}."""
+    import numpy as np
+    import repro_torch.models.attention as attention
+    from repro_torch.attention import AttnSpec
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.serving import Engine, Request
+
+    # ---- prefix cache: hot equals cold with the head gate off
+    nogate = cfg.replace(hdp=cfg.hdp.replace(head_pruning=False))
+    cold_tok, cs, _ = serve_prefix(torch, nogate, params, False)
+    hot_tok, hs, heng = serve_prefix(torch, nogate, params, True)
+    bad = first_divergence(hot_tok, cold_tok)
+    check(not bad, f"prefix hit tokens differ from cold (uid: first index, "
+          f"hot, cold): {bad}")
+    check(hs["prefix_hits"] == 8 and hs["cow_copies"] >= 2,
+          f"prefix cache: {hs['prefix_hits']} hits and {hs['cow_copies']} "
+          "COW copies, expected 8 and >= 2")
+    heng.prefix.clear()
+    heng.pages.allocator.assert_drained()
+    del heng
+    log(f"[prefix] head gate off: 9 requests' tokens hot == cold; hits "
+        f"{hs['prefix_hits']}, hit tokens {hs['prefix_hit_tokens']}, COW "
+        f"copies {hs['cow_copies']}, pages cached {hs['pages_cached']}, "
+        f"pool drained after clear(); prefill_s hot {hs['prefill_s']:.3f} "
+        f"vs cold {cs['prefill_s']:.3f} (prefill tokens "
+        f"{hs['prefill_tokens']} vs {cs['prefill_tokens']}, calls "
+        f"{hs['prefill_calls']} vs {cs['prefill_calls']})")
+    _, ss, seng = serve_prefix(torch, cfg, params, True)
+    del seng
+    log(f"[prefix] stock config (head pruning on): hits "
+        f"{ss['prefix_hits']}, prefill_s {ss['prefill_s']:.3f}, decode "
+        f"tok/s {ss['decode_tok_s']:.1f}")
+
+    # ---- speculative decode at full width, graphed
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(200, 1001, size=8)]
+    out = {}
+    for k in DRAFT_LENS:
+        eng = Engine(cfg, params, device="cuda", spec_decode=True,
+                     draft_len=k, **SERVE_KW)
+        counter = hdp_paged_fum_decode.runs.tensor("cuda")
+        rounds = []    # (width, FUM runs before, after) per round
+        run_once = eng._run
+
+        def marking(key, body, width, _run=run_once, _rounds=rounds):
+            # the FUM kernel's count on the card, copied on the stream
+            # (no wait for the card) before and after each round: the
+            # runs between are that round's, its capture's warm-up
+            # included
+            before = counter.clone()
+            _run(key, body, width)
+            _rounds.append((key, before, counter.clone()))
+
+        eng._run = marking
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        del eng._run       # the closure holds the engine: free it with del
+        label = f"spec decode, draft_len {k}, graphed"
+        bad = first_divergence(tok, h1_tokens)
+        check(not bad, f"{label}: tokens differ from the graphed horizon-1 "
+              f"engine's (uid: first index, spec, horizon 1): {bad}")
+        check(s["attn_decode_stage3"] == s["attn_verify_stage3"]
+              == "cuda:hdp_paged_fum_decode",
+              f"{label}: verify stage 3 resolved to "
+              f"{s['attn_verify_stage3']}")
+        rl = s["round_launches"]
+        graphs = {w: n for w, (_, n) in eng._graphs.items()}
+        check(all(v["draft"]["fum_kernel_launches"] == 0
+                  and v["verify"]["fum_kernel_launches"] == N_LAYERS_QWEN
+                  for v in rl.values())
+              and all(g["fum_kernel_launches"] == N_LAYERS_QWEN
+                      for g in graphs.values())
+              and s["fum_kernel_launches"] == N_LAYERS_QWEN
+              * s["spec_rounds"],
+              f"{label}: FUM launches per round part {rl}, per graph "
+              f"{graphs}, {s['fum_kernel_launches']} over "
+              f"{s['spec_rounds']} rounds; expected {N_LAYERS_QWEN} a "
+              "verify and none in the draft steps")
+        # the FUM kernel's runs on the card, by the width of the round
+        # they ran in: each round replays its width's graph, and the
+        # first round of a width also runs the capture's warm-up
+        widths, per_width = [w for w, _, _ in rounds], Counter()
+        for w, before, after in rounds:
+            per_width[w] += int((after - before).item())
+        del rounds
+        want = {w: graphs[w]["fum_kernel_launches"] * (widths.count(w) + 1)
+                for w in set(widths)}
+        want_all = N_LAYERS_QWEN * (s["spec_rounds"] + s["graph_captures"])
+        check(per_width == want and runs["fum"] == want_all
+              == sum(per_width.values()) and runs["block"] == 0,
+              f"{label}: the kernel counted {runs['fum']} FUM runs on the "
+              f"card, {dict(per_width)} by round width, over "
+              f"{len(widths)} rounds; the engine counted {want} (its "
+              f"graph's launches x (rounds + 1 warm-up)), {want_all} in "
+              f"all ({N_LAYERS_QWEN} x ({s['spec_rounds']} rounds + "
+              f"{s['graph_captures']} warm-up rounds)); block tile runs "
+              f"{runs['block']}")
+        log(f"[spec] {label}: {runs['fum']} FUM runs on the card = "
+            f"{N_LAYERS_QWEN} layers x ({s['spec_rounds']} verifies + "
+            f"{s['graph_captures']} warm-up rounds), by round width "
+            f"{dict(sorted(per_width.items()))} = the engine's count")
+        check(s["spec_graphs"] == len(set(widths)) <= k
+              and s["graph_captures"] == s["spec_graphs"],
+              f"{label}: {s['spec_graphs']} graphs for widths "
+              f"{sorted(set(widths))}")
+        log(f"[spec] {label}: "
+            f"tokens == graphed horizon 1's; wall {wall:.2f} s, rounds "
+            f"{s['spec_rounds']} (widths {dict(sorted(Counter(widths).items()))}), "
+            f"acceptance_rate {s['acceptance_rate']:.4f}, decode_tok_s "
+            f"{s['decode_tok_s']:.1f} (without the captures "
+            f"{s['decode_tok_s_steady']:.1f}), graphs {s['spec_graphs']} "
+            f"captured in {s['graph_capture_s']:.2f} s holding "
+            f"{s['graph_allocated_bytes'] / 2**20:.1f} MiB allocated / "
+            f"{s['graph_reserved_bytes'] / 2**20:.1f} MiB reserved; FUM "
+            f"launches per round: draft {rl[k]['draft']['fum_kernel_launches']}, "
+            f"verify {rl[k]['verify']['fum_kernel_launches']}; backends "
+            f"draft {s['attn_backend_draft']} ({s['attn_draft_stage3']}), "
+            f"verify {s['attn_backend_verify']}")
+        # the kernel's runs at Sq = k on the card
+        launched = per_width[k]
+        del eng
+        # the FUM kernel at the path's own verify calls: the same serve
+        # eagerly, recording the call that listed the most pages
+        eng = Engine(cfg, params, device="cuda", spec_decode=True,
+                     draft_len=k, cuda_graph=False, **SERVE_KW)
+        rec = Recorder(hdp_paged_fum_decode, key=listed_pages_verify,
+                       clone=True)
+        attention.hdp_paged_fum_decode = rec
+        try:
+            etok, es, ewall, _, eruns = serve(torch, eng, prompts, 32)
+        finally:
+            attention.hdp_paged_fum_decode = hdp_paged_fum_decode
+        del eng
+        check(etok == tok, f"draft_len {k}: eager tokens differ from the "
+              "graphed run's")
+        check(eruns["fum"] == es["fum_kernel_launches"]
+              == N_LAYERS_QWEN * es["spec_rounds"],
+              f"draft_len {k}, eager: {eruns['fum']} FUM runs on the card, "
+              f"the engine counted {es['fum_kernel_launches']} over "
+              f"{es['spec_rounds']} rounds")
+        log(f"[spec] draft_len {k}, eager: tokens == graphed; decode_tok_s "
+            f"{es['decode_tok_s']:.1f}, rounds {es['spec_rounds']}")
+        out[k] = (launched, check_verify_call(
+            torch, f"draft_len {k}", rec))
+        del rec
+
+    # ---- the model-dtype ("fp32") pool and its fraction copy, 8 layers
+    nl = FP32_POOL_LAYERS
+    cut = cfg.replace(n_layers=nl)
+    p8 = {**params, "layers": _tree_map(lambda t: t[:nl], params["layers"])}
+    runs = {}
+    for spec in (False, True):
+        eng = Engine(cut, p8, device="cuda", attn=AttnSpec(kv_dtype="fp32"),
+                     spec_decode=spec, draft_len=4, **SERVE_KW)
+        runs[spec] = serve(torch, eng, prompts, 32)[:2]
+        if spec:
+            check("f_scout" in eng.pages.cache,
+                  "the speculating fp32 pool has no fraction copy")
+        del eng
+    bad = first_divergence(runs[True][0], runs[False][0])
+    check(not bad, f"fp32 pool, {nl} layers: spec tokens differ from "
+          f"horizon 1's: {bad}")
+    log(f"[spec] fp32 (bf16) pool with f_scout, {nl} layers, draft_len 4: "
+        f"tokens == horizon 1's; acceptance_rate "
+        f"{runs[True][1]['acceptance_rate']:.4f}, cache_bytes_per_token "
+        f"{runs[True][1]['cache_bytes_per_token']} (without the fraction "
+        f"copy {runs[False][1]['cache_bytes_per_token']})")
+
+    # ---- the reduced config, both features, card (graphed) vs CPU
+    small = reduced(cfg)
+    kw = dict(max_batch=2, max_len=96, prefill_buckets=(16, 32),
+              prefix_cache=True, spec_decode=True, draft_len=4)
+    gpu = Engine(small, device="cuda", seed=1, **kw)
+    cpu = Engine(small, {k: _tree_to(v, "cpu") for k, v in
+                         gpu.params.items()}, device="cpu", **kw)
+    prng = np.random.default_rng(17)
+    shared = prng.integers(1, 250, size=16).tolist()
+    sp = [shared + prng.integers(1, 250, size=4 + i).tolist()
+          for i in range(3)] + [shared[:12],
+                                shared * 2 + prng.integers(1, 250, 8).tolist()]
+    toks, sums = [], []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        toks.append({u: r.tokens for u, r in e.run().items()})
+        sums.append(e.summary())
+    check(toks[0] == toks[1], f"reduced qwen2 with prefix cache and spec "
+          f"decode: card tokens differ from the CPU's: {toks[0]} vs "
+          f"{toks[1]}")
+    check(sums[0]["prefix_hits"] == sums[1]["prefix_hits"] > 0
+          and sums[0]["spec_graphs"] > 0,
+          f"reduced qwen2: card {sums[0]['prefix_hits']} hits, "
+          f"{sums[0]['spec_graphs']} graphs; CPU {sums[1]['prefix_hits']}")
+    log(f"[spec] reduced qwen2-1.5b, prefix cache + spec decode (draft_len "
+        f"4, one prompt chunked): card tokens (graphed) == CPU tokens; "
+        f"hits {sums[0]['prefix_hits']}, acceptance_rate "
+        f"{sums[0]['acceptance_rate']:.4f}")
+    return out
 
 
 # ------------------------------------------- phase 5b: granite-8b serving
@@ -1181,10 +1513,10 @@ def phase_granite(torch):
     """granite-8b at full width (36 layers, bf16, seeded weights): 8
     requests of up to 4,096 prompt tokens and 32 new tokens on every
     serving route, eagerly and on the decode graph at horizon 4 with
-    equal tokens; the FUM routes' graphed runs under the profiler, which
-    counts the kernel's runs on the card. Then the reduced config on the
-    card (graphed) against the CPU on each pool and layout. Returns the
-    profiler's FUM runs per pool format and a summary per route."""
+    equal tokens; the FUM kernel's runs counted on the card. Then the
+    reduced config on the card (graphed) against the CPU on each pool and
+    layout. Returns the FUM kernel's runs on the card in the graphed
+    serve of each pool format and a summary per route."""
     import numpy as np
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import registry
@@ -1207,7 +1539,7 @@ def phase_granite(torch):
     lens = [int(n) for n in rng.integers(256, 4097, size=7)] + [4096]
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
     log(f"[granite] prompt lengths {lens}")
-    seen_by_fmt, routes = {}, {}
+    runs_by_fmt, routes = {}, {}
     for label, c, spec, backend, stage3, fmt in granite_runs(cfg):
         toks = {}
         for graphed in (False, True):
@@ -1217,14 +1549,12 @@ def phase_granite(torch):
                          else 1, **GRANITE_KW)
             tag = f"granite-8b {label}, " + (
                 "graphed, horizon 4" if graphed else "eager, horizon 1")
-            profiled = graphed and fmt is not None
-            toks[graphed], s, wall, launches, seen = serve(
-                torch, eng, prompts, 32, profiled=profiled)
+            toks[graphed], s, wall, launches, runs = serve(
+                torch, eng, prompts, 32)
             pools = {k: str(v.dtype).replace("torch.", "")
                      for k, v in eng._store.cache.items()}
             del eng
-            log_served(tag + (", under the profiler" if profiled else ""),
-                       s, wall)
+            log_served(tag, s, wall)
             log(f"[granite] {tag}: backends prefill "
                 f"{s['attn_backend_prefill']} / decode "
                 f"{s['attn_backend_decode']} (stage 3 "
@@ -1239,19 +1569,20 @@ def phase_granite(torch):
                   f"(stage 3 {s['attn_decode_stage3']}), expected "
                   f"{backend} ({stage3})")
             if fmt is not None:
-                check_decode_launches(s, launches, "fum", tag, seen,
+                check_decode_launches(s, launches, "fum", tag, runs,
                                       n_layers=N_LAYERS_GRANITE)
                 got = launches["fum_format"]
                 check(got[fmt] == sum(got.values()),
                       f"{tag}: FUM launches by format {got}, expected "
                       f"all {fmt}")
-                if seen:
-                    seen_by_fmt[fmt] = seen["fum"]["fum_decode_kernel"]
+                if graphed:
+                    runs_by_fmt[fmt] = runs["fum"]
             else:
                 check(s["fum_kernel_launches"] == 0
                       and not any(launches["fum"].values())
-                      and not (seen and any(seen["fum"].values())),
-                      f"{tag}: the FUM kernel ran ({launches['fum']})")
+                      and runs["fum"] == 0,
+                      f"{tag}: the FUM kernel ran ({launches['fum']}, "
+                      f"{runs['fum']} runs on the card)")
             routes.setdefault(label, {})["graphed" if graphed else "eager"] \
                 = {k: s[k] for k in ("decode_tok_s", "decode_tok_s_steady",
                                      "prefill_s", "cache_bytes_per_token")}
@@ -1284,7 +1615,7 @@ def phase_granite(torch):
               f"{toks[0]} != CPU tokens {toks[1]}")
         log(f"[granite] reduced granite-8b {label}: card tokens (graphed, "
             "horizon 4) == CPU plain-path tokens")
-    return seen_by_fmt, routes
+    return runs_by_fmt, routes
 
 
 # ----------------------------------- phase 5c: windowed decode (h2o-danube)
@@ -1344,9 +1675,13 @@ def phase_window(torch):
 
 
 def _tree_to(tree, dev):
+    return _tree_map(lambda t: t.to(dev), tree)
+
+
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 # ------------------------------------------------------------ phase 6
@@ -1375,7 +1710,12 @@ def time_ms(torch, fn, iters, flush):
 def fum_bound(torch, c):
     """Least time for the work this input needs: the K/V bytes of every
     (row, head, page) some query row keeps plus the small inputs and the
-    output, against the flops of the scores and p.V of kept rows."""
+    output, against the flops of the scores and p.V of kept rows, priced
+    as the block kernel's bound prices them: qq.K and frac(qq).frac(K)
+    take operands on the Q4.12 grid or int8 codes, which split exactly
+    into bf16 limbs (the bf16 tensor rate); p.V is at the bf16 rate
+    where p is rounded to bf16 (a bf16 pool) and at the fp32 rate
+    otherwise (p stays fp32 against the dequantized V)."""
     B, N, G, Sq, hd = c["qq"].shape
     ps = c["k_pool"].shape[1]
     item = c["k_pool"].element_size()
@@ -1391,8 +1731,13 @@ def fum_bound(torch, c):
     for name in ("qq", "page_ids", "logical", "counts", "keep", "kv_len"):
         nbytes += c[name].numel() * c[name].element_size()
     nbytes += c["qq"].numel() * 4                            # output
-    flops = kept_rows * ps * 6 * hd   # qk, fq.fk, p.v: 2 flops per MAC
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    score_flops = kept_rows * ps * 4 * hd   # qk, fq.fk: 2 flops per MAC
+    pv_flops = kept_rows * ps * 2 * hd
+    pv_peak = BF16_FLOP_S if c["v_pool"].dtype == torch.bfloat16 \
+        else FP32_FLOP_S
+    flops = score_flops + pv_flops
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = score_flops / BF16_FLOP_S + pv_flops / pv_peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -1414,8 +1759,10 @@ def fum_variant(torch, c, fmt):
 def phase_timing(torch, c):
     """The FUM decode at the timing case, split across blocks
     (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
-    version; then the fp8-V and bf16 pool variants at the same case, split.
-    Returns {mode or format: (kernel ms, plain ms, bound ms, bound by)}."""
+    version; then at the verify shape (Sq 4 and 8, the same widths and
+    page density); then the fp8-V and bf16 pool variants at the timing
+    case, split. Returns {mode, "verify<Sq>" or format: (kernel ms, plain
+    ms, bound ms, bound by)}."""
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
@@ -1435,6 +1782,22 @@ def phase_timing(torch, c):
         log(f"[timing] hdp_paged_fum_decode [{mode}, S={splits or S}] at B8 "
             f"N2 G6 Sq1 hd128 ps128 (pages listed per row "
             f"{c['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
+            f"{flops} flop)")
+    for Sq in (4, 8):
+        # the verify shape: the timing case's widths at Sq query rows
+        cv = to_dev(make_case(torch, B=8, N=2, G=6, Sq=Sq, hd=128, ps=128,
+                              nP=16, fmt="int8", live=0.5, seed=7), "cuda")
+        args, kws = kernel_args(cv)
+        bound, bound_by, nbytes, flops = fum_bound(torch, cv)
+        p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws),
+                       5, flush)
+        k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
+                       flush)
+        res[f"verify{Sq}"] = (k_ms, p_ms, bound, bound_by)
+        log(f"[timing] hdp_paged_fum_decode [verify, Sq={Sq}, split, S={S}] "
+            f"at B8 N2 G6 hd128 ps128 (pages listed per row "
+            f"{cv['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
             f"{flops} flop)")
     for fmt in ("fp8_v", "bf16"):
@@ -1623,6 +1986,8 @@ def main() -> int:
                 torch, cfg, params)
             serve_launches, path_err, block_tile_call = \
                 phase_serving(torch, cfg, params)
+            verify = phase_spec_prefix(torch, cfg, params,
+                                       serve_launches["h1_tokens"])
             del params
             fum_by_fmt, granite = phase_granite(torch)
             phase_window(torch)
@@ -1649,6 +2014,24 @@ def main() -> int:
     kernels[-1]["note"] = ("the one-pass mode (S = 1), the earlier design, "
                            "timed beside the split; fum_splits gives S > 1 "
                            "at every shape the main path runs")
+    for Sq in DRAFT_LENS:
+        k_ms, p_ms, bound, bound_by = fum_timed[f"verify{Sq}"]
+        launched, err = verify[Sq]
+        kernels.append({
+            "name": f"hdp_paged_fum_decode[verify Sq={Sq}]", "path": "split",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
+            "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
+            "launches": launched, "max_abs_err": err,
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
+            "note": f"the multi-query verify of a speculative round at "
+                    f"draft_len {Sq}, timed at the int8 timing case's widths "
+                    f"with {Sq} query rows; launches: 28 per round of width "
+                    f"{Sq} over the graphed draft_len-{Sq} serve, its "
+                    "capture's warm-up round included",
+        })
     for fmt in ("fp8_v", "bf16"):
         k_ms, p_ms, bound, bound_by = fum_timed[fmt]
         kernels.append({

@@ -8,17 +8,20 @@ ranks by that order on every device, see ``registry``):
 | backend             | runs                                           | calls it supports                    |
 |---------------------|------------------------------------------------|--------------------------------------|
 | xla_dense           | chunked/local/decode_attention                 | HDP off (dense; paged decode)        |
-| xla_hdp             | hdp_prefill/decode_attention                   | HDP on, dense layout                 |
-| paged_hdp_decode    | hdp_paged_decode_attention, stage 3 "xla"      | HDP on, paged decode                 |
+| xla_hdp             | hdp_prefill/decode_attention                   | HDP on, dense layout (+draft/verify) |
+| paged_hdp_decode    | hdp_paged_decode_attention, stage 3 "xla"      | HDP on, paged decode (+draft/verify) |
 | pallas_flash        | kernels.ops.flash (CUDA flash_attention)       | HDP off, aligned self-attn prefill   |
 | pallas_hdp_block    | kernels.ops.hdp_attention_tpu / block stage 3  | HDP on, aligned prefill or paged     |
 | pallas_paged_decode | the gather-free FUM kernel (CUDA)              | HDP on, causal paged (+verify)       |
 
-The speculative draft/verify variants of the paged stages raise
-``NotImplementedError`` naming their ROADMAP.md item. None of the kernel
-backends has a gradient, so none supports trainable calls; none
-expresses a sliding window's lower bound, so windowed calls fall back
-down the chain.
+Speculative calls route as in the reference: a verify call (Sq > 1,
+each query row scouted for itself) runs on ``pallas_paged_decode`` (the
+FUM kernel at Sq rows), ``paged_hdp_decode`` or ``xla_hdp``; a draft
+call, which scores from the scout copies, on ``paged_hdp_decode`` or
+``xla_hdp`` only (the FUM kernel reads the K pool a draft never reads);
+``pallas_hdp_block`` takes neither. None of the kernel backends has a
+gradient, so none supports trainable calls; none expresses a sliding
+window's lower bound, so windowed calls fall back down the chain.
 """
 from __future__ import annotations
 
@@ -27,11 +30,6 @@ from repro_torch.attention.registry import register_backend
 from repro_torch.attention.spec import AttnCall
 from repro_torch.attention.stats import normalize_stats
 from repro_torch.models import attention as A
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"{item})")
-
 
 def _heads(x, G):
     """[B,Sk,N,hd] -> [B,N*G,Sk,hd] (repeat KV heads across the group)."""
@@ -75,12 +73,10 @@ def _supports_xla_hdp(call: AttnCall) -> bool:
                   tags=("xla",))
 def run_xla_hdp(q, k, v, call, *, q_pos, k_pos, cache=None, page_table=None):
     if call.mode == "decode":
-        if call.draft is not None:
-            raise _unported("speculative draft decode", "section 1, item 3")
         out, st = A.hdp_decode_attention(
             q, k, v, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
             window=call.window, return_stats=call.needs_stats,
-            per_query=call.verify)
+            draft=call.draft, per_query=call.verify)
     else:
         out, st = A.hdp_prefill_attention(
             q, k, v, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
@@ -94,17 +90,16 @@ def _supports_paged_hdp(call: AttnCall) -> bool:
 
 
 def _run_paged(q, call, *, q_pos, k_pos, cache, page_table, stage3):
-    if call.draft is not None or call.verify:
-        raise _unported("speculative draft/verify paged decode",
-                        "section 1, item 3")
-    # quantized pools carry per-page scales and no scout copy (the scout
-    # is a view of the int8 codes); the unquantized pool its k_scout copy
+    # quantized pools carry per-page scales and no scout copies (the
+    # scout views are views of the int8 codes); the unquantized pool its
+    # k_scout copy, and f_scout when it speculates
     out, st = A.hdp_paged_decode_attention(
         q, cache["k_pages"], cache["v_pages"], cache.get("k_scout"),
         page_table, q_pos=q_pos, k_pos=k_pos, hdp=call.hdp,
         window=call.window, return_stats=call.needs_stats, stage3=stage3,
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-        kv_scale=call.kv_scale)
+        draft=call.draft, per_query=call.verify,
+        fk_pool=cache.get("f_scout"), k_scale=cache.get("k_scale"),
+        v_scale=cache.get("v_scale"), kv_scale=call.kv_scale)
     return out, normalize_stats(st)
 
 

@@ -140,6 +140,15 @@ def scout_int_codes(x: torch.Tensor, int_bits: int = 4,
     return torch.trunc(xq).to(torch.int8)
 
 
+def scout_frac_codes(x: torch.Tensor, int_bits: int = 4,
+                     frac_bits: int = 12) -> torch.Tensor:
+    """int8 quantized-fraction scout codes of K (on the FRAC_SCOUT_SCALE
+    grid): the write-time copy a speculating unquantized pool stores."""
+    xq = quantize_fixed(x.to(F32), int_bits, frac_bits)
+    f = xq - torch.trunc(xq)
+    return torch.round(f * FRAC_SCOUT_SCALE).to(torch.int8)
+
+
 def calib_scale(x: torch.Tensor, int_bits: int, mode: str) -> torch.Tensor:
     """Per-tensor scale mapping x onto the fixed-point grid ("max" |
     "rms" | "none"); scores are divided by s_q*s_k afterwards."""

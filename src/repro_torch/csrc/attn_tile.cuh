@@ -75,6 +75,7 @@ struct Args {
   const int* head_kept;    // [BH]           (sparse only)
   const int* kv_len;       // [BH] or null   (sparse only)
   const float* score_scale;  // [1] or null
+  unsigned long long* runs;  // [1] the kernel's run count, or null
   int Sq, Sk, hd, bq, bk, nq, nk, mk;
   int R, nsub;             // rows per CUDA block, blocks per q tile
   int sparse, causal, approx;
@@ -89,6 +90,8 @@ tile_kernel(const Args<TIn, TV, TOut> a) {
   const int R = a.R, hd = a.hd, bk = a.bk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  if (a.runs && tid == 0 && (blockIdx.x | blockIdx.y) == 0)
+    atomicAdd(a.runs, 1ull);
   const int row0 = i * a.bq + sub * R;                  // first row served
   const int nrows = min(R, a.bq - sub * R);             // rows of this block
 

@@ -37,12 +37,14 @@ extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 =
 // success). v_bf16 selects bf16 V (else fp32). kv_len and score_scale
-// may be null. Nothing is synchronised and nothing is allocated.
+// may be null; each run of the kernel adds one to *runs unless it is
+// null. Nothing is synchronised and nothing is allocated.
 int hdp_block_attn_launch(const float* q, const float* k, const void* v,
                           int v_bf16, float* out, const int* kv_idx,
                           const int* counts, const int* head_kept,
                           const int* kv_len, const float* score_scale,
-                          int BH, int Sq, int Sk, int hd, int bq, int bk,
+                          unsigned long long* runs, int BH, int Sq,
+                          int Sk, int hd, int bq, int bk,
                           int mk, int causal, int approx, float scale,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -50,7 +52,7 @@ int hdp_block_attn_launch(const float* q, const float* k, const void* v,
     attn_tile::Args<float, __nv_bfloat16, float> a{};
     a.q = q; a.k = k; a.v = static_cast<const __nv_bfloat16*>(v); a.out = out;
     a.kv_idx = kv_idx; a.counts = counts; a.head_kept = head_kept;
-    a.kv_len = kv_len; a.score_scale = score_scale;
+    a.kv_len = kv_len; a.score_scale = score_scale; a.runs = runs;
     a.Sq = Sq; a.Sk = Sk; a.hd = hd; a.bq = bq; a.bk = bk; a.mk = mk;
     a.sparse = 1; a.causal = causal; a.approx = approx; a.scale = scale;
     return attn_tile::launch(a, BH, st);
@@ -58,7 +60,7 @@ int hdp_block_attn_launch(const float* q, const float* k, const void* v,
   attn_tile::Args<float, float, float> a{};
   a.q = q; a.k = k; a.v = static_cast<const float*>(v); a.out = out;
   a.kv_idx = kv_idx; a.counts = counts; a.head_kept = head_kept;
-  a.kv_len = kv_len; a.score_scale = score_scale;
+  a.kv_len = kv_len; a.score_scale = score_scale; a.runs = runs;
   a.Sq = Sq; a.Sk = Sk; a.hd = hd; a.bq = bq; a.bk = bk; a.mk = mk;
   a.sparse = 1; a.causal = causal; a.approx = approx; a.scale = scale;
   return attn_tile::launch(a, BH, st);

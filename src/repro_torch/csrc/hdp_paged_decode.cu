@@ -26,16 +26,32 @@
 // pages one after another, latency-bound.
 //
 // Design:
-// * the pages of each (b, n) are split across S blocks, grid (N, B, S):
-//   block s takes the listed pages s, s + S, s + 2S, ... below counts[b]
-//   (strided, so that the listed prefix of the mk slots spreads evenly
-//   over all S blocks; S comes from shapes alone, without reading
-//   counts). Each block runs the online softmax over its pages and, for
-//   S > 1, writes its partial (acc, m, l) per row to a workspace; a
-//   block with no page writes m = -1e30, l = 0, acc = 0. A second kernel
+// * the pages of each (b, n) are split across S blocks, grid (N, B,
+//   S * RC): block s takes the listed pages whose logical slot is s mod
+//   S (S comes from shapes alone, without reading counts; one warp
+//   compacts the block's entries of the list into shared memory by
+//   ballot before the page loop). A page goes
+//   to its block by its slot and not by its place in the list, so that
+//   a query row's partial sums group alike whatever else is listed: the
+//   list of a multi-query verify call is the union over its rows, and a
+//   listed page that row r does not keep is an exact no-op for r (m
+//   stays, the correction is e^0 = 1, p = 0). Row r of a verify call
+//   then gives the bits of the single step at its position, which the
+//   speculative round's exact-match accept relies on. Each block runs
+//   the online softmax over its pages and, for S > 1, writes its
+//   partial (acc, m, l) per row to a workspace; a block with no page
+//   writes m = -1e30, l = 0, acc = 0. A second kernel
 //   (fum_merge_kernel), one block per (b, n), merges them: m* = max m_s,
 //   out = sum acc_s e^(m_s - m*) / max(sum l_s e^(m_s - m*), 1e-30), so a
 //   NaN partial stays NaN. S = 1 writes the output directly;
+// * the G*Sq query rows split into RC chunks of at most 16 * (256 /
+//   max(ps, hd)) rows (32 at ps = hd = 128), one block each, which
+//   share the page list and each stream the pages (the later chunks
+//   mostly from L2). A verify call's rows go past what one block holds
+//   (48 at qwen2-1.5b's G = 6 and 8 drafts): its q, fraction and score
+//   tiles would pass the 227 KB of shared memory, and 32 rows a thread
+//   would spill registers. A row's arithmetic does not depend on its
+//   chunk, so the split changes no bit;
 // * inside a block: qq and frac(qq) for the G*Sq rows sit in shared
 //   memory; an int8 page's K and V codes are loaded 16 bytes a thread
 //   (int4) into registers while the block computes the previous page
@@ -88,7 +104,10 @@ struct Args {
   const int* kv_len;      // [B]
   float* out;             // [B,N,G,Sq,hd]
   float* part;            // [B,N,S,R,hd+2] partials (S > 1)
-  int B, N, R, Rp, Sq, hd, ps, mk, P, S;   // Rp: R padded to RPT groups
+  unsigned long long* runs;  // [1] the kernel's run count, or null
+  // R: G*Sq rows; Rb: rows a block takes (R in RC chunks); Rp: Rb
+  // padded to whole RPT groups
+  int B, N, R, Rb, Rp, Sq, hd, ps, mk, P, S;
   int approx;
   float grid, lo, hi;     // fixed-point grid of fp32 pools
   float scale;            // 1/sqrt(hd)
@@ -234,10 +253,15 @@ template <int F, int VB, int RPT>
 __global__ void __launch_bounds__(kThreads)
 fum_decode_kernel(const Args a) {
   constexpr bool Q = F == kI8 || F == kI8Fp8;
-  const int n = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int R = a.R, Rp = a.Rp, hd = a.hd, ps = a.ps, S = a.S;
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int s = blockIdx.z % a.S, r0 = blockIdx.z / a.S * a.Rb;
+  // this block's rows: global rows r0 .. r0 + R - 1
+  const int R = min(a.Rb, a.R - r0), Rp = a.Rp, hd = a.hd, ps = a.ps;
+  const int S = a.S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = kThreads >> 5, ngrp = Rp / RPT;
+  if (a.runs && tid == 0 && (blockIdx.x | blockIdx.y | blockIdx.z) == 0)
+    atomicAdd(a.runs, 1ull);
 
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // [Rp, hd], zero past R
@@ -245,12 +269,15 @@ fum_decode_kernel(const Args a) {
   float* v_s = fq_s + Rp * hd;            // [ps, hd]
   float* k_s = v_s + ps * hd;             // [ps, hd + 4]
   float* s_s = k_s + ps * (hd + 4);       // [Rp, ps] scores, then p
-  float* m_s = s_s + Rp * ps;             // [R]
-  float* l_s = m_s + R;                   // [R]
-  float* c_s = l_s + R;                   // [R] per-page correction
-  int* keep_s = reinterpret_cast<int*>(c_s + R);   // [R]
+  float* m_s = s_s + Rp * ps;             // [Rb]
+  float* l_s = m_s + a.Rb;                // [Rb]
+  float* c_s = l_s + a.Rb;                // [Rb] per-page correction
+  int* keep_s = reinterpret_cast<int*>(c_s + a.Rb);   // [Rb]
+  int* list_s = keep_s + a.Rb;            // [mk] this block's list entries
+  __shared__ int n_mine_s;
 
-  const size_t row0 = ((size_t)b * a.N + n) * R;   // first (b, n) row
+  // the block's first row in the [B,N,R] rows of qq and out
+  const size_t row0 = ((size_t)b * a.N + n) * a.R + r0;
   for (int i = tid; i < Rp * hd; i += kThreads) {
     const float q = i < R * hd ? a.qq[row0 * hd + i] : 0.f;
     q_s[i] = q;
@@ -262,6 +289,19 @@ fum_decode_kernel(const Args a) {
   }
   int cnt = a.counts[b];
   cnt = cnt < 0 ? 0 : (cnt > a.mk ? a.mk : cnt);
+  // this block's pages: the list entries whose logical slot is s mod S,
+  // in list order, compacted by warp 0 (32 entries a ballot)
+  if (warp == 0) {
+    int mine_n = 0;
+    for (int base = 0; base < cnt; base += 32) {
+      const int j = base + lane;
+      const bool mine = j < cnt && a.logical[(size_t)b * a.mk + j] % S == s;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) list_s[mine_n + __popc(m & ((1u << lane) - 1u))] = j;
+      mine_n += __popc(m);
+    }
+    if (lane == 0) n_mine_s = mine_n;
+  }
   // an out-of-range page id is a caller bug: surface it as NaN output
   // rather than reading outside the pool (every block of the row checks
   // the whole list, so all of its partials agree)
@@ -271,7 +311,7 @@ fum_decode_kernel(const Args a) {
     bad |= pid < 0 || pid >= a.P;
   }
   bad = __syncthreads_or(bad);
-  float* pb = a.part + ((((size_t)b * a.N + n) * S + s) * R) * (hd + 2);
+  float* pb = a.part + ((((size_t)b * a.N + n) * S + s) * a.R + r0) * (hd + 2);
   if (bad) {
     for (int i = tid; i < R * (hd + 2); i += kThreads) {
       const int c = i % (hd + 2);
@@ -293,21 +333,24 @@ fum_decode_kernel(const Args a) {
   for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
 
   Codes<VB, F == kI8Fp8> codes;
+  const int n_mine = n_mine_s;   // written before the barrier above
   if constexpr (Q) {
-    if (s < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + s], n);
+    if (n_mine > 0) codes.fetch(a, a.page_ids[(size_t)b * a.mk + list_s[0]], n);
   }
-  for (int j = s; j < cnt; j += S) {
+  for (int i = 0; i < n_mine; ++i) {
+    const int j = list_s[i];
     __syncthreads();   // the previous page's readers are done
     const int col0 = a.logical[(size_t)b * a.mk + j] * ps;
     if constexpr (Q) {
       codes.store(a, k_s, v_s);
-      if (j + S < cnt) codes.fetch(a, a.page_ids[(size_t)b * a.mk + j + S], n);
+      if (i + 1 < n_mine)
+        codes.fetch(a, a.page_ids[(size_t)b * a.mk + list_s[i + 1]], n);
     } else {
       using T = typename std::conditional<F == kBf16, __nv_bfloat16, float>::type;
       load_float<T>(a, a.page_ids[(size_t)b * a.mk + j], n, k_s, v_s);
     }
     for (int r = tid; r < R; r += kThreads)
-      keep_s[r] = a.keep[(((size_t)b * a.mk + j) * a.N + n) * R + r];
+      keep_s[r] = a.keep[(((size_t)b * a.mk + j) * a.N + n) * a.R + r0 + r];
     __syncthreads();
 
     // scores: s = (qq.k - fq.fk) * scale, masked to NEG (0 in pad rows)
@@ -337,7 +380,7 @@ fum_decode_kernel(const Args a) {
       for (int u = 0; u < RPT; ++u) {
         const int r = sg * RPT + u;
         const float sc = (a.approx ? s1[u] - s2[u] : s1[u]) * a.scale;
-        const bool valid = r < R && col0 + c < kvl + r % a.Sq && keep_s[r] > 0;
+        const bool valid = r < R && col0 + c < kvl + (r0 + r) % a.Sq && keep_s[r] > 0;
         s_s[r * ps + c] = r < R ? (valid ? sc : kNeg) : 0.f;
       }
     }
@@ -352,7 +395,7 @@ fum_decode_kernel(const Args a) {
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
       const bool row_keep = keep_s[r] > 0;
-      const int lim = kvl + r % a.Sq;
+      const int lim = kvl + (r0 + r) % a.Sq;
       float sum = 0.f;
       for (int cc = lane; cc < ps; cc += 32) {
         const bool valid = row_keep && col0 + cc < lim;
@@ -449,23 +492,23 @@ fum_merge_kernel(const float* part, float* out, int R, int hd, int S) {
 
 // Dynamic shared memory of one block: the layout at the top of
 // fum_decode_kernel.
-size_t smem_bytes(int R, int Rp, int hd, int ps) {
+size_t smem_bytes(int Rb, int Rp, int hd, int ps, int mk) {
   return sizeof(float) * ((size_t)2 * Rp * hd + (size_t)ps * hd +
-                          (size_t)ps * (hd + 4) + (size_t)Rp * ps + 3 * (size_t)R) +
-         sizeof(int) * (size_t)R;
+                          (size_t)ps * (hd + 4) + (size_t)Rp * ps + 3 * (size_t)Rb) +
+         sizeof(int) * ((size_t)Rb + mk);
 }
 
 template <int F, int VB, int RPT>
-int launch(Args a, cudaStream_t st) {
-  a.Rp = (a.R + RPT - 1) / RPT * RPT;
+int launch(Args a, int rc, cudaStream_t st) {
+  a.Rp = (a.Rb + RPT - 1) / RPT * RPT;
   // above the 227 KB a block may use, the attribute call (and so the
   // launch) is refused with cudaErrorInvalidValue
-  const size_t smem = smem_bytes(a.R, a.Rp, a.hd, a.ps);
+  const size_t smem = smem_bytes(a.Rb, a.Rp, a.hd, a.ps, a.mk);
   cudaError_t err = cudaFuncSetAttribute(
       fum_decode_kernel<F, VB, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fum_decode_kernel<F, VB, RPT><<<dim3(a.N, a.B, a.S), kThreads, smem, st>>>(a);
+  fum_decode_kernel<F, VB, RPT><<<dim3(a.N, a.B, a.S * rc), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,14 +520,16 @@ extern "C" {
 // the first cudaError_t (0 = success). `part` holds B*N*S*G*Sq*(hd+2)
 // floats when S > 1 (unused for S = 1). `fmt` is the pool format (Fmt:
 // 0 int8, 1 int8 K + fp8 V, 2 fp32, 3 bf16; the first two with scales).
-// ps <= 128, hd <= 128 and hd % 4 == 0; G*Sq <= 16 * (256 / max(ps,
-// hd)) (else cudaErrorInvalidValue).
+// ps <= 128, hd <= 128 and hd % 4 == 0 (else cudaErrorInvalidValue);
+// any G*Sq (the rows split over blocks). Each run of the kernel adds one
+// to *runs unless it is null.
 // Nothing is synchronised and nothing is allocated.
 int hdp_paged_fum_decode_launch(
     const float* qq, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* page_ids,
     const int* logical, const int* counts, const int* keep,
-    const int* kv_len, float* out, float* part, int B, int N, int G, int Sq,
+    const int* kv_len, float* out, float* part, unsigned long long* runs,
+    int B, int N, int G, int Sq,
     int hd, int ps, int mk, int P, int S, int fmt, int approx,
     int int_bits, int frac_bits, float scale, void* stream) {
   Args a;
@@ -492,6 +537,7 @@ int hdp_paged_fum_decode_launch(
   a.k_scale = k_scale; a.v_scale = v_scale;
   a.page_ids = page_ids; a.logical = logical; a.counts = counts;
   a.keep = keep; a.kv_len = kv_len; a.out = out; a.part = part;
+  a.runs = runs;
   a.B = B; a.N = N; a.R = G * Sq; a.Sq = Sq; a.hd = hd; a.ps = ps;
   a.mk = mk; a.P = P; a.S = S;
   a.approx = approx;
@@ -502,26 +548,28 @@ int hdp_paged_fum_decode_launch(
   if (ps < 1 || ps > 128 || hd < 4 || hd > 128 || hd % 4 || S < 1 ||
       fmt < kI8 || fmt > kBf16)
     return static_cast<int>(cudaErrorInvalidValue);
-  // rows a thread group takes: 4, or 16 when more groups than the
-  // threads hold would be needed
+  // rows a block takes: all of them, or RC even chunks of at most 16
+  // per thread group; rows a thread group takes: 4, or 16 when more
+  // groups than the threads hold would be needed
   const int groups = kThreads / (ps > hd ? ps : hd);
-  const bool few = (a.R + 3) / 4 <= groups;
-  if (!few && (a.R + 15) / 16 > groups) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || N == 0) return 0;
+  const int rc = (a.R + 16 * groups - 1) / (16 * groups);
+  a.Rb = (a.R + rc - 1) / rc;
+  const bool few = (a.Rb + 3) / 4 <= groups;
+  if (B == 0 || N == 0 || a.R == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = hd % 16 == 0 && reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
   int err;
   switch (fmt) {
-    case kF32: err = few ? launch<kF32, 4, 4>(a, st) : launch<kF32, 4, 16>(a, st); break;
-    case kBf16: err = few ? launch<kBf16, 4, 4>(a, st) : launch<kBf16, 4, 16>(a, st); break;
+    case kF32: err = few ? launch<kF32, 4, 4>(a, rc, st) : launch<kF32, 4, 16>(a, rc, st); break;
+    case kBf16: err = few ? launch<kBf16, 4, 4>(a, rc, st) : launch<kBf16, 4, 16>(a, rc, st); break;
     case kI8Fp8:
-      if (wide) err = few ? launch<kI8Fp8, 16, 4>(a, st) : launch<kI8Fp8, 16, 16>(a, st);
-      else err = few ? launch<kI8Fp8, 4, 4>(a, st) : launch<kI8Fp8, 4, 16>(a, st);
+      if (wide) err = few ? launch<kI8Fp8, 16, 4>(a, rc, st) : launch<kI8Fp8, 16, 16>(a, rc, st);
+      else err = few ? launch<kI8Fp8, 4, 4>(a, rc, st) : launch<kI8Fp8, 4, 16>(a, rc, st);
       break;
     default:
-      if (wide) err = few ? launch<kI8, 16, 4>(a, st) : launch<kI8, 16, 16>(a, st);
-      else err = few ? launch<kI8, 4, 4>(a, st) : launch<kI8, 4, 16>(a, st);
+      if (wide) err = few ? launch<kI8, 16, 4>(a, rc, st) : launch<kI8, 16, 16>(a, rc, st);
+      else err = few ? launch<kI8, 4, 4>(a, rc, st) : launch<kI8, 4, 16>(a, rc, st);
   }
   if (err != 0 || S == 1) return err;
   fum_merge_kernel<<<dim3(B * N, a.R), hd, 0, st>>>(part, out, a.R, hd, S);

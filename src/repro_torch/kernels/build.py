@@ -6,7 +6,8 @@ at the repository root (the hash covers the source, the ``csrc/``
 headers it includes and the flags, so an edited source never loads a
 stale library). The build happens at first
 use, never at import; ``build_all`` starts one nvcc per source at once.
-A failed build raises with nvcc's output.
+A failed build raises with nvcc's output. ``RunCounter`` is the count
+on the card that a kernel keeps of its own runs.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -112,3 +115,37 @@ def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building it if needed
     (callers keep the handle)."""
     return ctypes.CDLL(str(build_all([name])[name]["path"]))
+
+
+class RunCounter:
+    """A kernel's count of its own runs on the card: one thread of the
+    kernel's first block adds one to an int64 there each time it runs,
+    so a CUDA graph's replays count as well as direct launches (a
+    wrapper's ``launches`` sees only the calls that record or launch).
+    One counter per device, made at the first launch there and never
+    moved, since a captured graph holds its address; that first launch
+    must be eager (a capture would record the zero fill, not run it)."""
+
+    def __init__(self):
+        self._on: Dict[int, torch.Tensor] = {}
+
+    def tensor(self, device) -> torch.Tensor:
+        idx = torch.device(device).index
+        idx = torch.cuda.current_device() if idx is None else idx
+        t = self._on.get(idx)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device "
+                                   "must not be under CUDA graph capture: "
+                                   "its run counter is made then")
+            t = self._on[idx] = torch.zeros(1, dtype=torch.int64,
+                                            device=f"cuda:{idx}")
+        return t
+
+    def read(self) -> int:
+        """The runs counted on every device (waits for the card)."""
+        return sum(int(t.item()) for t in self._on.values())
+
+    def zero(self) -> None:
+        for t in self._on.values():
+            t.zero_()

@@ -18,6 +18,8 @@ passes, and small blocks or head sizes). ``hdp_block_sparse_attention
 .launches`` counts kernel launches, ``.launches_by_path`` them per path;
 a call under CUDA graph capture counts once, where it records the
 kernel, and the graph's replays do not call the wrapper.
+``hdp_block_sparse_attention.runs`` is the tile kernel's own count on
+the card (``build.RunCounter``), a graph's replays included.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def _library(path: str) -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = ([p] * 9 if path == "tensor_core"
-                       else [p] * 3 + [i] + [p] * 6) \
+                       else [p] * 3 + [i] + [p] * 7) \
             + [i] * 9 + [ctypes.c_float, p]
         fn.restype = i
         err = getattr(lib, f"{name}_error_string")
@@ -164,6 +166,9 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
     ptrs += [vp(out.data_ptr()), vp(idx.data_ptr()), vp(cnt.data_ptr()),
              vp(hk.data_ptr()), vp(0 if lens is None else lens.data_ptr()),
              vp(0 if ss is None else ss.data_ptr())]
+    if path == "tile":
+        ptrs.append(vp(hdp_block_sparse_attention.runs.tensor(q.device)
+                       .data_ptr()))
     name = SOURCES[path]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -183,3 +188,4 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
 
 hdp_block_sparse_attention.launches = 0
 hdp_block_sparse_attention.launches_by_path = dict.fromkeys(PATHS, 0)
+hdp_block_sparse_attention.runs = build.RunCounter()

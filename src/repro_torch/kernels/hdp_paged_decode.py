@@ -7,16 +7,23 @@ the scout (see ``csrc/hdp_paged_decode.cu`` for the kernel and its
 design). On a CUDA tensor the wrapper launches the kernel or raises; on
 a CPU tensor it runs the plain version ``ref.hdp_paged_fum_decode_ref``.
 
-The kernel splits each (b, n)'s listed pages across ``S`` blocks and
-merges their partial softmaxes in a second pass; ``fum_splits`` picks S
-from shapes and the SM count alone (about one block per SM), so no call
-waits on ``counts``. S = 1 ("single") writes the output in one pass;
-S > 1 ("split") adds the merge. ``hdp_paged_fum_decode.launches`` counts
+The kernel splits each (b, n)'s listed pages across ``S`` blocks (a
+page goes to the block of its logical slot mod S, so a query row's sums
+group the same whatever else the list holds: a multi-query verify row
+equals the single step at its position) and merges their partial
+softmaxes in a second pass; ``fum_splits`` picks S from shapes and the
+SM count alone (about one block per SM), so no call waits on
+``counts``. S = 1 ("single") writes the output in one pass; S > 1
+("split") adds the merge. The G*Sq query rows split over blocks of at
+most ``ROWS_PER_THREAD * (256 // max(ps, hd))`` rows, so any verify
+width runs. ``hdp_paged_fum_decode.launches`` counts
 wrapper launches (the plain version does not count),
 ``.launches_by_path`` them per mode and ``.launches_by_format`` per pool
 format; a call under CUDA graph capture
 counts once, where it records the kernel, and the graph's replays do
-not call the wrapper.
+not call the wrapper. ``hdp_paged_fum_decode.runs`` is the kernel's own
+count on the card (``build.RunCounter``): every run of
+``fum_decode_kernel``, a graph's replays included.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ FORMATS = {(torch.int8, torch.int8, True): 0,
            (torch.bfloat16, torch.bfloat16, False): 3}
 #: the formats' names, by code (``launches_by_format``'s keys)
 FORMAT_NAMES = ("int8", "fp8_v", "fp32", "bf16")
-#: the most rows (G*Sq) one thread takes; G*Sq <= this * (256 // max(ps, hd))
+#: the most query rows one thread takes: a block takes at most
+#: this * (256 // max(ps, hd)) of the G*Sq rows, and more split over blocks
 ROWS_PER_THREAD = 16
 
 _lib: Optional[ctypes.CDLL] = None   # loaded (and built) at first launch
@@ -52,7 +60,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("hdp_paged_decode")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hdp_paged_fum_decode_launch.argtypes = \
-            [p] * 12 + [i] * 13 + [ctypes.c_float, p]
+            [p] * 13 + [i] * 13 + [ctypes.c_float, p]
         lib.hdp_paged_fum_decode_launch.restype = i
         lib.hdp_paged_fum_decode_error_string.argtypes = [i]
         lib.hdp_paged_fum_decode_error_string.restype = ctypes.c_char_p
@@ -156,10 +164,9 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
             t.data_ptr() % (4 * t.element_size()) for t in (k_pool, v_pool)):
         raise ValueError(f"the kernel needs hd a multiple of 4 up to 128 and "
                          f"pools aligned to four elements, got hd={hd}")
-    if not 1 <= ps <= 128 or G * Sq > ROWS_PER_THREAD * (256 // max(ps, hd)):
-        raise ValueError(f"the kernel takes pages of 1 to 128 positions and "
-                         f"G*Sq <= {ROWS_PER_THREAD} * (256 // max(ps, hd)), "
-                         f"got ps={ps}, hd={hd}, G*Sq={G * Sq}")
+    if not 1 <= ps <= 128:
+        raise ValueError(f"the kernel takes pages of 1 to 128 positions, got "
+                         f"ps={ps}")
     S = splits if splits is not None else fum_splits(B, N, mk,
                                                      _sm_count(qq.device))
     lib = _library()
@@ -176,11 +183,12 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
             vp(page_ids.data_ptr()), vp(logical.data_ptr()),
             vp(counts.data_ptr()), vp(keep.data_ptr()),
             vp(kv_len.data_ptr()), vp(out.data_ptr()), vp(part.data_ptr()),
+            vp(hdp_paged_fum_decode.runs.tensor(qq.device).data_ptr()),
             B, N, G, Sq, hd, ps, mk, P, S, fmt,
             int(approx), int_bits, frac_bits,
             ctypes.c_float(1.0 / (hd ** 0.5)), vp(stream))
     if err != 0:
-        # e.g. a G*Sq x hd x ps block over the 227 KB of shared memory
+        # e.g. the card refusing the block's shared memory or its grid
         msg = lib.hdp_paged_fum_decode_error_string(err).decode()
         raise RuntimeError(f"hdp_paged_fum_decode launch failed for "
                            f"G*Sq={G * Sq}, hd={hd}, ps={ps}, S={S}: {msg}")
@@ -193,3 +201,4 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
 hdp_paged_fum_decode.launches = 0
 hdp_paged_fum_decode.launches_by_path = dict.fromkeys(PATHS, 0)
 hdp_paged_fum_decode.launches_by_format = dict.fromkeys(FORMAT_NAMES, 0)
+hdp_paged_fum_decode.runs = build.RunCounter()

@@ -22,6 +22,17 @@ power limit. ``--trace PREFIX`` also writes each run's Chrome trace.
 ``--kv-dtype``, ``--kv-scale``, ``--layout`` and ``--no-hdp`` pick the
 cache and the attention as ``launch/serve.py``'s flags of the same names
 do.
+
+    python -m repro_torch.launch.profile_decode --spec-decode --draft-len 4
+
+profiles self-speculative rounds instead of decode horizons (an engine
+step is one round: ``draft_len - 1`` draft steps and one multi-query
+verify, one CUDA graph per round width): per round, the wall and device
+busy time, the kernels and the FUM kernel's launches, the tokens
+committed and the acceptance rate; the round's device time split into
+the draft steps and the verify comes from the same rounds run eagerly,
+whose kernels fall inside the engine's "spec_draft" and "spec_verify"
+profiler ranges (a graph's replay shows no ranges).
 """
 from __future__ import annotations
 
@@ -51,6 +62,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--layout", default="auto",
                     choices=["auto", "paged", "dense"])
     ap.add_argument("--no-hdp", action="store_true")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="profile self-speculative rounds (with --eager: "
+                         "also eagerly, which splits draft from verify)")
+    ap.add_argument("--draft-len", type=int, default=4)
     return ap.parse_args(argv)
 
 
@@ -74,6 +89,31 @@ def group_of(name: str) -> str:
     return next((g for g, key in GROUPS if key in name), "other")
 
 
+#: the engine's profiler ranges of a speculative round's two parts
+SPEC_RANGES = ("spec_draft", "spec_verify")
+
+
+def range_split(prof) -> dict:
+    """Device time (ms) of the kernels inside each of ``SPEC_RANGES``'
+    device-side spans, and their counts: an eager run's split of a
+    round into its draft steps and its verify."""
+    from torch.autograd import DeviceType
+    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in evts
+             if e.name in SPEC_RANGES]
+    out = {name: {"ms": 0.0, "kernels": 0} for name in SPEC_RANGES}
+    for e in evts:
+        if e.name in SPEC_RANGES:
+            continue
+        t = e.time_range.start
+        for name, a, b in spans:
+            if a <= t < b:
+                out[name]["ms"] += (e.time_range.end - t) / 1e3
+                out[name]["kernels"] += 1
+                break
+    return out
+
+
 def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     import torch
     from torch.autograd import DeviceType
@@ -83,11 +123,14 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     from repro_torch.serving import Engine, Request
 
     warmup, top = 3, 12
-    max_new = (warmup + 2 * args.steps) * horizon + 1
+    spec = args.spec_decode
+    per_step = args.draft_len if spec else horizon   # tokens a step at most
+    max_new = (warmup + 2 * args.steps) * per_step + 1
     buckets = (256, 512, 1024)
     eng = Engine(cfg, params, device="cuda", max_batch=args.requests,
                  max_len=buckets[-1] + max_new, prefill_buckets=buckets,
                  decode_horizon=horizon, cuda_graph=graph,
+                 spec_decode=spec, draft_len=args.draft_len,
                  attn=AttnSpec(layout=args.layout, kv_dtype=args.kv_dtype,
                                kv_scale=args.kv_scale))
     rng = np.random.default_rng(args.seed)
@@ -106,7 +149,11 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
         eng.step()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    n_plain = eng.metrics["decode_steps"] - m0["decode_steps"]
+    # the unit of the per-step numbers: a token step (one decode step of
+    # the whole batch), or with --spec-decode a round
+    unit = "spec_rounds" if spec else "decode_steps"
+    n_plain = eng.metrics[unit] - m0[unit]
+    plain_tok = eng.metrics["tokens_out"] - m0["tokens_out"]
     m0 = dict(eng.metrics)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -118,7 +165,9 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     mode = "graph" if graph else "eager"
     if args.trace:
         prof.export_chrome_trace(f"{args.trace}-{mode}-h{horizon}.json")
-    n_tok = eng.metrics["decode_steps"] - m0["decode_steps"]
+    n_tok = eng.metrics[unit] - m0[unit]
+    done = {m: eng.metrics[m] - m0[m] for m in
+            ("tokens_out", "draft_tokens", "accepted_tokens")}
     avgs = prof.key_averages()
     # device rows are the kernels themselves (host operator rows also
     # carry the time of the kernels they launched: counting both doubles)
@@ -146,9 +195,9 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
         "attn_backend_decode": eng.resolved_backend("decode"),
         "horizon": horizon, "engine_steps": args.steps, "token_steps": n_tok,
         "unprofiled_wall_ms_per_token_step": 1e3 * wall_plain / n_plain,
-        "unprofiled_decode_tok_s": args.requests * n_plain / wall_plain,
+        "unprofiled_decode_tok_s": plain_tok / wall_plain,
         "wall_ms_per_token_step": 1e3 * wall / n_tok,
-        "decode_tok_s": args.requests * n_tok / wall,
+        "decode_tok_s": done["tokens_out"] / wall,
         "device_busy_ms_per_token_step": busy_us / 1e3 / n_tok,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernels_per_token_step": sum(e.count for e in kernels) / n_tok,
@@ -158,6 +207,7 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
         "fum_launches_per_token_step": (eng.metrics["fum_kernel_launches"]
                                         - m0["fum_kernel_launches"]) / n_tok,
         "graph_reserved_bytes": eng.metrics["graph_reserved_bytes"],
+        "graph_captures": eng.metrics["graph_captures"],
         "kernel_groups_per_token_step": {
             g: {"kernels": n, "ms": ms} for g, (n, ms) in
             sorted(groups.items(), key=lambda kv: -kv[1][0])},
@@ -167,6 +217,23 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
             [e.key[:100], e.self_cpu_time_total / 1e3 / n_tok]
             for e in by_host],
     }
+    if spec:
+        # every "per_token_step" number above is per round here
+        out.update({
+            "spec_decode": True, "draft_len": args.draft_len,
+            "step_unit": "round",
+            "attn_backend_draft": eng.resolved_backend("draft"),
+            "attn_backend_verify": eng.resolved_backend("verify"),
+            "tokens_per_round": done["tokens_out"] / n_tok,
+            "acceptance_rate": (done["accepted_tokens"] / done["draft_tokens"]
+                                if done["draft_tokens"] else 0.0),
+            "round_launches": dict(eng.round_launches),
+        })
+        if not graph:
+            split = range_split(prof)
+            out["device_ms_per_round_by_part"] = {
+                name: {"ms": v["ms"] / n_tok, "kernels": v["kernels"] / n_tok}
+                for name, v in split.items()}
     del eng
     torch.cuda.empty_cache()
     return out
@@ -187,7 +254,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.no_hdp:
         cfg = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
     with torch.inference_mode():
-        for horizon in args.horizon:
+        for horizon in ([1] if args.spec_decode else args.horizon):
             for graph in ((False, True) if args.eager else (True,)):
                 print(json.dumps(profile_run(args, cfg, params, horizon,
                                              graph)), flush=True)

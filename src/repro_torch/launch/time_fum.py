@@ -1,9 +1,10 @@
 """Median device time of the FUM decode kernel (int8 pool, pages split
 across blocks) at ``chip_smoke.py``'s timing case: qwen2-1.5b's decode
 shape B 8, N 2, G 6, hd 128, 128-position pages, 16 page slots a row,
-seed 7 (5-11 pages listed a row).
+seed 7 (5-11 pages listed a row); ``--sq`` gives it that many query
+rows (the multi-query verify shape; the same keep for every row).
 
-    python src/repro_torch/launch/time_fum.py [--tree DIR] [--runs 300]
+    python src/repro_torch/launch/time_fum.py [--tree DIR] [--runs 300] [--sq 1]
 
 imports the port from ``DIR/src`` (default: this checkout), so it can
 time the kernel of another checkout of the repository too: to compare
@@ -25,6 +26,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[3]))
     ap.add_argument("--runs", type=int, default=300)
+    ap.add_argument("--sq", type=int, default=1)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree) / "src"))
     import torch
@@ -37,7 +39,7 @@ def main() -> int:
         print("time_fum needs a CUDA card", file=sys.stderr)
         return 2
     g = torch.Generator().manual_seed(7)
-    B, N, G, Sq, hd, ps, nP = 8, 2, 6, 1, 128, 128, 16
+    B, N, G, Sq, hd, ps, nP = 8, 2, 6, args.sq, 128, 128, 16
     P, Sk = 1 + B * nP, nP * ps
     qq = quantize_fixed(2.0 * torch.randn(B, N, G, Sq, hd, generator=g))
     kp = torch.randint(-127, 128, (P, ps, N, hd), generator=g,
@@ -75,7 +77,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    print(json.dumps({"tree": args.tree, "card": card,
+    print(json.dumps({"tree": args.tree, "card": card, "sq": Sq,
                       "pages_listed": lists[2].tolist(),
                       "median_ms": times[n // 2], "q1_ms": times[n // 4],
                       "q3_ms": times[3 * n // 4]}), flush=True)

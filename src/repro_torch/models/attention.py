@@ -22,7 +22,9 @@ behind the registry's backends:
   stage 3 runs on those pages only: in plain PyTorch over page chunks
   (``paged_hdp_decode``), in the gather-free paged FUM kernel
   (``pallas_paged_decode``) or in the block-sparse kernel on a densified
-  gather (``pallas_hdp_block``).
+  gather (``pallas_hdp_block``). A multi-query verify call (Sq > 1, the
+  speculative round's) scouts each query row for itself; a draft call
+  scores from the int8 scout copies alone and never reads the K pool.
 
 Aligned self-attention prefill (no cache) resolves to the full-sequence
 kernels through ``kernels.ops``: ``hdp_attention_tpu`` (scout + block
@@ -43,11 +45,12 @@ from repro_torch.attention import AttnCall, AttnSpec, attention
 from repro_torch.core import blocking
 from repro_torch.core.config import HDPConfig
 from repro_torch.core.hdp import calibrated_split, decode_scout
-from repro_torch.core.quant import (POISON_CODE, encode_pool,
-                                    encode_pool_scaled, pool_int_bits,
-                                    pool_scale, pool_view_finite,
-                                    quantize_and_split, quantize_fixed,
-                                    roundtrip_pool, scout_int_codes,
+from repro_torch.core.quant import (FRAC_SCOUT_SCALE, POISON_CODE,
+                                    encode_pool, encode_pool_scaled,
+                                    pool_int_bits, pool_scale,
+                                    pool_view_finite, quantize_and_split,
+                                    quantize_fixed, roundtrip_pool,
+                                    scout_frac_codes, scout_int_codes,
                                     to_fp8_e4m3)
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
@@ -305,14 +308,19 @@ def _block_sparsity_stats(keep, bvalid, head_kept):
 
 
 def _approx_block_attention(qq, fq, kq, fk, v, keep, valid, head_kept, *,
-                            block_k, scale, approx):
+                            block_k, scale, approx, scores=None):
     """The shared decode stage: FUM scores (QK^T - FQ FK^T) on the blocks
     ``keep`` leaves, masked softmax, early head gate. ``scale`` folds
     1/sqrt(hd) and any calibration rescale; ``block_k`` is the width the
-    [..., nk] keep mask expands by to the score columns."""
-    s = _einsum_f32("bngqh,bsnh->bngqs", qq, kq)
-    if approx:
-        s = s - _einsum_f32("bngqh,bsnh->bngqs", fq, fk)
+    [..., nk] keep mask expands by to the score columns. ``scores``
+    (before the scale) replaces QK^T - FQ FK^T: the speculative draft
+    hands in its scout-copy scores."""
+    if scores is None:
+        s = _einsum_f32("bngqh,bsnh->bngqs", qq, kq)
+        if approx:
+            s = s - _einsum_f32("bngqh,bsnh->bngqs", fq, fk)
+    else:
+        s = scores
     s = s * scale
     keep_e = _expand_keep(keep, block_k, valid, s.dim())
     s = torch.where(keep_e, s, _NEG)
@@ -323,14 +331,27 @@ def _approx_block_attention(qq, fq, kq, fk, v, keep, valid, head_kept, *,
     return _head_gate(out, head_kept)
 
 
+def _draft_scores(s_int, iq, ik, fq, fkh, draft):
+    """Draft score source from the scout copies: s_int alone ("int"), or
+    QQ.IK + IQ.FK^ = s_int + FQ.IK + IQ.FK^ ("scout"), where FK^ is K's
+    fraction on the 2^-6 grid of the fraction copy."""
+    if draft.scores == "int":
+        return s_int
+    return s_int + _einsum_f32("bngqh,bsnh->bngqs", fq, ik) \
+        + _einsum_f32("bngqh,bsnh->bngqs", iq, fkh)
+
+
 def hdp_decode_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
                          window: int = 0, return_stats: bool = False,
-                         per_query: bool = False):
+                         draft=None, per_query: bool = False):
     """HDP decode over a dense cache: the integer scout prunes KV blocks
     of ``block_k`` positions (and heads), and the FUM attention runs on
     the surviving blocks. q [B,N,G,Sq,hd], k/v [B,Sk,N,hd], calibrated
     by ``hdp.calib`` over the call's q and the whole cache.
-    ``per_query`` scouts each query row for itself (the verify shape)."""
+    ``per_query`` scouts each query row for itself (the verify shape);
+    ``draft`` (a DraftProfile, its thresholds already in ``hdp``) scores
+    from the scout copies, recomputed here from the cache's K with the
+    paged pool's fraction grid, so the scores equal the paged draft's."""
     if hdp.approx_softmax:
         raise NotImplementedError(
             "approx_softmax is not ported yet (ROADMAP.md section 1, item 5)")
@@ -347,9 +368,14 @@ def hdp_decode_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
     valid = _mask_bias(q_pos, kp, hdp.causal, window)
     keep, bvalid, _, theta_head, head_kept = decode_scout(
         s_int, valid, hdp, per_query=per_query)
+    scores = None
+    if draft is not None and draft.scores != "approx":
+        fkh = torch.round(fk * FRAC_SCOUT_SCALE) / FRAC_SCOUT_SCALE
+        scores = _draft_scores(s_int, iq, ik, fq, fkh, draft)
     out = _approx_block_attention(
         qq, fq, kq, fk, vp, keep, valid, head_kept, block_k=bk,
-        scale=scale * torch.reciprocal(sq * sk), approx=hdp.approx)
+        scale=scale * torch.reciprocal(sq * sk), approx=hdp.approx,
+        scores=scores)
     stats = None
     if return_stats:
         stats = {**_block_sparsity_stats(keep, bvalid, head_kept),
@@ -385,6 +411,14 @@ def scout_int8(k, hdp: HDPConfig):
     return scout_int_codes(k, hdp.int_bits, hdp.frac_bits)
 
 
+def scout_frac_int8(k, hdp: HDPConfig):
+    """Write-time int8 quantized-fraction copy of K (``f_scout``), which a
+    speculating unquantized pool stores so that the draft scores from
+    the two int8 copies without reading the K pool (a quantized pool
+    derives the fraction from its codes)."""
+    return scout_frac_codes(k, hdp.int_bits, hdp.frac_bits)
+
+
 def _dequant_pages(pages, scale):
     """Gathered pool pages [..., ps, N, hd] + per-page scales [..., N]
     -> fp32 values. int8 codes: the poison code -128 decodes to NaN; fp8
@@ -410,7 +444,7 @@ def _gather_pages(k_pool, v_pool, idx, k_scale, v_scale):
 
 def _paged_scout(q, k_pool, table, *, q_pos, k_pos, hdp: HDPConfig,
                  window: int = 0, ik_pool=None, k_scale=None,
-                 kv_scale: str = "grid"):
+                 kv_scale: str = "grid", per_query: bool = False):
     """Stages 1 and 2 of the paged decode.
 
     Stage 1 reads the integer scout stream of every allocated page: an
@@ -418,13 +452,18 @@ def _paged_scout(q, k_pool, table, *, q_pos, k_pos, hdp: HDPConfig,
     under ``kv_scale="absmax"``, the codes times a sanitized copy of the
     page scales (NaN freed-page poison -> the static step); an
     unquantized pool's write-time ``ik_pool`` copy. Then the decode
-    scout; stage 2 ORs ``keep & head_kept`` over heads into the per-row
-    page fetch list. Returns (qq, fq, keep, bvalid, theta, theta_head,
-    head_kept, fetched)."""
+    scout (per query row with ``per_query``); stage 2 ORs ``keep &
+    head_kept`` over heads (and query rows: a verify call reads the pool
+    once for all of them) into the per-row page fetch list. Returns
+    (qq, iq, fq, ik, k_fin, s_int, keep, bvalid, theta, theta_head,
+    head_kept, fetched); ``k_fin`` is a quantized pool's finite K view
+    (None for an unquantized pool), from which a draft takes K's
+    fraction."""
     B = q.shape[0]
     nP = table.shape[1]
     ps, N, hd = k_pool.shape[1:]
     tbl = table.long()
+    k_fin = None
     if k_pool.dtype != torch.int8:
         if ik_pool is None:
             raise ValueError("an unquantized pool needs its int8 scout copy "
@@ -437,20 +476,22 @@ def _paged_scout(q, k_pool, table, *, q_pos, k_pos, hdp: HDPConfig,
                           torch.full_like(ksc, pool_scale(hdp.int_bits)))
         cf = torch.where(codes == POISON_CODE, torch.zeros_like(codes),
                          codes).to(F32)
-        ik = torch.trunc((cf * ksc[:, :, None, :, None]).reshape(
-            B, nP * ps, N, hd))
+        k_fin = (cf * ksc[:, :, None, :, None]).reshape(B, nP * ps, N, hd)
+        ik = torch.trunc(k_fin)
     else:
-        k_fin = pool_view_finite(k_pool[tbl], hdp.int_bits)
-        ik = torch.trunc(k_fin.reshape(B, nP * ps, N, hd))
+        k_fin = pool_view_finite(k_pool[tbl], hdp.int_bits).reshape(
+            B, nP * ps, N, hd)
+        ik = torch.trunc(k_fin)
     qq, iq, fq = _fixed_split(q, hdp)
     s_int = _einsum_f32("bngqh,bsnh->bngqs", iq, ik)
     valid = _mask_bias(q_pos, k_pos, hdp.causal, window)
-    keep, bvalid, theta, theta_head, head_kept = decode_scout(s_int, valid,
-                                                             hdp)
-    # a page holds every kv head: fetch it if any head still needs it;
-    # early-gated heads (output zeroed) demand nothing
-    fetched = (keep & head_kept[..., None]).any(dim=2).any(dim=1)  # [B, nP]
-    return qq, fq, keep, bvalid, theta, theta_head, head_kept, fetched
+    keep, bvalid, theta, theta_head, head_kept = decode_scout(
+        s_int, valid, hdp, per_query=per_query)
+    # a page holds every kv head: fetch it if any head (or query row)
+    # still needs it; early-gated heads (output zeroed) demand nothing
+    fetched = (keep & head_kept[..., None]).flatten(1, -2).any(1)  # [B, nP]
+    return (qq, iq, fq, ik, k_fin, s_int, keep, bvalid, theta, theta_head,
+            head_kept, fetched)
 
 
 def _fetch_list(fetched, table, keep, q_pos):
@@ -458,9 +499,11 @@ def _fetch_list(fetched, table, keep, q_pos):
 
     Kept pages in ascending logical order, padded with the scratch page
     0 past each row's count: (page_ids [B,nP], logical [B,nP], counts
-    [B], keep_in [B,nP,N,G,Sq] int32, kv_len [B])."""
+    [B], keep_in [B,nP,N,G,Sq] int32, kv_len [B]). A pooled keep
+    [B,N,G,nP] holds for every query row, a per-row one is
+    [B,N,G,Sq,nP]."""
     B, nP = fetched.shape
-    _, N, G, _ = keep.shape
+    N, G = keep.shape[1:3]
     Sq = q_pos.shape[-1]
     ar = torch.arange(nP, dtype=torch.int32, device=fetched.device)
     key = torch.where(fetched, ar[None], torch.iinfo(torch.int32).max)
@@ -469,7 +512,8 @@ def _fetch_list(fetched, table, keep, q_pos):
     in_range = ar[None] < counts[:, None]
     logical = torch.where(in_range, logical, 0)
     page_ids = torch.where(in_range, torch.gather(table, 1, logical.long()), 0)
-    keep_q = keep[..., None, :].expand(B, N, G, Sq, nP)
+    keep_q = (keep if keep.dim() == 5 else keep[..., None, :]).expand(
+        B, N, G, Sq, nP)
     idx = logical.long()[:, None, None, None, :].expand(B, N, G, Sq, nP)
     keep_in = torch.gather(keep_q, -1, idx).permute(0, 4, 1, 2, 3)
     # row 0's extent; the kernel adds the query index (consecutive rows)
@@ -584,7 +628,8 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
                                k_pos, hdp: HDPConfig, window: int = 0,
                                return_stats: bool = False,
                                stage3: str = "xla", page_chunk: int = 128,
-                               k_scale=None, v_scale=None,
+                               draft=None, per_query: bool = False,
+                               fk_pool=None, k_scale=None, v_scale=None,
                                kv_scale: str = "grid"):
     """HDP decode over the block-paged pool: the Fetch-Upon-Mask dataflow.
 
@@ -610,7 +655,17 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
     The kernels' per-row validity is an upper bound (cols < kv_len), so
     a sliding window falls back to "xla", as does "pallas_paged" under
     ``kv_scale="absmax"``: the kernel's scout view assumes the static
-    grid. Returns (out [B,N,G,Sq,hd] in q's dtype, stats or None)."""
+    grid; "pallas_block" falls back too for a per-query call.
+
+    ``per_query`` scouts each of the Sq rows for itself (the multi-query
+    verify: row j gets the keep mask and head gate of its own single
+    step). ``draft`` (a DraftProfile, its thresholds already in ``hdp``)
+    replaces stage 3 by the draft's: scores from the int8 scout copies
+    (s_int, or s_int + FQ.IK + IQ.FK^ with the fraction copy ``fk_pool``
+    of an unquantized pool, or K's fraction from a quantized pool's
+    codes), V gathered for fetched pages only, and ``k_pool`` never read
+    in stage 3. Returns (out [B,N,G,Sq,hd] in q's dtype, stats or
+    None)."""
     if stage3 not in STAGE3:
         raise ValueError(f"stage3 must be one of {STAGE3}, got {stage3!r}")
     B, N, G, Sq, hd = q.shape
@@ -619,19 +674,48 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
     scale = 1.0 / (hd ** 0.5)
     quantized = k_pool.dtype == torch.int8
     absmax = quantized and kv_scale == "absmax"
+    if stage3 == "pallas_block" and per_query:
+        stage3 = "xla"
     if stage3 == "pallas_block" and Sq != 1:
         raise ValueError("the densifying block stage serves single-query "
                          "decode only")
-    qq, fq, keep, bvalid, theta, theta_head, head_kept, fetched = \
-        _paged_scout(q, k_pool, table, q_pos=q_pos, k_pos=k_pos, hdp=hdp,
-                     window=window, ik_pool=ik_pool, k_scale=k_scale,
-                     kv_scale=kv_scale)
+    (qq, iq, fq, ik, k_fin, s_int, keep, bvalid, theta, theta_head,
+     head_kept, fetched) = _paged_scout(
+        q, k_pool, table, q_pos=q_pos, k_pos=k_pos, hdp=hdp, window=window,
+        ik_pool=ik_pool, k_scale=k_scale, kv_scale=kv_scale,
+        per_query=per_query)
     if stage3 != "xla" and window:
         stage3 = "xla"
     if stage3 == "pallas_paged" and absmax:
         stage3 = "xla"
     ks, vs = (k_scale, v_scale) if quantized else (None, None)
-    if stage3 == "pallas_paged":
+    if draft is not None and draft.scores != "approx":
+        s = s_int
+        if draft.scores == "scout":
+            if quantized:
+                fkh = k_fin - ik     # the codes' grid lies on the 2^-6 grid
+            elif fk_pool is None:
+                # the IQ.FK^ term needs the fraction copy: reading the K
+                # pool instead would break the draft's promise
+                raise ValueError(
+                    'draft scores="scout" needs the f_scout pool '
+                    "(PagedKVCache(draft_scout=True)); pass fk_pool or "
+                    'use scores="int"')
+            else:
+                fkh = fk_pool[table.long()].reshape(B, nP * ps, N, hd).to(
+                    F32) / FRAC_SCOUT_SCALE
+            s = _draft_scores(s_int, iq, ik, fq, fkh, draft)
+        valid = _mask_bias(q_pos, k_pos, hdp.causal, window)
+        gather = torch.where(fetched, table, 0).long()      # pruned -> 0
+        if quantized:
+            v = _dequant_pages(v_pool[gather], v_scale[gather])
+        else:
+            v = v_pool[gather]
+        out = _approx_block_attention(
+            None, None, None, None, v.reshape(B, nP * ps, N, hd), keep,
+            valid, head_kept, block_k=ps, scale=scale, approx=False,
+            scores=s)
+    elif stage3 == "pallas_paged":
         out = _paged_fum_kernel_stage3(qq, k_pool, v_pool, table, keep,
                                        head_kept, q_pos, fetched, hdp=hdp,
                                        k_scale=ks, v_scale=vs)
@@ -668,22 +752,29 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
 def build_attn_call(cfg, *, mode: str, paged: bool = False,
                     per_slot: bool = False, self_aligned: bool = False,
                     causal: bool = True, collect_stats: bool = False,
-                    verify: bool = False, kv_scale: str = "grid") -> AttnCall:
+                    draft=None, verify: bool = False,
+                    kv_scale: str = "grid") -> AttnCall:
     """The AttnCall ``attn_apply`` dispatches on. The serving engine uses
     the same function to report the resolved backend per phase, so the
-    report cannot drift from the dispatch."""
+    report cannot drift from the dispatch. ``draft`` (a DraftProfile)
+    marks a speculative draft step, its threshold overrides folded into
+    the call's HDP config; ``verify`` a multi-query verify call."""
     hdp = cfg.hdp
     use_hdp = hdp is not None and hdp.enabled
+    hdp_eff = hdp.replace(causal=causal) if use_hdp else None
+    if draft is not None and hdp_eff is not None:
+        hdp_eff = draft.overlay(hdp_eff)
     return AttnCall(
         mode="decode" if mode == "decode" else "prefill",
         layout="paged" if paged else "dense",
         causal=causal,
         window=cfg.sliding_window,
-        hdp=hdp.replace(causal=causal) if use_hdp else None,
+        hdp=hdp_eff,
         per_slot=per_slot,
         self_aligned=self_aligned,
         chunk=cfg.attn_chunk,
         needs_stats=collect_stats,
+        draft=draft if use_hdp else None,
         verify=verify and mode == "decode",
         kv_scale=kv_scale if paged else "grid",
     )
@@ -698,13 +789,18 @@ def _spec_pool(attn: Optional[AttnSpec]) -> Tuple[str, str]:
             attn.kv_scale)
 
 
-def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str) -> None:
+def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str,
+                 draft=None) -> None:
     """Write the step's K/V [B,S,N,hd] into the pool at (page, offset),
     in place, in the pool's format. A calibrated (absmax) pool encodes
     against the destination page's current scale (set at insert; a fresh
     decode page keeps the static step), NaN freed-page poison sanitized
     to the static step; fp8 V pages take the cast (NaN past its range);
-    an unquantized pool also writes its int8 scout copy of K."""
+    an unquantized pool also writes its int8 scout copies of K. A draft
+    step scoring from the scout copies skips an unquantized pool's K
+    write: later draft steps read the copies, and the verify rewrites
+    every staged position with the exact K before anything else reads
+    it (a quantized pool's codes are the copies, so they are written)."""
     pidx, off = pidx.long(), off.long()
     ib = pool_int_bits(cfg.hdp)
     v_fp8 = cache["v_pages"].dtype == torch.float8_e4m3fn
@@ -725,15 +821,22 @@ def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str) -> None:
     else:
         k_store = k.to(cache["k_pages"].dtype)
         v_store = v.to(cache["v_pages"].dtype)
-    cache["k_pages"][pidx, off] = k_store
+    skip_k = (cache["k_pages"].dtype != torch.int8 and draft is not None
+              and draft.scores != "approx" and cfg.hdp is not None
+              and cfg.hdp.enabled)
+    if not skip_k:
+        cache["k_pages"][pidx, off] = k_store
     cache["v_pages"][pidx, off] = v_store
     if "k_scout" in cache:
         cache["k_scout"][pidx, off] = scout_int8(k, cfg.hdp)
+    if "f_scout" in cache:
+        cache["f_scout"][pidx, off] = scout_frac_int8(k, cfg.hdp)
 
 
 def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
                collect_stats: bool = False, page_table=None,
-               write_floor=None, attn: Optional[AttnSpec] = None) -> Tuple:
+               write_floor=None, draft=None,
+               attn: Optional[AttnSpec] = None) -> Tuple:
     """Full MHA layer: project, rope, attend through the registry,
     output-project.
 
@@ -749,7 +852,10 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     paged pool {"k_pages","v_pages", "k_scale","v_scale" | "k_scout"}
     or its dense slot cache {"k","v"} [B,Smax,N,hd], written in place
     (the K/V scatter) before attention reads it; ``write_floor`` [B]
-    fences shared prefix pages. ``attn`` selects the backend (None: the
+    (page columns) fences shared prefix pages: writes below it land in
+    the scratch page. Decode with S > 1 is a multi-query verify call
+    (consecutive positions per slot); ``draft`` (a DraftProfile) marks a
+    speculative draft step. ``attn`` selects the backend (None: the
     default spec, which honors REPRO_ATTN_BACKEND).
     Returns (y, cache, stats|None); y is in x's dtype. An fp32
     attention output (the block-sparse kernel's) meets a bf16 ``wo`` in
@@ -784,7 +890,8 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
         nP = page_table.shape[1]
         pidx = resolve_write_pages(positions, page_table, ps, write_floor)
         # in place: the per-layer pool views alias the engine's pool
-        _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale)
+        _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale,
+                     draft=draft)
         ar = torch.arange(nP * ps, device=x.device)
         k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
         k_pos = k_pos[:, None, None, :]                  # [B,1,1,nP*ps]
@@ -823,8 +930,9 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     call = build_attn_call(
         cfg, mode=mode, paged=paged, per_slot=positions.dim() == 2,
         self_aligned=cache is None and positions.dim() == 1,
-        collect_stats=collect_stats, verify=mode == "decode" and S > 1,
-        kv_scale=kv_scale)
+        collect_stats=collect_stats,
+        draft=draft if mode == "decode" else None,
+        verify=mode == "decode" and S > 1, kv_scale=kv_scale)
     o, stats = attention(qg, k_full, v_full, call, spec=attn, q_pos=q_pos,
                          k_pos=k_pos, cache=cache if paged else None,
                          page_table=page_table)

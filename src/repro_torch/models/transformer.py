@@ -76,7 +76,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None,
 
 
 def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
-           page_table=None, write_floor=None, attn=None):
+           page_table=None, write_floor=None, draft=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
     Without a cache every layer is an aligned self-attention prefill.
     Returns (x, stats) with stats leaves stacked over layers."""
@@ -89,7 +89,8 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
                               positions=positions, cache=lc,
                               collect_stats=collect_stats,
                               page_table=page_table,
-                              write_floor=write_floor, attn=attn)
+                              write_floor=write_floor, draft=draft,
+                              attn=attn)
         x = x + a
         h = L.rms_norm(x, lp["ln2"]["w"])
         x = x + L.mlp_apply(cfg, lp["ffn"], h)
@@ -119,17 +120,20 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
 
 def apply_decode(cfg, params, token, cache, pos, *,
                  collect_stats: bool = False, page_table=None,
-                 write_floor=None, attn=None):
-    """One decode step. token [B,1]; pos [B,1] int positions; ``cache``
-    the paged pool dict with [L,...] leaves and page_table [B,nP] int32,
-    or the dense slot cache {"k","v"} [L,B,Smax,N,hd] without a table
-    (updated in place either way). Returns (logits [B,1,V] fp32, cache,
-    stats)."""
+                 write_floor=None, draft=None, attn=None):
+    """One decode step. token [B,S]; pos [B,S] int positions (S > 1: a
+    multi-query verify call over consecutive positions, each row scouted
+    as its own single step would be); ``cache`` the paged pool dict with
+    [L,...] leaves and page_table [B,nP] int32 (``write_floor`` [B]
+    fencing shared prefix pages), or the dense slot cache {"k","v"}
+    [L,B,Smax,N,hd] without a table (updated in place either way).
+    ``draft`` (a DraftProfile) marks a speculative draft step. Returns
+    (logits [B,S,V] fp32, cache, stats)."""
     x = L.embed_tokens(params["embed"], token)
     x, stats = _stack(cfg, params, x, mode="decode", positions=pos,
                       cache=cache, collect_stats=collect_stats,
                       page_table=page_table, write_floor=write_floor,
-                      attn=attn)
+                      draft=draft, attn=attn)
     x = L.rms_norm(x, params["final_norm"]["w"])
     return L.lm_logits(params["embed"], x), cache, stats
 

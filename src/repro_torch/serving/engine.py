@@ -31,30 +31,61 @@ default for the dense family) or the dense per-slot layout
   the engine's ``attn`` spec: by default the gather-free FUM kernel
   (``pallas_paged_decode``), or the block-sparse kernel on a densified
   gather (``attn="pallas_hdp_block"``);
+* the **prefix cache** (paged layout; ``prefix_cache=`` or
+  ``REPRO_PREFIX_CACHE``) — admission first walks a token-chunk radix
+  tree (``allocator.RadixPrefixCache``) for the longest cached prompt
+  prefix: its full pages are shared into the slot's table (refcounted,
+  no copy, no recompute) and only the suffix is prefilled, by the
+  chunked prefill at the prefix's offset. A full-prompt hit skips
+  prefill and copies (COW) the one shared page the decode's resume
+  rewrites. Finished prefills register their full pages before the
+  decode write frontier; under pool pressure the least recently used
+  unreferenced cached pages are evicted. Each slot's first owned page
+  is its write floor, a static device buffer the decode reads beside
+  the table: writes below it land in the scratch page;
+* **self-speculative decode** (``spec_decode=`` or
+  ``REPRO_SPEC_DECODE``; supersedes the horizon) — each ``step()`` is
+  one round: ``k - 1`` draft steps propose tokens, scoring attention
+  from the int8 scout copies alone (the K pool is neither read nor, on
+  an unquantized pool, written), then one ``k``-wide multi-query verify
+  re-scores every position at full fidelity, each query row scouted as
+  its own single step would be (on the card the FUM kernel at Sq = k).
+  The longest agreeing prefix is accepted on the device, so every
+  committed token is the exact greedy one (the output equals horizon 1
+  at any acceptance rate); EOS and budgets cut commits as the horizon
+  does, and the K of rejected staged positions is poisoned (NaN, or the
+  int8 code -128), fenced like the writes. ``k`` is ``draft_len``
+  clamped to the longest remaining budget; on a CUDA device each width
+  is one CUDA graph, captured at its first round;
 * EOS and budget handling, and the per-slot non-finite tripwire (only
   the faulted request aborts); a finished request frees its pages at
   once (a dense slot is cleared).
 
-Not ported yet (ROADMAP.md section 1): the prefix cache, speculative
-decode, the stream scheduler, fault handling and tensor parallelism.
+Not ported yet (ROADMAP.md section 1): acceptance-adaptive speculation,
+the stream scheduler, fault handling and tensor parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.attention import AttnSpec, default_spec, resolve_backend
+from repro_torch.attention import (AttnSpec, DraftProfile, default_spec,
+                                   resolve_backend)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import POISON_CODE
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
 from repro_torch.models import registry
-from repro_torch.models.attention import build_attn_call
+from repro_torch.models.attention import build_attn_call, resolve_write_pages
 from repro_torch.models.layers import resolve_device
+from repro_torch.serving.allocator import PoolExhausted, RadixPrefixCache
 from repro_torch.serving.kv_cache import (KV_DTYPES, PagedKVCache, SlotCache,
                                           cache_bytes)
 
@@ -62,6 +93,13 @@ from repro_torch.serving.kv_cache import (KV_DTYPES, PagedKVCache, SlotCache,
 HORIZON_ENV = "REPRO_DECODE_HORIZON"
 #: env default of the paged pool's format (the reference's name)
 KV_DTYPE_ENV = "REPRO_KV_DTYPE"
+#: env default of ``prefix_cache`` (degrades silently where the layout
+#: cannot share pages; an explicit True raises there instead)
+PREFIX_ENV = "REPRO_PREFIX_CACHE"
+#: env default of ``spec_decode``
+SPEC_ENV = "REPRO_SPEC_DECODE"
+#: env default of ``draft_len`` (else 4)
+DRAFT_ENV = "REPRO_DRAFT_LEN"
 
 #: decode backend -> its stage-3 implementation (on the card, on the CPU)
 _STAGE3_IMPL = {
@@ -82,6 +120,10 @@ _STAT_NAMES = ("block_sparsity", "head_sparsity", "page_sparsity")
 
 def _launch_counts() -> Dict[str, int]:
     return {m: fn.launches for m, fn in _DECODE_KERNELS.items()}
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "on")
 
 
 @dataclasses.dataclass
@@ -125,12 +167,29 @@ class Engine:
         else "int8"; the dense layout always serves the model dtype,
         reported as "fp32") and ``kv_scale``; None uses the default spec
         (which honors REPRO_ATTN_BACKEND).
+    num_pages: page-pool size of the paged layout (default: one full
+        table per slot plus the scratch page); a larger pool keeps more
+        evicted-under-pressure prefix pages resident.
+    prefix_cache: share prompt-prefix pages across requests through the
+        radix tree (paged layout). None reads REPRO_PREFIX_CACHE and
+        degrades silently where pages cannot be shared (the dense
+        layout, HDP chunk misalignment); True raises there.
     decode_horizon: decode steps per ``step()`` and host sync; None
         reads REPRO_DECODE_HORIZON (default 1).
-    cuda_graph: on a CUDA device, run the decode step as one captured
-        CUDA graph (the default); False steps it eagerly, op by op. A
-        failed capture or replay raises. Ignored on the CPU, which
-        always steps eagerly.
+    spec_decode: self-speculative decode, one draft/verify round per
+        ``step()`` (supersedes the horizon); None reads
+        REPRO_SPEC_DECODE (default off). Pins ``hdp.calib = "none"``, as
+        the paged layout does: staging leaves garbage past the commit
+        frontier, which a data-dependent calibration would see.
+    draft_len: tokens proposed and verified per round (1..draft_len
+        commit); None reads REPRO_DRAFT_LEN (default 4).
+    draft_profile: the draft's DraftProfile (score source, threshold
+        overrides); None: scores from the scout copies, the exact
+        thresholds.
+    cuda_graph: on a CUDA device, run the decode step (and each width of
+        speculative round) as one captured CUDA graph (the default);
+        False steps eagerly, op by op. A failed capture or replay
+        raises. Ignored on the CPU, which always steps eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
@@ -138,7 +197,12 @@ class Engine:
                  prefill_buckets: Sequence[int] = (32, 64, 128),
                  collect_stats: bool = False,
                  attn: Union[AttnSpec, str, None] = None,
+                 num_pages: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
                  decode_horizon: Optional[int] = None,
+                 spec_decode: Optional[bool] = None,
+                 draft_len: Optional[int] = None,
+                 draft_profile: Optional[DraftProfile] = None,
                  cuda_graph: bool = True):
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
@@ -165,9 +229,20 @@ class Engine:
         self.kv_scale = spec.kv_scale if self.paged else "grid"
         hdp = cfg.hdp
         self.hdp_on = hdp is not None and hdp.enabled
-        if self.paged and self.hdp_on and hdp.calib != "none":
-            # the pool's scout view is quantized at write time, so a
-            # data-dependent calibration scale cannot be honoured: the
+        if spec_decode is None:
+            spec_decode = _env_flag(SPEC_ENV)
+        self.spec = bool(spec_decode)
+        if draft_len is None:
+            draft_len = int(os.environ.get(DRAFT_ENV, "4") or 4)
+        if draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+        self.draft_len = int(draft_len)
+        self.draft_profile = (draft_profile if draft_profile is not None
+                              else DraftProfile())
+        if (self.paged or self.spec) and self.hdp_on and hdp.calib != "none":
+            # the pool's scout view is quantized at write time, and rolled
+            # back speculative writes leave garbage past the frontier, so
+            # a data-dependent calibration scale cannot be honoured: the
             # static grid applies to prefill and decode alike
             cfg = cfg.replace(hdp=hdp.replace(calib="none"))
         self.cfg = cfg
@@ -192,12 +267,24 @@ class Engine:
             params = registry.init_params(cfg, seed, self.device)
         self.params = params
         if self.paged:
-            self.pages = PagedKVCache(cfg, max_batch, max_len,
-                                      device=self.device, kv_dtype=kv_dtype,
-                                      kv_scale=self.kv_scale)
+            # the draft scores from the int8 scout copies: the fraction
+            # copy costs pool memory only for a speculating unquantized
+            # pool (a quantized one derives it from its codes)
+            self.pages = PagedKVCache(
+                cfg, max_batch, max_len, device=self.device,
+                kv_dtype=kv_dtype, kv_scale=self.kv_scale,
+                num_pages=num_pages,
+                draft_scout=self.spec and self.draft_profile.scores == "scout")
         else:
-            self.slots = SlotCache(cfg, max_batch, max_len,
+            # a round stages writes up to draft_len - 1 positions past
+            # the commit frontier: the dense slots carry that margin, so
+            # a staged write near max_len never clamps onto a committed
+            # position (the paged write path sends such columns to the
+            # scratch page)
+            margin = self.draft_len - 1 if self.spec else 0
+            self.slots = SlotCache(cfg, max_batch, max_len + margin,
                                    device=self.device)
+        self.prefix = self._build_prefix_cache(prefix_cache)
         self._stat_names = (() if not self.hdp_on else _STAT_NAMES
                             if self.paged else _STAT_NAMES[:2])
         self._free = list(range(max_batch))
@@ -210,27 +297,40 @@ class Engine:
     def _init_decode_state(self) -> None:
         """Static device buffers of the decode step (a captured graph reads
         them at fixed addresses): the reference's ``_last_tok``, ``_pos``,
-        ``_active_dev``, ``_remaining_dev`` and ``_eos_dev``, written by the
-        host only at activation and finish and advanced in place by every
-        step; and the history of one horizon, row ``t`` per step (token,
-        pre-step active mask and fault mask, [H, 3, B]; the stats leaves,
-        [H, 3, L, B]), with the device step counter ``_t``."""
-        B, H, dev = self.max_batch, self.horizon, self.device
+        ``_active_dev``, ``_remaining_dev``, ``_eos_dev`` and
+        ``_floor_dev`` (each slot's write floor, its first owned page),
+        written by the host only at activation and finish and advanced in
+        place by every step; and the history of one horizon, row ``t``
+        per step (token, pre-step active mask and fault mask, [H, 3, B];
+        the stats leaves, [H, 3, L, B]), with the device step counter
+        ``_t``. A speculative round writes its exact tokens and commit
+        mask to ``_hist`` rows ``0..k-1`` (rows 0 and 1 of [., 3, B]),
+        its fault mask to row 0's third, and its verify stats to
+        ``_hist_stats[0]``."""
+        B, dev = self.max_batch, self.device
+        H = max(self.horizon, self.draft_len if self.spec else 1)
         i64 = torch.int64
         self._tok = torch.zeros((B, 1), dtype=i64, device=dev)
         self._pos = torch.zeros(B, dtype=i64, device=dev)
         self._act = torch.zeros(B, dtype=torch.bool, device=dev)
         self._rem = torch.zeros(B, dtype=i64, device=dev)
         self._eos = torch.full((B,), -1, dtype=i64, device=dev)
+        self._floor = torch.zeros(B, dtype=i64, device=dev)
         self._t = torch.zeros(1, dtype=i64, device=dev)
         self._hist = torch.zeros((H, 3, B), dtype=i64, device=dev)
         self._hist_stats = torch.zeros(
             (H, len(self._stat_names), self.cfg.n_layers, B),
             dtype=torch.float32, device=dev) \
             if self.collect_stats and self._stat_names else None
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        #: launches of each decode kernel recorded into the graph
-        self._graph_launches: Dict[str, int] = {}
+        #: the captured graphs, keyed "decode" (the decode step) or by a
+        #: speculative round's width k, each with the launches of each
+        #: decode kernel recorded into it
+        self._graphs: Dict[object, Tuple[torch.cuda.CUDAGraph,
+                                         Dict[str, int]]] = {}
+        #: per round width k, the decode-kernel launches of the round's
+        #: draft steps and of its verify (wrapper counts over the capture,
+        #: or over the last eager round)
+        self.round_launches: Dict[int, Dict[str, Dict[str, int]]] = {}
 
     # --------------------------------------------------------------- public
     @property
@@ -278,15 +378,20 @@ class Engine:
     def step(self) -> int:
         """Admit what fits, then one decode horizon over all slots: up to
         ``decode_horizon`` steps (never past the longest remaining
-        budget) with one host sync. Returns the number of active slots
-        stepped."""
+        budget), or with ``spec_decode`` one speculative round, with one
+        host sync. Returns the number of active slots stepped."""
         self._admit()
         if not self._active:
             return 0
         n_stepped = len(self._active)
         rem_max = max(st["req"].max_new_tokens - len(st["generated"])
                       for st in self._active.values())
-        self._decode_horizon(min(self.horizon, rem_max))
+        if self.spec:
+            # never draft past the longest remaining budget: no slot
+            # could commit those proposals (at most draft_len widths)
+            self._spec_step(min(self.draft_len, rem_max))
+        else:
+            self._decode_horizon(min(self.horizon, rem_max))
         return n_stepped
 
     # ------------------------------------------------------------ admission
@@ -300,9 +405,16 @@ class Engine:
         take = [self._queue.pop(0) for _ in range(n)]
         groups: Dict[int, List[Request]] = {}
         long_reqs: List[Request] = []
+        hits: List = []
         for req in take:
             if len(req.prompt) > self.buckets[-1]:   # submit checked chunking
+                # long prompts prefill one at a time: their match waits,
+                # so they can hit pages this wave's earlier ones register
                 long_reqs.append(req)
+                continue
+            shared = self._prefix_match(req) if self.prefix else None
+            if shared:
+                hits.append((req, shared))
             else:
                 groups.setdefault(self._bucket_for(len(req.prompt)),
                                   []).append(req)
@@ -310,21 +422,28 @@ class Engine:
                 for b in sorted(groups)
                 for i in range(0, len(groups[b]), self.max_batch)]
         # every item is popped before it runs: a failing item unwinds
-        # itself, the except arm requeues only the never-started rest
+        # itself, the except arm unwinds only the never-started rest (no
+        # request dropped, no match ref released twice)
         try:
             while jobs:
                 bucket, reqs = jobs.pop(0)
                 self._prefill_group(bucket, reqs)
+            while hits:
+                req, shared = hits.pop(0)
+                self._serve_hit(req, shared)
             while long_reqs:
                 req = long_reqs.pop(0)
-                try:
-                    self._prefill_long(req)
-                except BaseException:
-                    self._queue.append(req)
-                    raise
+                shared = self._prefix_match(req) if self.prefix else None
+                if shared:
+                    self._serve_hit(req, shared)
+                else:
+                    self._serve_cold(req)
         except BaseException:
             for _, reqs in jobs:                 # never-started groups
                 self._queue[:0] = reqs
+            for req, shared in hits:
+                self.pages.allocator.unref(shared)
+                self._queue.append(req)
             self._queue.extend(long_reqs)
             raise
 
@@ -337,6 +456,152 @@ class Engine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # --------------------------------------------------------- prefix cache
+    def _build_prefix_cache(self, requested) -> Optional[RadixPrefixCache]:
+        capable = self.paged and self._can_chunk
+        if requested is None:
+            requested = _env_flag(PREFIX_ENV) and capable   # env degrades
+        if not requested:
+            return None
+        if not self.paged:
+            raise ValueError("prefix_cache=True requires the paged cache "
+                             "layout (AttnSpec(layout='paged'))")
+        if not self._can_chunk:
+            raise ValueError(
+                "prefix_cache=True needs the suffix prefilled at an offset: "
+                "the largest prefill bucket must be a multiple of HDP's "
+                f"block_q ({self.cfg.hdp.block_q})")
+        return RadixPrefixCache(self.pages.allocator, self.pages.page_size)
+
+    @property
+    def _page_align(self) -> int:
+        """Pages per shareable unit: a match ends on an HDP q-block
+        boundary, or the suffix's scout would pool across it."""
+        if self.hdp_on:
+            ps = self.pages.page_size
+            return math.lcm(ps, self.cfg.hdp.block_q) // ps
+        return 1
+
+    def _prefix_match(self, req: Request) -> Optional[List[int]]:
+        """Longest usable cached prefix of the prompt, as ref'd pages."""
+        return self.prefix.match(req.prompt, align=self._page_align) or None
+
+    def _reserve(self, need: int) -> List[int]:
+        """Allocate fresh pages, evicting LRU cached prefixes on pressure."""
+        short = need - self.pages.allocator.available
+        if short > 0 and self.prefix is not None:
+            self.prefix.evict(short)
+        return self.pages.allocator.alloc(need)
+
+    def _pages_for(self, req: Request) -> int:
+        return max(1, -(-(len(req.prompt) + req.max_new_tokens)
+                        // self.pages.page_size))
+
+    def _pages_capacity(self) -> int:
+        """Pages an admission could obtain now: the free list plus what
+        LRU eviction could reclaim from the prefix cache."""
+        cap = self.pages.allocator.available
+        if self.prefix is not None:
+            cap += self.prefix.evictable_pages()
+        return cap
+
+    def _register_prefix(self, req: Request, slot: int) -> None:
+        """Cache the slot's full prompt pages strictly before the decode
+        write frontier (the resume rewrite at ``plen - 1``): from here on
+        a registered page is never written."""
+        n_reg = (len(req.prompt) - 1) // self.pages.page_size
+        if n_reg > 0:
+            self.prefix.insert(req.prompt[:n_reg * self.pages.page_size],
+                               self.pages.slot_pages(slot)[:n_reg])
+
+    def _serve_hit(self, req: Request, shared: List[int]) -> None:
+        """Serve a prefix-cache hit, unwinding cleanly on failure.
+
+        The fresh pages are reserved first. If the pool cannot supply
+        them, the hit releases its match refs (which may pin every
+        evictable page) and serves cold, which may then evict them. A
+        later failure before the slot owns the pages releases the refs
+        and the reserved pages and requeues the request; once the slot
+        owns them (``assigned``), the slot's teardown covers them."""
+        full = len(shared) * self.pages.page_size == len(req.prompt)
+        need = self._pages_for(req) - len(shared) + (1 if full else 0)
+        try:
+            fresh = self._reserve(need)
+        except PoolExhausted:
+            self.pages.allocator.unref(shared)
+            self._serve_cold(req)
+            return
+        except BaseException:
+            self.pages.allocator.unref(shared)
+            self._queue.append(req)
+            raise
+        slot = self._free.pop(0)
+        assigned: List[int] = []
+        try:
+            if full:
+                self._install_hit(req, shared, fresh, slot, assigned)
+            else:
+                self._prefill_suffix(req, shared, fresh, slot, assigned)
+        except BaseException:
+            if slot in self._active:
+                raise        # activated: the live request owns its teardown
+            if assigned:
+                self.pages.free(slot)
+            else:
+                self.pages.allocator.unref(shared + fresh)
+            self._free.insert(0, slot)
+            self._queue.append(req)
+            raise
+
+    def _serve_cold(self, req: Request) -> None:
+        """Prefill a request from scratch (no page sharing)."""
+        if len(req.prompt) > self.buckets[-1]:
+            try:
+                self._prefill_long(req)
+            except BaseException:
+                self._queue.append(req)
+                raise
+        else:
+            self._prefill_group(self._bucket_for(len(req.prompt)), [req])
+
+    @torch.no_grad()
+    def _prefill_suffix(self, req: Request, shared: List[int],
+                        fresh: List[int], slot: int,
+                        assigned: List[int]) -> None:
+        """Prefix hit: a request cache seeded with the shared pages' K/V
+        (a gather, no recompute), the suffix prefilled into it in chunks
+        at offset ``m``, and only the suffix and generation pages fresh
+        (the insert sends the shared span to the scratch page)."""
+        m = len(shared) * self.pages.page_size
+        prompt = np.asarray(req.prompt, np.int64)
+        t0 = time.perf_counter()
+        cache = self.pages.gather_prefix(shared)
+        self._chunk_loop(prompt, cache, m)
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.metrics["prefill_s"] += dt
+        self.metrics["prefill_calls"] += 1
+        self.pages.assign(slot, shared + fresh, first_owned=len(shared))
+        assigned.append(slot)            # the slot owns every page now
+        self.pages.insert(cache, slot, 0, first_page=len(shared))
+        self._activate(req, slot, dt, floor=len(shared))
+        self._register_prefix(req, slot)
+
+    def _install_hit(self, req: Request, shared: List[int],
+                     fresh: List[int], slot: int,
+                     assigned: List[int]) -> None:
+        """Full-prompt hit: no prefill. The decode's resume rewrites the
+        last prompt position, in the last shared page, so that page is
+        copied into an owned one first (COW) and the shared original
+        stays immutable for its other readers."""
+        self.pages.cow(shared[-1], fresh[0])
+        self.metrics["cow_copies"] += 1
+        pages = shared[:-1] + [fresh[0]] + fresh[1:]
+        self.pages.assign(slot, pages, first_owned=len(shared) - 1)
+        assigned.append(slot)            # the slot owns every page now
+        self.pages.allocator.unref([shared[-1]])   # COW'd out of the slot
+        self._activate(req, slot, 0.0, floor=len(shared) - 1)
 
     @torch.no_grad()
     def _prefill_group(self, bucket: int, reqs: List[Request]) -> None:
@@ -354,8 +619,8 @@ class Engine:
         try:
             if self.paged:
                 for req, slot in zip(reqs, slots):
-                    self.pages.alloc(slot,
-                                     len(req.prompt) + req.max_new_tokens)
+                    self.pages.assign(slot,
+                                      self._reserve(self._pages_for(req)))
             t0 = time.perf_counter()
             cache = registry.init_cache(self.cfg, nb, bucket,
                                         device=self.device)
@@ -381,6 +646,8 @@ class Engine:
         self.metrics["prefill_tokens"] += nb * bucket
         for req, slot in zip(reqs, slots):
             self._activate(req, slot, dt / nb)
+            if self.prefix is not None:
+                self._register_prefix(req, slot)
 
     def _tail_len(self, rem: int, off: int) -> int:
         """Length of the last chunk: the smallest bucket that holds the
@@ -433,24 +700,34 @@ class Engine:
     def _install(self, req: Request, one_cache, row: int,
                  prefill_s: float) -> None:
         """Give a prefilled request a slot and pages, and arm it."""
+        if self.paged:
+            pages = self._reserve(self._pages_for(req))   # fallible: first
         slot = self._free.pop(0)
         try:
             if self.paged:
-                self.pages.alloc(slot, len(req.prompt) + req.max_new_tokens)
+                self.pages.assign(slot, pages)
             self._store.insert(one_cache, slot, row=row)
             self._activate(req, slot, prefill_s)
         except BaseException:
-            # roll the slot back (requeueing is the caller's job)
+            # roll the slot back (requeueing is the caller's job): pages
+            # return through the slot if assigned, directly otherwise
             if self.paged:
-                self.pages.free(slot)
+                if self.pages.slot_pages(slot):
+                    self.pages.free(slot)
+                else:
+                    self.pages.allocator.unref(pages)
             self._active.pop(slot, None)
             self._free.insert(0, slot)
             raise
+        if self.prefix is not None:
+            self._register_prefix(req, slot)
 
-    def _activate(self, req: Request, slot: int, prefill_s: float) -> None:
+    def _activate(self, req: Request, slot: int, prefill_s: float,
+                  floor: int = 0) -> None:
         """Arm a slot: the first decode step replays the last prompt token
-        at its own position (an idempotent K/V rewrite) and yields the
-        first generated token."""
+        at its own position (an idempotent K/V rewrite, in an owned page:
+        ``floor`` fences the shared prefix) and yields the first
+        generated token."""
         self._active[slot] = {"req": req, "generated": []}
         self._results[req.uid] = Result(req.uid, len(req.prompt), [],
                                         prefill_s=prefill_s)
@@ -459,6 +736,7 @@ class Engine:
         self._act[slot] = True
         self._rem[slot] = req.max_new_tokens
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+        self._floor[slot] = floor
 
     # --------------------------------------------------------------- decode
     @torch.no_grad()
@@ -471,12 +749,11 @@ class Engine:
         history row ``_t``. Nothing is read back to the host, so a CUDA
         graph can hold it."""
         act = self._act
-        table = (torch.where(act[:, None], self.pages.table(), 0)
-                 if self.paged else None)
+        table, floor = self._step_table()
         logits, _, stats = registry.apply_decode(
             self.cfg, self.params, self._tok, self._store.cache,
             self._pos[:, None], collect_stats=self.collect_stats,
-            page_table=table, attn=self.attn_spec)
+            page_table=table, write_floor=floor, attn=self.attn_spec)
         last = logits[:, -1]
         nxt = torch.argmax(last, dim=-1)
         # per-slot tripwire: a non-finite logit row means this request's
@@ -496,36 +773,55 @@ class Engine:
         self._pos.copy_(torch.where(gone, 0, self._pos + 1))
         self._act.copy_(act & ~gone)
 
+    def _step_table(self):
+        """The decode's page table (parked slots' rows zeroed, so their
+        writes land in the scratch page) and write floors; (None, None)
+        in the dense layout."""
+        if not self.paged:
+            return None, None
+        return (torch.where(self._act[:, None], self.pages.table(), 0),
+                self._floor)
+
     def _step_once(self) -> None:
-        """One decode step: a replay of the captured graph (captured at
-        the first call) or, with ``cuda_graph`` off and on the CPU, the
-        body run eagerly. The engine's launch counts take the wrappers'
-        count of an eager step, and what the capture recorded per
-        replay."""
+        """One decode step (see ``_run``)."""
+        self._run("decode", self._decode_body, 1)
+
+    def _run(self, key, body: Callable[[], None], width: int) -> None:
+        """Run ``body``: a replay of graph ``key`` (captured at its first
+        run) or, with ``cuda_graph`` off and on the CPU, the body run
+        eagerly. The engine's launch counts take the wrappers' count of
+        an eager run, and what the capture recorded per replay."""
         if not self.cuda_graph:
             before = _launch_counts()
-            self._decode_body()
+            body()
             for m, n in _launch_counts().items():
                 self.metrics[m] += n - before[m]
             return
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
-        for m, n in self._graph_launches.items():
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(body, width)
+        graph, launches = self._graphs[key]
+        graph.replay()
+        for m, n in launches.items():
             self.metrics[m] += n
 
-    def _capture(self) -> None:
-        """Capture ``_decode_body`` into a CUDA graph. Every slot is parked
-        for the warm-up (an eager run on a side stream, which builds and
-        loads the kernels, creates the cuBLAS handles and loads lazy
-        modules before capture) so its pool writes land in the scratch
-        page, or, in the dense layout, at position 0 of every slot, which
-        is saved beside the state; then both are restored. The wrappers'
-        counts taken over the capture are what each replay launches."""
+    def _capture(self, body: Callable[[], None], width: int):
+        """Capture ``body`` (the decode step, or a speculative round that
+        writes ``width`` positions a slot) into a CUDA graph. Every slot
+        is parked for the warm-up (an eager run on a side stream, which
+        builds and loads the kernels, creates the cuBLAS handles and
+        loads lazy modules before capture) so its pool writes land in the
+        scratch page, or, in the dense layout, at positions
+        ``0..width-1`` of every slot, which are saved beside the state;
+        then both are restored. Returns the graph and the wrappers'
+        counts taken over the capture: what each replay launches. The
+        garbage collector is off during the capture: a dead engine left
+        in a reference cycle (a caller's closure over one of its methods,
+        say) still holds its graphs, and freeing one of them then would
+        invalidate the capture."""
         t0 = time.perf_counter()
         state = (self._tok, self._pos, self._act, self._rem, self._t)
         if not self.paged:
-            state += tuple(c[:, :, 0] for c in self.slots.cache.values())
+            state += tuple(c[:, :, :width] for c in self.slots.cache.values())
         saved = [x.clone() for x in state]
         for x in state[:4]:
             x.zero_()
@@ -533,7 +829,7 @@ class Engine:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                self._decode_body()
+                body()
             torch.cuda.current_stream(self.device).wait_stream(side)
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
@@ -541,28 +837,30 @@ class Engine:
             res0 = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
             before = _launch_counts()
-            with torch.cuda.graph(graph):
-                self._decode_body()
-            self._graph_launches = {m: n - before[m]
-                                    for m, n in _launch_counts().items()}
-            self.metrics["graph_allocated_bytes"] = \
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    body()
+            finally:
+                if collecting:
+                    gc.enable()
+            launches = {m: n - before[m]
+                        for m, n in _launch_counts().items()}
+            self.metrics["graph_allocated_bytes"] += \
                 torch.cuda.memory_allocated(self.device) - alloc0
-            self.metrics["graph_reserved_bytes"] = \
+            self.metrics["graph_reserved_bytes"] += \
                 torch.cuda.memory_reserved(self.device) - res0
         finally:
             for x, s in zip(state, saved):
                 x.copy_(s)
-        self._graph = graph
         torch.cuda.synchronize(self.device)
         self.metrics["graph_captures"] += 1
         self.metrics["graph_capture_s"] += time.perf_counter() - t0
+        return graph, launches
 
-    def _read_history(self, length: int):
-        """The one host sync of a horizon: its history rows as numpy
-        (int64 [length, 3, B]; fp32 stats [length, 3, L, B] or None)."""
-        bufs = [self._hist[:length]]
-        if self._hist_stats is not None:
-            bufs.append(self._hist_stats[:length])
+    def _read(self, bufs: List[torch.Tensor]) -> List[np.ndarray]:
+        """The one host sync of a horizon or round: ``bufs`` as numpy."""
         if self.device.type == "cuda":
             host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
                     for b in bufs]
@@ -570,7 +868,15 @@ class Engine:
                 h.copy_(b, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             bufs = host
-        out = [b.numpy() for b in bufs]
+        return [b.numpy() for b in bufs]
+
+    def _read_history(self, length: int):
+        """A horizon's history rows as numpy (int64 [length, 3, B]; fp32
+        stats [length, 3, L, B] or None), in one host sync."""
+        bufs = [self._hist[:length]]
+        if self._hist_stats is not None:
+            bufs.append(self._hist_stats[:length])
+        out = self._read(bufs)
         return out[0], (out[1] if len(out) > 1 else None)
 
     def _decode_horizon(self, length: int) -> None:
@@ -608,6 +914,170 @@ class Engine:
                         (req.eos_id is not None and tok == req.eos_id):
                     self._finish(slot)
 
+    # ---------------------------------------------------- speculative round
+    @torch.no_grad()
+    def _spec_body(self, k: int) -> None:
+        """One self-speculative round of width ``k`` on the device state
+        alone (the reference's ``_spec_round``); nothing is read back to
+        the host, so a CUDA graph can hold it.
+
+        Draft: ``k - 1`` decode steps under the draft profile propose
+        d_1..d_{k-1} (their staged K/V writes go through the normal,
+        floor-fenced write path). Verify: one ``k``-wide multi-query
+        decode over [last committed, d_1..d_{k-1}] re-scores every
+        position at full fidelity, rewrites their K/V exactly, and gives
+        the exact greedy token e_j per row. Accept: e_1..e_m commit,
+        where m - 1 is the longest prefix with d_j == e_j; EOS and the
+        budget cut commits as the horizon does; a slot whose verify
+        logits are not finite is faulted and commits nothing. The K of
+        rejected staged positions is poisoned. Writes the exact tokens
+        and commit mask to ``_hist`` rows 0..k-1, the fault mask to
+        ``_hist[0, 2]`` and the verify stats to ``_hist_stats[0]``, and
+        records the draft's and the verify's kernel launches. The two
+        parts run under the profiler ranges "spec_draft" and
+        "spec_verify" (``launch/profile_decode.py`` splits a round's
+        device time by them)."""
+        act, tok, pos = self._act, self._tok, self._pos
+        table, floor = self._step_table()
+        c0 = _launch_counts()
+        drafts = []
+        tok_i, pos_i = tok, pos
+        with torch.profiler.record_function("spec_draft"):
+            for _ in range(k - 1):
+                logits, _, _ = registry.apply_decode(
+                    self.cfg, self.params, tok_i, self._store.cache,
+                    pos_i[:, None], page_table=table, write_floor=floor,
+                    draft=self.draft_profile, attn=self.attn_spec)
+                tok_i = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                pos_i = pos_i + 1
+                drafts.append(tok_i)
+        c1 = _launch_counts()
+        ver_in = torch.cat([tok] + drafts, dim=1)               # [B, k]
+        steps = torch.arange(k, device=self.device)
+        with torch.profiler.record_function("spec_verify"):
+            logits, _, stats = registry.apply_decode(
+                self.cfg, self.params, ver_in, self._store.cache,
+                pos[:, None] + steps[None], collect_stats=self.collect_stats,
+                page_table=table, write_floor=floor, attn=self.attn_spec)
+        c2 = _launch_counts()
+        self.round_launches[k] = {
+            "draft": {m: c1[m] - c0[m] for m in c0},
+            "verify": {m: c2[m] - c1[m] for m in c0}}
+        exact = torch.argmax(logits, dim=-1)                     # [B, k]
+        fault = act & ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
+        # longest accepted prefix: drafts[:, j] proposed what the verify
+        # re-derived as exact[:, j]; the first mismatch still commits
+        # the exact token
+        agree = ver_in[:, 1:] == exact[:, :k - 1]
+        n_best = 1 + torch.cumprod(agree.long(), dim=1).sum(dim=1)
+        within = steps[None] < n_best[:, None]
+        eos = self._eos[:, None]
+        is_eos = (eos >= 0) & (exact == eos)
+        cut = (is_eos & within).long()
+        eos_before = torch.cumsum(cut, dim=1) - cut     # EOS strictly before
+        commit = (within & (eos_before == 0)
+                  & (steps[None] < self._rem[:, None]) & act[:, None]
+                  & ~fault[:, None])
+        n_commit = commit.sum(dim=1)
+        self._poison_rejected(table, floor, n_commit, k)
+        eos_hit = (is_eos & commit).any(dim=1)
+        rem = self._rem - n_commit
+        done = act & ~fault & (eos_hit | (rem <= 0))
+        live = act & ~done & ~fault
+        last = torch.gather(exact, 1, torch.clamp(n_commit - 1, min=0)[:, None])
+        self._hist[:k, 0].copy_(exact.T)
+        self._hist[:k, 1].copy_(commit.T.long())
+        self._hist[0, 2].copy_(fault.long())
+        if self._hist_stats is not None:
+            self._hist_stats[0].copy_(torch.stack(
+                [stats[n] for n in self._stat_names]))
+        self._rem.copy_(rem)
+        self._tok.copy_(torch.where(live[:, None], last, 0))
+        self._pos.copy_(torch.where(live, pos + n_commit, 0))
+        self._act.copy_(live)
+
+    def _poison_rejected(self, table, floor, n_commit, k: int) -> None:
+        """Rollback fence: poison the K of the rejected staged positions
+        ``pos + n_commit .. pos + k - 1`` of active slots, which the next
+        round rewrites before any read; a stale read would turn the
+        logits NaN (the tripwire) instead of giving a wrong token. K only
+        (masked V reads still multiply exact zeros). Unquantized pools
+        take NaN, quantized ones the int8 code -128 (stage 3 decodes it
+        to NaN, the scout views to 0). The fences are the writes' own
+        (``resolve_write_pages``): pages below the floor are never
+        touched. The shape is gather, then write back: lanes that are
+        not rejected rewrite what they read instead of going to the
+        scratch page, which must stay finite (a gated head's softmax
+        still reads it)."""
+        act, pos = self._act, self._pos
+        steps = torch.arange(k, device=self.device)
+        stale = pos[:, None] + steps[None]                       # [B, k]
+        reject = act[:, None] & (steps[None] >= n_commit[:, None])
+        if self.paged:
+            kp = self.pages.cache["k_pages"]                 # [L,P,ps,N,hd]
+            ps = self.pages.page_size
+            ent = resolve_write_pages(stale, table, ps, floor).long()
+            reject = reject & (ent != 0)     # never poison the scratch page
+            off = stale % ps
+            poison = POISON_CODE if kp.dtype == torch.int8 else float("nan")
+            cur = kp[:, ent, off]                            # [L,B,k,N,hd]
+            kp[:, ent, off] = torch.where(
+                reject[None, :, :, None, None],
+                torch.full_like(cur, poison), cur)
+            return
+        kc = self.slots.cache["k"]                           # [L,B,S,N,hd]
+        b = torch.arange(self.max_batch, device=self.device)[:, None]
+        cur = kc[:, b, stale]
+        kc[:, b, stale] = torch.where(reject[None, :, :, None, None],
+                                      torch.full_like(cur, float("nan")), cur)
+
+    def _spec_step(self, k: int) -> None:
+        """One speculative round of width ``k``, one read of its
+        history, then the host walk (the reference's ``_spec_step``):
+        emit each slot's commits in order, finish slots at EOS or budget,
+        abort faulted slots after the drain."""
+        t0 = time.perf_counter()
+        self._run(k, lambda: self._spec_body(k), k)
+        bufs = [self._hist[:k]]
+        if self._hist_stats is not None:
+            bufs.append(self._hist_stats[0])
+        out = self._read(bufs)
+        self.metrics["decode_s"] += time.perf_counter() - t0
+        toks, com = out[0][:, 0], out[0][:, 1] > 0             # [k, B]
+        fault = out[0][0, 2] > 0                                 # [B]
+        n_act = len(self._active)
+        self.metrics["spec_rounds"] += 1
+        self.metrics["draft_tokens"] += (k - 1) * n_act
+        # each active slot that did not fault commits >= 1 exact token;
+        # the commits beyond it are accepted draft proposals
+        self.metrics["accepted_tokens"] += \
+            int(com.sum()) - (n_act - int(fault.sum()))
+        self.metrics["decode_steps"] += int(com.any(axis=1).sum())
+        if len(out) > 1 and com.any():
+            # one verify sample per round, over the slots that decoded
+            self._record_stats(dict(zip(self._stat_names, out[1])),
+                               mask=com.any(axis=0))
+        for t in range(k):
+            if not com[t].any():
+                break
+            for slot in list(self._active):
+                if not com[t, slot]:
+                    continue
+                st = self._active[slot]
+                req = st["req"]
+                tok = int(toks[t, slot])
+                st["generated"].append(tok)
+                self.metrics["tokens_out"] += 1
+                if len(st["generated"]) >= req.max_new_tokens or \
+                        (req.eos_id is not None and tok == req.eos_id):
+                    self._finish(slot)
+        # a faulted slot committed nothing (the tripwire fires at the
+        # verify, before any accept): abort it after the drain
+        for slot in list(self._active):
+            if fault[slot]:
+                self._finish(slot, status="error",
+                             error="non-finite logits (per-slot tripwire)")
+
     def _finish(self, slot: int, *, status: str = "ok",
                 error: Optional[str] = None) -> None:
         st = self._active.pop(slot)
@@ -618,7 +1088,9 @@ class Engine:
         res.status, res.error = status, error
         # park the slot (the decode step has parked its device state
         # already): its table row is zeroed, so later decode writes of
-        # the parked slot land in the scratch page; a dense slot is cleared
+        # the parked slot land in the scratch page; a dense slot is
+        # cleared. Unref, not free: pages the prefix cache or another
+        # slot still holds survive the slot
         if self.paged:
             self.pages.free(slot)
         else:
@@ -627,6 +1099,7 @@ class Engine:
         self._pos[slot] = 0
         self._act[slot] = False
         self._rem[slot] = 0
+        self._floor[slot] = 0
         self._free.append(slot)
 
     # -------------------------------------------------------------- metrics
@@ -638,7 +1111,9 @@ class Engine:
                 "page_sparsity": 0.0, "stat_samples": 0, "page_samples": 0,
                 "fum_kernel_launches": 0, "block_kernel_launches": 0,
                 "graph_captures": 0, "graph_capture_s": 0.0,
-                "graph_allocated_bytes": 0, "graph_reserved_bytes": 0}
+                "graph_allocated_bytes": 0, "graph_reserved_bytes": 0,
+                "cow_copies": 0, "spec_rounds": 0, "draft_tokens": 0,
+                "accepted_tokens": 0}
 
     @staticmethod
     def _masked_mean(x, mask) -> float:
@@ -666,17 +1141,30 @@ class Engine:
 
     def resolved_backend(self, phase: str) -> str:
         """Name of the backend the registry resolves for a serving phase
-        ("prefill" | "decode"), from the same call constructor as
+        ("prefill" | "decode" | "draft" | "verify", the last two the
+        speculative round's), from the same call constructor as
         ``attn_apply``, so the report cannot drift from the dispatch."""
-        if phase not in ("prefill", "decode"):
-            raise ValueError(f"phase must be prefill or decode, got "
-                             f"{phase!r}")
-        decode = phase == "decode"
-        call = build_attn_call(self.cfg, mode=phase,
-                               paged=self.paged and decode, per_slot=decode,
-                               collect_stats=self.collect_stats,
-                               kv_scale=self.kv_scale)
+        if phase not in ("prefill", "decode", "draft", "verify"):
+            raise ValueError(f"phase must be prefill, decode, draft or "
+                             f"verify, got {phase!r}")
+        decode = phase != "prefill"
+        call = build_attn_call(
+            self.cfg, mode="decode" if decode else "prefill",
+            paged=self.paged and decode, per_slot=decode,
+            collect_stats=self.collect_stats,
+            draft=self.draft_profile if phase == "draft" else None,
+            verify=phase == "verify", kv_scale=self.kv_scale)
         return resolve_backend(call, self.attn_spec).name
+
+    def _stage3(self, backend: str) -> str:
+        """The stage-3 implementation a decode-like backend runs: its
+        kernel on the card, its plain version for CPU tensors; the FUM
+        kernel's scout view assumes the static grid, so absmax pools run
+        the plain PyTorch stage (paged_hdp_decode's)."""
+        if backend == "pallas_paged_decode" and self.kv_scale == "absmax":
+            backend = "paged_hdp_decode"
+        return _STAGE3_IMPL.get(backend, (backend,) * 2)[
+            self.device.type != "cuda"]
 
     def summary(self) -> Dict[str, Any]:
         m = dict(self.metrics)
@@ -697,14 +1185,19 @@ class Engine:
         m["cuda_graph"] = self.cuda_graph
         m["attn_backend_prefill"] = self.resolved_backend("prefill")
         m["attn_backend_decode"] = decode = self.resolved_backend("decode")
-        # the decode stage-3 implementation: the resolved backend's kernel
-        # on the card, its plain version for CPU tensors; the FUM kernel's
-        # scout view assumes the static grid, so absmax pools fall back
-        # to the plain PyTorch stage (paged_hdp_decode's)
-        stage3 = ("paged_hdp_decode" if decode == "pallas_paged_decode"
-                  and self.kv_scale == "absmax" else decode)
-        m["attn_decode_stage3"] = _STAGE3_IMPL.get(stage3, (stage3,) * 2)[
-            self.device.type != "cuda"]
+        m["attn_decode_stage3"] = self._stage3(decode)
+        m["spec_decode"] = self.spec
+        if self.spec:
+            m["draft_len"] = self.draft_len
+            m["acceptance_rate"] = (m["accepted_tokens"] / m["draft_tokens"]
+                                    if m["draft_tokens"] else 0.0)
+            m["attn_backend_draft"] = draft = self.resolved_backend("draft")
+            m["attn_backend_verify"] = verify = \
+                self.resolved_backend("verify")
+            m["attn_draft_stage3"] = self._stage3(draft)
+            m["attn_verify_stage3"] = self._stage3(verify)
+            m["spec_graphs"] = sum(k != "decode" for k in self._graphs)
+            m["round_launches"] = dict(self.round_launches)
         m["layout"] = "paged" if self.paged else "dense"
         m["kv_dtype"] = self.kv_dtype
         m["kv_scale"] = self.kv_scale
@@ -716,6 +1209,13 @@ class Engine:
             m["pages_peak"] = self.pages.peak_pages
             m["pages_in_use"] = self.pages.pages_in_use
             m["page_size"] = self.pages.page_size
+            m["prefix_cache"] = self.prefix is not None
+            if self.prefix is not None:
+                m["prefix_hits"] = self.prefix.hits
+                m["prefix_misses"] = self.prefix.misses
+                m["prefix_hit_tokens"] = self.prefix.hit_tokens
+                m["prefix_evictions"] = self.prefix.evictions
+                m["pages_cached"] = self.prefix.cached_pages
         else:
             m["cache_bytes"] = cache_bytes(self.slots.cache)
             m["cache_bytes_per_token"] = self.slots.bytes_per_token()

@@ -9,6 +9,11 @@ PyTorch counterpart of ``repro.serving.kv_cache``:
 * ``PagedKVCache`` — one shared page pool plus per-slot page tables.
   With HDP on the page size is HDP's ``block_k``, so cache pages
   coincide with the scout's pruning blocks (16 positions with HDP off).
+  Pages are refcounted (``allocator.PageAllocator``), so a slot's table
+  row may start with read-only prefix pages it shares with other slots
+  and the radix prefix cache (``first_owned`` marks where its own pages
+  begin); ``cow`` copies a shared page into an owned one, and
+  ``gather_prefix`` seeds a request cache from shared pages.
 
 Every update is made in place on the cache tensors, where the reference
 donates its buffers to a jitted call and receives the aliased result.
@@ -20,9 +25,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quant import (absmax_page_scale, encode_pool,
-                                    encode_pool_scaled, pool_int_bits,
-                                    pool_scale, scout_int_codes, to_fp8_e4m3)
+from repro_torch.core.quant import (POISON_CODE, absmax_page_scale,
+                                    encode_pool, encode_pool_scaled,
+                                    pool_int_bits, pool_scale,
+                                    scout_frac_codes, scout_int_codes,
+                                    to_fp8_e4m3)
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.serving.allocator import PageAllocator
@@ -93,14 +100,30 @@ class PagedKVCache:
     max|x| / 127 set when a page is inserted. With HDP off no scout runs:
     the pool grid is Q4 and pages hold 16 positions.
 
-    Page 0 is the reserved *scratch* page: bucket padding and parked
-    slots' decode writes land there, so it holds arbitrary but finite
-    values and is always masked. Pages are allocated per request for
-    ``prompt + max_new`` tokens; ownership lives in ``self.allocator``.
+    Page 0 is the reserved *scratch* page: bucket padding, parked
+    slots' decode writes and writes below a slot's write floor land
+    there, so it holds arbitrary but finite values and is always masked.
+    Pages are allocated per request for ``prompt + max_new`` tokens;
+    ownership lives in ``self.allocator``. ``num_pages`` overrides the
+    pool size (default: one full table per slot plus the scratch page).
+
+    ``draft_scout`` asks an unquantized pool with HDP on for the int8
+    quantized-fraction copy of K (``f_scout``), which the speculative
+    draft scores from; a quantized pool derives it from its codes, so
+    the flag allocates nothing there.
+
+    ``poison_freed`` (debug) poisons a page's K when its last owner lets
+    go, never while it is shared: NaN in an unquantized pool's
+    ``k_pages``, a NaN ``k_scale`` in a quantized one (NaN has no int8
+    code). A stale read of a freed page then turns the logits NaN.
+    ``assign`` revives a quantized page's scale when it re-enters a
+    table row.
     """
 
     def __init__(self, cfg, batch: int, max_len: int, device="cuda",
-                 kv_dtype: str = "int8", kv_scale: str = "grid"):
+                 kv_dtype: str = "int8", kv_scale: str = "grid",
+                 num_pages: Optional[int] = None,
+                 poison_freed: bool = False, draft_scout: bool = False):
         hdp = cfg.hdp
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
@@ -116,6 +139,7 @@ class PagedKVCache:
         self.kv_scale = kv_scale
         self.quantized = kv_dtype != "fp32"
         self.scout = hdp is not None and hdp.enabled
+        self.draft_scout = draft_scout and self.scout
         ps = hdp.block_k if self.scout else 16
         if self.scout and hdp.int_bits > 6:
             raise ValueError(
@@ -127,8 +151,10 @@ class PagedKVCache:
         self.page_size = ps
         self.device = torch.device(device)
         self.pages_per_slot = -(-max_len // ps)
-        # one full table per slot plus the scratch page
-        self.num_pages = 1 + batch * self.pages_per_slot
+        # by default one full table per slot plus the scratch page
+        self.num_pages = (1 + batch * self.pages_per_slot
+                          if num_pages is None else num_pages)
+        self.poison_freed = poison_freed
         self.int_bits = pool_int_bits(hdp)
         nL, N, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
         shape = (nL, self.num_pages, ps, N, hd)
@@ -153,8 +179,13 @@ class PagedKVCache:
             if self.scout:
                 self.cache["k_scout"] = torch.zeros(shape, dtype=torch.int8,
                                                     device=device)
-        self.allocator = PageAllocator(self.num_pages, reserved=1)
+            if self.draft_scout:
+                self.cache["f_scout"] = torch.zeros(shape, dtype=torch.int8,
+                                                    device=device)
+        self.allocator = PageAllocator(self.num_pages, reserved=1,
+                                       on_free=self._on_free)
         self._slot_pages: Dict[int, List[int]] = {}
+        self._slot_floor: Dict[int, int] = {}
         self._table = np.zeros((batch, self.pages_per_slot), np.int32)
         # one static device table, rewritten in place row by row: a
         # captured decode graph reads it at a fixed address
@@ -176,9 +207,19 @@ class PagedKVCache:
     def _upload_row(self, slot: int) -> None:
         self._table_dev[slot].copy_(torch.from_numpy(self._table[slot]))
 
-    def assign(self, slot: int, pages: List[int]) -> None:
+    def slot_pages(self, slot: int) -> List[int]:
+        return list(self._slot_pages.get(slot, []))
+
+    def first_owned(self, slot: int) -> int:
+        """Index of the slot's first owned (writable) page in its table
+        row; the entries before it are shared read-only prefix pages."""
+        return self._slot_floor.get(slot, 0)
+
+    def assign(self, slot: int, pages: List[int],
+               first_owned: int = 0) -> None:
         """Install ``pages`` (each holding one ref owned by this slot) as
-        the slot's table row."""
+        the slot's table row; entries before ``first_owned`` are shared
+        prefix pages that the decode's write floor fences."""
         if slot in self._slot_pages:
             self.free(slot)
         if len(pages) > self.pages_per_slot:
@@ -186,10 +227,17 @@ class PagedKVCache:
                 f"slot {slot}: {len(pages)} pages exceed table width "
                 f"{self.pages_per_slot}")
         self._slot_pages[slot] = list(pages)
+        self._slot_floor[slot] = first_owned
         self._table[slot, :] = 0
         self._table[slot, :len(pages)] = pages
         self._upload_row(slot)
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        if self.poison_freed and self.quantized and pages:
+            # a freed quantized page's poison is its NaN scale: revive it
+            # as the page re-enters a row (insert and COW rewrite it too,
+            # but a page first touched by a decode write gets codes only)
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            self.cache["k_scale"][:, idx] = pool_scale(self.int_bits)
 
     def alloc(self, slot: int, n_tokens: int) -> List[int]:
         """Reserve fresh pages for ``n_tokens`` cache positions of a slot."""
@@ -204,19 +252,40 @@ class PagedKVCache:
         return pages
 
     def free(self, slot: int) -> None:
-        """Release the slot's page refs and zero its table row."""
+        """Release the slot's page refs (a page returns to the free list
+        only when unshared) and zero its table row."""
         self.allocator.unref(self._slot_pages.pop(slot, []))
+        self._slot_floor.pop(slot, None)
         self._table[slot, :] = 0
         self._upload_row(slot)
 
+    def _on_free(self, pages: List[int]) -> None:
+        if self.poison_freed and pages:
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            if self.quantized:
+                self.cache["k_scale"][:, idx] = float("nan")
+            else:
+                self.cache["k_pages"][:, idx] = float("nan")
+
+    def poison_view(self) -> np.ndarray:
+        """Poison marks of K, shaped like ``k_pages``: NaN in an
+        unquantized pool, the -128 code or a NaN page scale in a
+        quantized one."""
+        kp = self.cache["k_pages"]
+        if not self.quantized:
+            return torch.isnan(kp).cpu().numpy()
+        scl = torch.isnan(self.cache["k_scale"])               # [L, P, N]
+        return ((kp == POISON_CODE) | scl[:, :, None, :, None]).cpu().numpy()
+
     # -------------------------------------------------------------- insert
     def insert(self, one_cache: Dict[str, torch.Tensor], slot: int,
-               row: int = 0) -> None:
+               row: int = 0, first_page: int = 0) -> None:
         """Scatter row ``row`` of a dense request cache ({"k","v"}
         [L,B,S,N,hd]) into ``slot``'s pages, in place, encoded in the
         pool's format (scales are rewritten with the codes).
 
-        Cache pages past the slot's allocation (bucket padding) redirect
+        Cache pages past the slot's allocation (bucket padding) and
+        before ``first_page`` (a shared prefix, already resident) redirect
         to the scratch page. On the grid the codes are the exact encode
         of the request cache's values, which prefill has already snapped
         to the pool grid."""
@@ -228,7 +297,7 @@ class PagedKVCache:
         npg = min(-(-S // ps), self.pages_per_slot)
         idx = np.zeros(npg, np.int64)
         hi = min(len(pages), npg)
-        idx[:hi] = pages[:hi]
+        idx[first_page:hi] = pages[first_page:hi]
         pad = npg * ps - S
         if pad > 0:
             k = torch.cat([k, k.new_zeros((nL, pad, N, hd))], dim=1)
@@ -240,10 +309,13 @@ class PagedKVCache:
         if not self.quantized:
             c["k_pages"][:, dst] = kp.to(c["k_pages"].dtype)
             c["v_pages"][:, dst] = vp.to(c["v_pages"].dtype)
+            hdp = self.cfg.hdp
             if self.scout:
-                hdp = self.cfg.hdp
                 c["k_scout"][:, dst] = scout_int_codes(kp, hdp.int_bits,
                                                        hdp.frac_bits)
+            if self.draft_scout:
+                c["f_scout"][:, dst] = scout_frac_codes(kp, hdp.int_bits,
+                                                        hdp.frac_bits)
             return
         if self.kv_scale == "absmax":
             ks = absmax_page_scale(kp, self.int_bits)           # [L,npg,N]
@@ -265,6 +337,46 @@ class PagedKVCache:
         c["v_pages"][:, dst] = vq
         c["k_scale"][:, dst] = ks
         c["v_scale"][:, dst] = vs
+
+    # ----------------------------------------------------- prefix sharing
+    def cow(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate page ``src`` into the owned page
+        ``dst`` in every pool leaf (codes, scales, scout copies)."""
+        for leaf in self.cache.values():
+            leaf[:, dst] = leaf[:, src]
+
+    def gather_prefix(self, pages: List[int]) -> Dict[str, torch.Tensor]:
+        """A request cache {"k","v"} [L,1,max_len,N,hd] in the model's
+        dtype seeded with the shared prefix ``pages``, which the suffix's
+        chunked prefill then appends to. Positions past the prefix read
+        the scratch page (finite, and masked by every attention path). A
+        quantized pool dequantizes its codes (codes x page scale), which
+        gives exactly the values a cold prefill wrote: grid codes and
+        fp8 V are exact in bf16. (The reference returns fp32 here, so on
+        a bf16 model its hits round p apart from its cold prefill:
+        ``tests/test_torch_prefix_bf16.py``.)"""
+        idx = np.zeros(self.pages_per_slot, np.int64)
+        idx[:len(pages)] = pages
+        idx = torch.from_numpy(idx).to(self.device)
+        dt = L.torch_dtype(self.cfg.dtype)
+        nL, _, ps, N, hd = self.cache["k_pages"].shape
+
+        def to_cache(name, scale):
+            g = self.cache[name][:, idx]                    # [L,nP,ps,N,hd]
+            if scale is not None:
+                g = g.to(torch.float32) * \
+                    self.cache[scale][:, idx][:, :, None, :, None]
+            g = g.reshape(nL, self.pages_per_slot * ps, N, hd)
+            return g[:, None, :self.max_len].to(dt).contiguous()
+
+        if self.quantized:
+            # prefix pages are live (never freed-poisoned) and hold no
+            # rolled-back positions (only pages before the decode write
+            # frontier are cached), so codes x scale is exact here
+            return {"k": to_cache("k_pages", "k_scale"),
+                    "v": to_cache("v_pages", "v_scale")}
+        return {"k": to_cache("k_pages", None),
+                "v": to_cache("v_pages", None)}
 
     # ------------------------------------------------------------ metrics
     def _page_bytes(self) -> int:

@@ -257,10 +257,10 @@ def test_replays_count_recorded_launches(weights, h1):
     count only the calls that reach a wrapper (a replay never does)."""
     eng = Engine(_cfg(), weights[1], device="cpu", decode_horizon=4, **KW)
     eng.cuda_graph = True
-    eng._graph = _EagerGraph(eng._decode_body)
     n_layers = _cfg().n_layers
-    eng._graph_launches = {"fum_kernel_launches": n_layers,
-                           "block_kernel_launches": 0}
+    eng._graphs["decode"] = (_EagerGraph(eng._decode_body),
+                             {"fum_kernel_launches": n_layers,
+                              "block_kernel_launches": 0})
     before = dict(hdp_paged_fum_decode.launches_by_path)
     n0 = hdp_paged_fum_decode.launches
     for uid, p in enumerate(PROMPTS):

@@ -187,3 +187,15 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
     assert tuple(before) == PATHS == ("single", "split")
     with pytest.raises(ValueError, match="splits"):
         hdp_paged_fum_decode(*args, **kw, splits=0)
+
+
+def test_cpu_calls_count_no_run_on_the_card():
+    # the kernel's own run counter lives on the card: a CPU call (the
+    # plain version) neither makes one nor adds to it
+    d = inputs(3, 3, True)
+    args, kw = torch_args(d)
+    made = dict(hdp_paged_fum_decode.runs._on)
+    hdp_paged_fum_decode(*args, **kw)
+    assert hdp_paged_fum_decode.runs._on == made
+    assert hdp_paged_fum_decode.runs.read() == sum(
+        int(t.item()) for t in made.values())

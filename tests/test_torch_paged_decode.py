@@ -185,7 +185,7 @@ def _pipeline_inputs(seed, head_pruning):
 def test_scout_and_fetch_list_exact(monkeypatch, head_pruning):
     q, kc, vc, scl, table, q_pos, k_pos, hdp, jhdp = _pipeline_inputs(
         11, head_pruning)
-    _, _, keep, bvalid, _, theta_head, head_kept, fetched = _paged_scout(
+    *_, keep, bvalid, _, theta_head, head_kept, fetched = _paged_scout(
         _t(q), _t(kc), _t(table), q_pos=_t(q_pos), k_pos=_t(k_pos), hdp=hdp)
 
     # the reference's stage 1 + 2, as test_kv_quant reconstructs it

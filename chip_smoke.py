@@ -15,7 +15,9 @@ never JAX nor the JAX package. Phases:
    decode on int8, fp32, fp8-V (int8 K, fp8 e4m3 V) and bf16 pools (the
    last two also at granite-8b's shape), at Sq 1, 3 and 8 (the verify
    shape; 48 rows split over two row blocks), split across blocks and in
-   one pass, each with its poison checks;
+   one pass, each with its poison checks; on the int8 pool also at
+   olmoe-1b-7b's decode and verify shapes (MHA: G 1, one pass by
+   ``fum_splits``) and at G 5 and G 8 (llama4-scout, chameleon-34b);
    the integer scout on both of its paths (theta, keep and theta_head
    bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
    bad-input NaN); the block-sparse FUM attention on the
@@ -23,6 +25,7 @@ never JAX nor the JAX package. Phases:
    = 1e-4 with fp32 V, 2e-2 with bf16 V) on both of their paths, the
    tensor-core path also at S 4000, hd 64, non-causal, with a gated head
    and with a q tile that lists no block (each call's path asserted);
+   scout, block and flash also at olmoe's 16 heads (MHA);
    the no-read poison checks;
 4. aligned prefill — qwen2-1.5b at full width (bf16, seeded weights),
    B 2, S 4096, through ``registry.apply_prefill(..., None)``: HDP on
@@ -76,6 +79,22 @@ never JAX nor the JAX package. Phases:
    at that row's position; the bf16 ("fp32") pool with its fraction
    copy cut to 8 layers, spec equal to horizon 1; the reduced config
    with both features, card (graphed) vs CPU;
+5e. the moe and vlm model stack: olmoe-1b-7b at full width and depth (16
+   layers, 64 experts top-8, qk-norm, 16/16 heads, 13.8 GB of bf16
+   weights): its aligned prefill (B 1, S 4096, the MoE's grouped
+   branch) through the scout and block kernels and through flash (16
+   launches each, tensor-core path, each held against its plain version
+   at the path's inputs); 8 requests of 200-2,000 prompt tokens, 32 new,
+   on the int8 grid pool, eagerly and graphed at horizons 1 and 4 with
+   identical tokens and 16 FUM runs a decode step on the card (one pass:
+   B*N = 128 blocks), the kernel against its plain version at the
+   path's busiest call; speculative decode at draft_len 4 graphed and
+   eager (identical tokens, acceptance printed); the prefix traffic hot
+   and cold. The MoE drops tokens past an expert's capacity, so spec
+   against greedy and hot against cold are printed, not asserted, at
+   full width. llama4-scout, chameleon-34b and nemotron-4-15b at full
+   width cut to 4 layers, eager and graphed; the four reduced configs
+   card vs CPU;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -84,7 +103,11 @@ never JAX nor the JAX package. Phases:
    scout's dp4a kernel and the FUM decode in one pass (the earlier
    designs) at the same inputs as their successors; the FUM decode at
    the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
-   and bf16 pool variants at the int8 timing case's values.
+   and bf16 pool variants at the int8 timing case's values; the FUM
+   decode at olmoe-1b-7b's decode shape.
+
+Each phase's wall seconds are printed as it ends and together before
+the kernels line.
 
 Prints the per-kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -114,6 +137,8 @@ N_LAYERS_QWEN = 28
 SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_scout_tc", "hdp_block_attn",
            "hdp_block_attn_tc", "flash_attention", "flash_attention_tc")
 PREFILL_B, PREFILL_S = 2, 4096
+#: olmoe-1b-7b's aligned prefill in phase 5e: MHA, 16 heads, B 1
+MHA_PREFILL = (1, 16, PREFILL_S, 128)
 #: why a kernel has no library_ms: no single PyTorch call computes it
 NO_LIBRARY_CALL = {
     "hdp_paged_fum_decode": "no PyTorch call attends over a paged pool's "
@@ -181,19 +206,40 @@ FUM_FORMATS = ("int8", "fp32", "fp8_v", "bf16")
 #: to bf16 before p.V on a bf16 pool, relative to each block's running
 #: max when the pages are split, so the roundings differ there
 FUM_TOL = {"int8": ATOL, "fp32": ATOL, "fp8_v": ATOL, "bf16": TOL_BF16}
+#: the FUM kernel's case at olmoe-1b-7b's decode shape (MHA: G 1), with
+#: the unit-RMS queries and keys of its qk-norm. On the uniform +-127
+#: codes the scores reach ~60, and fp32 sum order alone moves outputs by
+#: up to 3e-4: the kernel and the plain version each differ that much
+#: from the plain version in float64 at every shape of this phase (the
+#: "fp32 sum order" lines), and agree with each other only while both
+#: sum in one order; at G*Sq = 1 cuBLAS sums the plain version's scores
+#: in another
+OLMOE_FUM = dict(B=8, N=16, G=1, hd=128, ps=128, nP=16, fmt="int8", live=0.5,
+                 unit=True)
+OLMOE_FUM_LABEL = "olmoe B8N16G1"
 
 
-def make_case(torch, *, B, N, G, Sq, hd, ps, nP, fmt, live, seed):
+def make_case(torch, *, B, N, G, Sq, hd, ps, nP, fmt, live, seed,
+              unit=False):
     """Paged FUM decode inputs the way the serving path builds them: a
     pool in format ``fmt`` whose rows own distinct pages, a keep mask,
-    and the fetch list compressed by the model's own ``_fetch_list``."""
-    from repro_torch.core.quant import pool_scale, quantize_fixed, to_fp8_e4m3
+    and the fetch list compressed by the model's own ``_fetch_list``.
+    Queries 2 x N(0, 1) on the Q4.12 grid and int8 codes uniform over
+    +-127, or with ``unit`` (int8 pools) the values a qk-norm model
+    stores: unit-RMS queries, K and V encoded onto the pool grid."""
+    from repro_torch.core.quant import (encode_pool, pool_scale,
+                                        quantize_fixed, to_fp8_e4m3)
     from repro_torch.models.attention import _fetch_list
     g = torch.Generator().manual_seed(seed)
     P = 1 + B * nP
     Sk = nP * ps
-    qq = quantize_fixed(2.0 * torch.randn(B, N, G, Sq, hd, generator=g))
-    if fmt in ("int8", "fp8_v"):
+    qq = quantize_fixed((1.0 if unit else 2.0)
+                        * torch.randn(B, N, G, Sq, hd, generator=g))
+    if unit:
+        kp, vp = (encode_pool(torch.randn(P, ps, N, hd, generator=g))
+                  for _ in range(2))
+        ks = vs = torch.full((P, N), pool_scale(4))
+    elif fmt in ("int8", "fp8_v"):
         kp = torch.randint(-127, 128, (P, ps, N, hd), generator=g,
                            dtype=torch.int8)
         vp = torch.randint(-127, 128, (P, ps, N, hd), generator=g,
@@ -265,10 +311,12 @@ def phase_kernels(torch):
     """The FUM decode kernel on every pool format (int8, fp32, fp8 V,
     bf16), split across blocks (``fum_splits``' S, and S = 3) and in one
     pass (S = 1), against its plain version on every case, with the two
-    poison checks in each mode. Returns (worst max |err| per mode on the
-    int8 and fp32 pools, and per format of the split mode; the qwen2
-    int8 case)."""
-    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    poison checks in each mode; on the int8 pool also at the moe and vlm
+    configs' head groups. Returns (worst max |err| per mode on the int8
+    and fp32 pools, per format of the split mode and on olmoe's cases;
+    the qwen2 int8 case; olmoe's Sq-1 case)."""
+    from repro_torch.kernels.hdp_paged_decode import (fum_splits,
+                                                      hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     cases = []
     for fmt in FUM_FORMATS:
@@ -285,15 +333,30 @@ def phase_kernels(torch):
             cases.append((f"granite B8N8G4Sq1hd128ps128 {fmt}",
                           dict(B=8, N=8, G=4, Sq=1, hd=128, ps=128, nP=33,
                                fmt=fmt, live=0.3, seed=9)))
-    worst, main_case = {"split": 0.0, "single": 0.0}, None
+    # the moe and vlm configs' decode and verify shapes on the int8 pool:
+    # olmoe is MHA (G 1; B*N = 128 blocks, so fum_splits gives one pass),
+    # llama4-scout G 5, chameleon G 8
+    for Sq in (1, 4):
+        cases.append((f"{OLMOE_FUM_LABEL}Sq{Sq}hd128ps128 int8",
+                      dict(OLMOE_FUM, Sq=Sq, seed=30 + Sq)))
+    for name, G in (("llama4-scout", 5), ("chameleon", 8)):
+        cases.append((f"{name} B8N8G{G}Sq1hd128ps128 int8",
+                      dict(B=8, N=8, G=G, Sq=1, hd=128, ps=128, nP=16,
+                           fmt="int8", live=0.5, seed=40 + G)))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, main_case, olmoe_case = {"split": 0.0, "single": 0.0}, None, None
     worst.update({f: 0.0 for f in FUM_FORMATS})
     for label, kw in cases:
         c = to_dev(make_case(torch, **kw), "cuda")
         args, kws = kernel_args(c)
         ref = hdp_paged_fum_decode_ref(*args, **kws)
         tol = FUM_TOL[kw["fmt"]]
-        for mode, splits in (("split", None), ("split", 3), ("single", 1)):
-            tag = f"{label} [{mode}, S={splits or 'fum_splits'}]"
+        if kw["fmt"] == "int8" and kw["hd"] == 128:
+            fp32_sum_order(torch, label, args, kws, ref)
+        auto = fum_splits(kw["B"], kw["N"], c["page_ids"].shape[1], n_sm)
+        for mode, splits in (("split" if auto > 1 else "single", None),
+                             ("split", 3), ("single", 1)):
+            tag = f"{label} [{mode}, S={splits or f'fum_splits={auto}'}]"
             fmt0 = hdp_paged_fum_decode.launches_by_format[kw["fmt"]]
             out, ran = on_path(tag, hdp_paged_fum_decode,
                                lambda: hdp_paged_fum_decode(
@@ -339,9 +402,37 @@ def phase_kernels(torch):
                 worst[mode] = max(worst[mode], err)
             if mode == "split":
                 worst[kw["fmt"]] = max(worst[kw["fmt"]], err)
+            if label.startswith(OLMOE_FUM_LABEL):
+                worst["olmoe"] = max(worst.get("olmoe", 0.0), err)
         if label.startswith("qwen2 B8N2G6Sq1") and kw["fmt"] == "int8":
             main_case = c
-    return worst, main_case
+        if label.startswith(f"{OLMOE_FUM_LABEL}Sq1"):
+            olmoe_case = c
+    # why olmoe's cases carry unit-RMS values: its shape with the
+    # uniform codes above (measured, not asserted)
+    c = to_dev(make_case(torch, **dict(OLMOE_FUM, Sq=1, seed=31,
+                                       unit=False)), "cuda")
+    args, kws = kernel_args(c)
+    fp32_sum_order(torch, f"{OLMOE_FUM_LABEL}Sq1 with uniform +-127 codes",
+                   args, kws, hdp_paged_fum_decode_ref(*args, **kws))
+    return worst, main_case, olmoe_case
+
+
+def fp32_sum_order(torch, label, args, kws, ref):
+    """Logs how far fp32 sum order moves the FUM outputs of a case: the
+    kernel's and the plain version's max |distance| from the plain
+    version evaluated in float64, and from each other."""
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
+    exact = hdp_paged_fum_decode_ref(args[0].double(), *args[1:], **kws,
+                                     dtype=torch.float64)
+    out = hdp_paged_fum_decode(*args, **kws)
+    torch.cuda.synchronize()
+    dist = lambda a, b: (a.double() - b.double()).abs().max().item()
+    log(f"[kernels] {label}: fp32 sum order: max |kernel - plain in "
+        f"float64| {dist(out, exact):.3e}, |plain - plain in float64| "
+        f"{dist(ref, exact):.3e}, |kernel - plain| {dist(out, ref):.3e} "
+        f"(max |output| {exact.abs().max().item():.3e})")
 
 
 # ----------------------------------------------- phase 3: the new kernels
@@ -563,6 +654,7 @@ def phase_new_kernels(torch):
                    for causal in (True, False)]
     scout_cases += [((PREFILL_B, 12, PREFILL_S, 128), (128, 128), rho, True)
                     for rho in (0.5, -0.5)]
+    scout_cases += [(MHA_PREFILL, (128, 128), 0.5, True)]
     scout_cases += [((1, 3, 300, 128), (128, 128), rho, causal)
                     for rho in (0.5, -0.5) for causal in (True, False)]
     scout_cases += [((1, 2, 384, 128), (64, 128), -0.5, True),
@@ -596,8 +688,9 @@ def phase_new_kernels(torch):
                         block_k=128, causal=causal)
     for path in ("tensor_core", "dp4a"):
         check_scout_bad_input(torch, path)
-    for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
-                                              128), (128, 128))]:
+    for (B, H, S, hd), (bq, bk) in small + [
+            ((PREFILL_B, 12, PREFILL_S, 128), (128, 128)),
+            (MHA_PREFILL, (128, 128))]:
         for v_bf16 in (False, True):
             c = block_case(torch, B=B, H=H, S=S, hd=hd, bq=bq, bk=bk,
                            v_bf16=v_bf16, seed=11, gate=H > 1)
@@ -607,8 +700,9 @@ def phase_new_kernels(torch):
     check_block(torch, "hdp_block_sparse_attention decode route "
                 "[8,12,1,128] x [8,12,1152,128] blocks 8x128",
                 decode_route_case(torch, 21), path="tile")
-    for (B, H, S, hd), (bq, bk) in small + [((PREFILL_B, 12, PREFILL_S,
-                                              128), (128, 128))]:
+    for (B, H, S, hd), (bq, bk) in small + [
+            ((PREFILL_B, 12, PREFILL_S, 128), (128, 128)),
+            (MHA_PREFILL, (128, 128))]:
         for dt in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 if S == PREFILL_S and (dt == torch.float32 or not causal):
@@ -698,20 +792,18 @@ def _resolved(cfg, **kw):
     return resolve_backend(build_attn_call(cfg, **kw)).name
 
 
-def phase_aligned_prefill(torch, cfg, params):
-    """qwen2-1.5b at full width, B 2, S 4096: HDP on through the scout and
-    block kernels, HDP off through flash, each launched once per layer;
-    kernel vs plain at the path's own inputs; the reduced config's
-    aligned-prefill logits on the card vs the CPU."""
-    import numpy as np
+def aligned_prefill(torch, cfg, params, toks, label):
+    """``registry.apply_prefill(..., None)`` on ``toks``, HDP on (the
+    scout and block kernels) and off (flash), each launched once per
+    layer on its tensor-core path, each kernel's inputs recorded (the
+    scout's and flash's last call, the block call that kept the most
+    blocks). Returns (launches per kernel, recorded calls)."""
     import repro_torch.kernels.ops as ops
-    from repro_torch.configs import reduced
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.hdp_scout import hdp_scout
     from repro_torch.models import registry
-    toks = torch.from_numpy(np.random.default_rng(5).integers(
-        1, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    B, S = toks.shape
     out = {}
     rec = {"scout": Recorder(hdp_scout),
            "block": Recorder(hdp_block_sparse_attention,
@@ -725,7 +817,8 @@ def phase_aligned_prefill(torch, cfg, params):
             backend = _resolved(c, mode="prefill", self_aligned=True)
             check(backend == ("pallas_hdp_block" if hdp_on else
                               "pallas_flash"),
-                  f"aligned prefill (HDP {hdp_on}) resolved to {backend}")
+                  f"{label} aligned prefill (HDP {hdp_on}) resolved to "
+                  f"{backend}")
             torch.cuda.synchronize()
             zero_launches()
             t0 = time.perf_counter()
@@ -738,29 +831,29 @@ def phase_aligned_prefill(torch, cfg, params):
                      hdp_block_sparse_attention.launches,
                  "flash_attention": flash_attention.launches}
             check(cache is None and tuple(logits.shape) ==
-                  (PREFILL_B, 1, cfg.vocab_size)
+                  (B, 1, cfg.vocab_size)
                   and bool(torch.isfinite(logits).all()),
-                  f"aligned prefill (HDP {hdp_on}): bad logits")
-            want = ({"hdp_scout": N_LAYERS_QWEN,
-                     "hdp_block_sparse_attention": N_LAYERS_QWEN,
+                  f"{label} aligned prefill (HDP {hdp_on}): bad logits")
+            L = cfg.n_layers
+            want = ({"hdp_scout": L, "hdp_block_sparse_attention": L,
                      "flash_attention": 0} if hdp_on else
                     {"hdp_scout": 0, "hdp_block_sparse_attention": 0,
-                     "flash_attention": N_LAYERS_QWEN})
-            check(n == want, f"aligned prefill (HDP {hdp_on}) launches {n}, "
-                  f"expected {want}")
+                     "flash_attention": L})
+            check(n == want, f"{label} aligned prefill (HDP {hdp_on}) "
+                  f"launches {n}, expected {want}")
             tc = {k: f.launches_by_path["tensor_core"] for k, f in (
                 ("hdp_scout", hdp_scout),
                 ("hdp_block_sparse_attention", hdp_block_sparse_attention),
                 ("flash_attention", flash_attention))}
             check(all(tc[k] == want[k] for k in tc),
-                  f"aligned prefill (HDP {hdp_on}): tensor-core launches {tc},"
-                  f" expected every launch of {want}")
+                  f"{label} aligned prefill (HDP {hdp_on}): tensor-core "
+                  f"launches {tc}, expected every launch of {want}")
             msg = ""
             if hdp_on:
                 msg = (f", block/head sparsity "
                        f"{st['block_sparsity'].mean().item():.4f}/"
                        f"{st['head_sparsity'].mean().item():.4f}")
-            log(f"[prefill] qwen2-1.5b B{PREFILL_B} S{PREFILL_S} HDP "
+            log(f"[prefill] {label} B{B} S{S} HDP "
                 f"{'on' if hdp_on else 'off'} -> {backend}: {wall:.3f} s, "
                 f"launches {n}, on the tensor-core path {tc}{msg}")
             out.update({k: v for k, v in n.items() if v})
@@ -768,23 +861,45 @@ def phase_aligned_prefill(torch, cfg, params):
         ops.hdp_scout = hdp_scout
         ops.hdp_block_sparse_attention = hdp_block_sparse_attention
         ops.flash_attention = flash_attention
-    calls = {k: r.best for k, r in rec.items()}
-    # the kernels against their plain versions at the path's own inputs
+    return out, {k: r.best for k, r in rec.items()}
+
+
+def check_prefill_calls(torch, calls, label):
+    """The scout, block and flash kernels against their plain versions at
+    the aligned prefill's own recorded inputs, on the tensor-core path."""
     (iq, ik), kw = calls["scout"]
-    check_scout(torch, "hdp_scout at the path's last call", iq, ik,
+    check_scout(torch, f"hdp_scout at {label}'s last call", iq, ik,
                 path="tensor_core", **kw)
-    check_scout(torch, "hdp_scout, the dp4a kernel, at the path's last call",
-                iq, ik, path="dp4a", force="dp4a", **kw)
     args, kw = calls["block"]
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **{"kv_len": None, "score_scale": None, **kw})
     check_block(
-        torch, f"hdp_block_sparse_attention at the path's call that kept "
+        torch, f"hdp_block_sparse_attention at {label}'s call that kept "
         f"the most blocks ({live_blocks(args)})", c, path="tensor_core")
     (q, k, v), kw = calls["flash"]
     check_flash(
-        torch, "flash_attention at the path's last call", q, k, v,
+        torch, f"flash_attention at {label}'s last call", q, k, v,
         kw["causal"], kw["block_q"], kw["block_k"], path="tensor_core")
+
+
+def phase_aligned_prefill(torch, cfg, params):
+    """qwen2-1.5b at full width, B 2, S 4096: HDP on through the scout and
+    block kernels, HDP off through flash, each launched once per layer;
+    kernel vs plain at the path's own inputs; the reduced config's
+    aligned-prefill logits on the card vs the CPU."""
+    import numpy as np
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.models import registry
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    out, calls = aligned_prefill(torch, cfg, params, toks, "qwen2-1.5b")
+    check_prefill_calls(torch, calls, "the path")
+    (iq, ik), kw = calls["scout"]
+    check_scout(torch, "hdp_scout, the dp4a kernel, at the path's last call",
+                iq, ik, path="dp4a", force="dp4a", **kw)
 
     # the reduced config's aligned prefill: card (kernels) vs CPU (plain),
     # in fp32 (atol 1e-4) and in bf16, where the block kernel's fp32
@@ -1674,6 +1789,292 @@ def phase_window(torch):
         f"prompts {[len(p) for p in sp]}): card tokens (graphed) == CPU")
 
 
+# ----------------------------------- phase 5e: the moe and vlm model stack
+N_LAYERS_OLMOE = 16
+OLMOE_KW = dict(max_batch=8, max_len=2048 + 32,
+                prefill_buckets=(256, 512, 1024, 2048), collect_stats=True)
+#: the configs served at full width cut to this depth, with their shapes
+#: (layers, d, heads, kv heads, hd, d_ff, vocab, experts, active, shared)
+CUT_LAYERS = 4
+CUT_CONFIGS = {
+    "llama4-scout-17b-a16e": (48, 5120, 40, 8, 128, 8192, 202048, 16, 1, 1),
+    "chameleon-34b": (48, 8192, 64, 8, 128, 22016, 65536, 0, 0, 0),
+    "nemotron-4-15b": (32, 6144, 48, 8, 128, 24576, 256000, 0, 0, 0),
+}
+
+
+def _shape(cfg):
+    return (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.d_ff, cfg.vocab_size, cfg.n_experts, cfg.n_experts_active,
+            cfg.n_shared_experts)
+
+
+def _weights(torch, cfg, label):
+    """Seeded bf16 weights of ``cfg`` built on the card, their size logged."""
+    from repro_torch.models import registry
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(params))
+    log(f"[moe] {label}: bf16 weights {cfg.param_count() / 1e9:.3f} B "
+        f"params ({registry.param_count(cfg, active_only=True) / 1e9:.3f} B "
+        "active), "
+        f"{nbytes / 1e9:.2f} GB on the card, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, nbytes
+
+
+def _check_spec_runs(s, runs, n_layers, label, graphed):
+    """A speculative serve launches the FUM kernel ``n_layers`` times per
+    verify and never in a draft step; the kernel's own count on the card
+    is that per round plus, graphed, one warm-up round per capture."""
+    rl = s["round_launches"]
+    check(all(v["draft"]["fum_kernel_launches"] == 0
+              and v["verify"]["fum_kernel_launches"] == n_layers
+              for v in rl.values())
+          and s["fum_kernel_launches"] == n_layers * s["spec_rounds"] > 0,
+          f"{label}: FUM launches per round part {rl}, "
+          f"{s['fum_kernel_launches']} over {s['spec_rounds']} rounds; "
+          f"expected {n_layers} a verify and none in the draft steps")
+    want = n_layers * (s["spec_rounds"]
+                       + (s["graph_captures"] if graphed else 0))
+    check(runs["fum"] == want and runs["block"] == 0,
+          f"{label}: {runs} kernel runs on the card, expected {want} FUM "
+          f"runs ({n_layers} x ({s['spec_rounds']} rounds"
+          + (f" + {s['graph_captures']} warm-up rounds)" if graphed else ")")
+          + " and no block tile run")
+    return want
+
+
+def phase_moe(torch):
+    """olmoe-1b-7b at full width and depth (64 experts top-8, qk-norm,
+    MHA, 13.8 GB of bf16 weights): the aligned prefill (B 1, S 4096, the
+    MoE's grouped branch) through the scout and block kernels and through
+    flash, each held against its plain version at the path's own inputs;
+    8 requests of 200-2,000 prompt tokens eagerly and on the decode graph
+    at horizons 1 and 4 (equal tokens, 16 FUM runs a decode step on the
+    card, the kernel against its plain version at the path's busiest
+    call); speculative decode at draft_len 4 graphed and eager (equal
+    tokens); the prefix traffic hot and cold. Capacity drops make spec
+    against greedy and hot against cold differ at full width (reference
+    semantics): their first divergences are printed, not asserted. Then
+    llama4-scout, chameleon-34b and nemotron-4-15b at full width cut to
+    4 layers, eager and graphed with equal tokens; the four reduced
+    configs card (graphed) vs CPU. Returns {run label: FUM runs on the
+    card}, the prefill launches and calls, and the olmoe summaries."""
+    import numpy as np
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
+    from repro_torch.serving import Engine, Request
+    cfg = get_config("olmoe-1b-7b")
+    check(_shape(cfg) == (N_LAYERS_OLMOE, 2048, 16, 16, 128, 1024, 50304,
+                          64, 8, 0) and cfg.qk_norm and cfg.family == "moe",
+          f"unexpected olmoe-1b-7b config {cfg}")
+    params, wbytes = _weights(torch, cfg, "olmoe-1b-7b (16 layers)")
+    fum_runs, out = {}, {"weight_bytes": wbytes}
+
+    # ---- the aligned prefill: B 1, S 4096 (the MoE groups 256 tokens)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        1, cfg.vocab_size, MHA_PREFILL[:1] + MHA_PREFILL[2:3])).cuda()
+    out["prefill"], calls = aligned_prefill(torch, cfg, params, toks,
+                                            "olmoe-1b-7b")
+    check_prefill_calls(torch, calls, "olmoe-1b-7b's aligned prefill")
+    out["calls"] = calls
+    del toks
+
+    # ---- serving: eager (the FUM call that listed the most pages kept),
+    # then graphed at horizons 1 and 4
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(200, 2001, size=8)]
+    log(f"[moe] olmoe prompt lengths {[len(p) for p in prompts]}")
+    rec = Recorder(hdp_paged_fum_decode, key=listed_pages, clone=True)
+    eng = Engine(cfg, params, device="cuda", cuda_graph=False, **OLMOE_KW)
+    attention.hdp_paged_fum_decode = rec
+    try:
+        eager_tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+    finally:
+        attention.hdp_paged_fum_decode = hdp_paged_fum_decode
+    del eng
+    log_served("olmoe-1b-7b eager, horizon 1", s, wall)
+    check(s["attn_decode_stage3"] == "cuda:hdp_paged_fum_decode",
+          f"olmoe decode stage 3 resolved to {s['attn_decode_stage3']}")
+    check_decode_launches(s, launches, "fum", "olmoe-1b-7b eager", runs,
+                          n_layers=N_LAYERS_OLMOE)
+    log(f"[moe] olmoe-1b-7b eager: FUM launches by pass {launches['fum']} "
+        f"(B*N = 8 x 16 = 128 blocks: fum_splits gives one pass), "
+        f"cache_bytes_per_token {s['cache_bytes_per_token']}, weights "
+        f"{wbytes} B")
+    check(rec.score is not None and rec.score > 0,
+          "olmoe: no FUM call of the path listed a page")
+    (args, kw), rec = rec.best, None
+    ref = hdp_paged_fum_decode_ref(*args, **kw)
+    for mode, splits in (("default", None), ("split", 3), ("single", 1)):
+        got = hdp_paged_fum_decode(*args, **kw, splits=splits)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=ATOL, rtol=RTOL),
+            f"olmoe: FUM kernel [{mode}] vs plain at the path's own inputs: "
+            f"max |err| {err:.3e}")
+        out["fum_err"] = max(out.get("fum_err", 0.0), err)
+        log(f"[moe] olmoe: FUM kernel [{mode}, S={splits or 'fum_splits'}] "
+            f"vs plain at the path's call that listed the most pages (qq "
+            f"{tuple(args[0].shape)}, {listed_pages(args)} pages listed): "
+            f"max |err| {err:.3e}")
+    del args, kw, ref
+    for horizon in (1, 4):
+        eng = Engine(cfg, params, device="cuda", decode_horizon=horizon,
+                     **OLMOE_KW)
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        del eng
+        label = f"olmoe-1b-7b graphed, horizon {horizon}"
+        log_served(label, s, wall)
+        check(tok == eager_tok, f"{label}: tokens differ from the eager "
+              f"run's: {first_divergence(tok, eager_tok)}")
+        check(s["graph_captures"] == 1, f"{label}: {s['graph_captures']} "
+              "graph captures, expected 1")
+        check_decode_launches(s, launches, "fum", label, runs,
+                              n_layers=N_LAYERS_OLMOE)
+        check(launches["fum"]["single"] == sum(launches["fum"].values()),
+              f"{label}: FUM launches by pass {launches['fum']}, expected "
+              "every launch in one pass")
+        fum_runs[label] = runs["fum"]
+        out[f"h{horizon}"] = {k: s[k] for k in (
+            "decode_tok_s", "decode_tok_s_steady", "prefill_s",
+            "cache_bytes_per_token", "block_sparsity", "head_sparsity",
+            "page_sparsity")}
+        if horizon == 1:
+            h1_tok = tok
+        log(f"[moe] {label}: tokens == eager; FUM launches by pass "
+            f"{launches['fum']}")
+
+    # ---- speculative decode, draft_len 4: graphed == eager
+    spec_tok = {}
+    for graphed in (True, False):
+        eng = Engine(cfg, params, device="cuda", spec_decode=True,
+                     draft_len=4, cuda_graph=graphed, **OLMOE_KW)
+        spec_tok[graphed], s, wall, launches, runs = serve(
+            torch, eng, prompts, 32)
+        del eng
+        label = ("olmoe-1b-7b spec decode, draft_len 4, "
+                 + ("graphed" if graphed else "eager"))
+        n = _check_spec_runs(s, runs, N_LAYERS_OLMOE, label, graphed)
+        if graphed:
+            fum_runs[label] = n
+        log(f"[moe] {label}: wall {wall:.2f} s, rounds {s['spec_rounds']}, "
+            f"acceptance_rate {s['acceptance_rate']:.4f}, decode_tok_s "
+            f"{s['decode_tok_s']:.1f} (without the captures "
+            f"{s['decode_tok_s_steady']:.1f}), {runs['fum']} FUM runs on "
+            f"the card, graphs {s['spec_graphs']}")
+        out[f"spec_{'graphed' if graphed else 'eager'}"] = {
+            k: s[k] for k in ("acceptance_rate", "decode_tok_s",
+                              "decode_tok_s_steady", "spec_rounds")}
+    check(spec_tok[True] == spec_tok[False],
+          f"olmoe spec decode: graphed tokens differ from eager: "
+          f"{first_divergence(spec_tok[True], spec_tok[False])}")
+    div = first_divergence(spec_tok[True], h1_tok)
+    log(f"[moe] olmoe spec decode: graphed tokens == eager; against the "
+        f"graphed horizon-1 greedy tokens {len(div)} of 8 requests differ "
+        f"(uid: first index, spec, greedy) {div} (the verify's capacity of "
+        f"1 per expert drops tokens; not asserted)")
+    out["spec_vs_greedy"] = len(div)
+
+    # ---- the prefix traffic hot and cold (graphed, horizon 4)
+    cold_tok, cs, ceng = serve_prefix(torch, cfg, params, False)
+    del ceng
+    hot_tok, hs, heng = serve_prefix(torch, cfg, params, True)
+    check(hs["prefix_hits"] == 8 and hs["cow_copies"] >= 2,
+          f"olmoe prefix cache: {hs['prefix_hits']} hits and "
+          f"{hs['cow_copies']} COW copies, expected 8 and >= 2")
+    heng.prefix.clear()
+    heng.pages.allocator.assert_drained()
+    del heng
+    div = first_divergence(hot_tok, cold_tok)
+    log(f"[moe] olmoe prefix cache: hits {hs['prefix_hits']}, COW copies "
+        f"{hs['cow_copies']}, pool drained after clear(); prefill_s hot "
+        f"{hs['prefill_s']:.3f} vs cold {cs['prefill_s']:.3f}; hot against "
+        f"cold {len(div)} of 9 requests differ {div} (a suffix prefill "
+        f"groups tokens for capacity unlike a whole one; not asserted)")
+    out["hot_vs_cold"] = len(div)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- llama4-scout, chameleon-34b, nemotron-4-15b cut to 4 layers
+    rng = np.random.default_rng(22)
+    for name, shape in CUT_CONFIGS.items():
+        full = get_config(name)
+        check(_shape(full) == shape, f"unexpected {name} config {full}")
+        c = full.replace(n_layers=CUT_LAYERS)
+        params, _ = _weights(torch, c, f"{name} cut to {CUT_LAYERS} layers")
+        prompts = [rng.integers(1, c.vocab_size, size=int(n)).tolist()
+                   for n in rng.integers(200, 1001, size=4)]
+        toks = {}
+        for graphed in (False, True):
+            eng = Engine(c, params, device="cuda", cuda_graph=graphed,
+                         decode_horizon=4 if graphed else 1,
+                         **dict(SERVE_KW, max_batch=4))
+            toks[graphed], s, wall, launches, runs = serve(
+                torch, eng, prompts, 16)
+            del eng
+            label = (f"{name} ({CUT_LAYERS} layers) "
+                     + ("graphed, horizon 4" if graphed else "eager"))
+            log_served(label, s, wall)
+            check_decode_launches(s, launches, "fum", label, runs,
+                                  n_layers=CUT_LAYERS)
+            check(launches["fum"]["split"] == sum(launches["fum"].values()),
+                  f"{label}: FUM launches by pass {launches['fum']}, "
+                  "expected every launch split across blocks")
+            log(f"[moe] {label}: FUM launches by pass {launches['fum']}, "
+                f"G {c.n_heads // c.n_kv_heads}, cache_bytes_per_token "
+                f"{s['cache_bytes_per_token']}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if graphed:
+                fum_runs[label] = runs["fum"]
+        check(toks[True] == toks[False], f"{name}: graphed tokens differ "
+              f"from eager: {first_divergence(toks[True], toks[False])}")
+        log(f"[moe] {name} ({CUT_LAYERS} layers): graphed horizon-4 tokens "
+            "== eager")
+        del params
+        torch.cuda.empty_cache()
+
+    # ---- the reduced configs: card (graphed, kernels) vs CPU (plain)
+    kw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
+    prng = np.random.default_rng(23)
+    sp = [prng.integers(1, 250, size=int(prng.integers(4, 24))).tolist()
+          for _ in range(3)] + [prng.integers(1, 250, size=40).tolist()]
+    for name in ("olmoe-1b-7b",) + tuple(CUT_CONFIGS):
+        small = reduced(get_config(name))
+        gpu = Engine(small, device="cuda", seed=4, decode_horizon=4, **kw)
+        cpu = Engine(small, {k: _tree_to(v, "cpu") for k, v in
+                             gpu.params.items()}, device="cpu", **kw)
+        toks = []
+        for e in (gpu, cpu):
+            for uid, p in enumerate(sp):
+                e.submit(Request(uid, p, max_new_tokens=8))
+            toks.append({u: r.tokens for u, r in e.run().items()})
+        check(gpu.metrics["graph_captures"] == 1 and toks[0] == toks[1],
+              f"reduced {name}: card tokens {toks[0]} != CPU tokens "
+              f"{toks[1]} (captures {gpu.metrics['graph_captures']})")
+        log(f"[moe] reduced {name} (one prompt of 40 tokens chunked): card "
+            "tokens (graphed, horizon 4) == CPU plain-path tokens")
+    out["fum_runs"] = fum_runs
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _tree_to(tree, dev):
     return _tree_map(lambda t: t.to(dev), tree)
 
@@ -1756,12 +2157,13 @@ def fum_variant(torch, c, fmt):
                 k_scale=None, v_scale=None, fmt=fmt)
 
 
-def phase_timing(torch, c):
+def phase_timing(torch, c, olmoe_case):
     """The FUM decode at the timing case, split across blocks
     (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
     version; then at the verify shape (Sq 4 and 8, the same widths and
     page density); then the fp8-V and bf16 pool variants at the timing
-    case, split. Returns {mode, "verify<Sq>" or format: (kernel ms, plain
+    case, split; then at olmoe-1b-7b's decode shape (G 1, one pass).
+    Returns {mode, "verify<Sq>", format or "olmoe": (kernel ms, plain
     ms, bound ms, bound by)}."""
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
@@ -1812,6 +2214,18 @@ def phase_timing(torch, c):
         log(f"[timing] hdp_paged_fum_decode [{fmt} pool, split, S={S}] at "
             f"the same case: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"bound {bound:.6f} ms ({bound_by}: {nbytes} B, {flops} flop)")
+    args, kws = kernel_args(olmoe_case)
+    bound, bound_by, nbytes, flops = fum_bound(torch, olmoe_case)
+    p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
+                   flush)
+    k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
+                   flush)
+    res["olmoe"] = (k_ms, p_ms, bound, bound_by)
+    log(f"[timing] hdp_paged_fum_decode [olmoe-1b-7b, single pass] at B8 "
+        f"N16 G1 Sq1 hd128 ps128 (pages listed per row "
+        f"{olmoe_case['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
+        f"{flops} flop)")
     return res
 
 
@@ -1966,12 +2380,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    walls = {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[phase] = round(time.perf_counter() - t0, 1)
+            log(f"[phase] {phase}: {walls[phase]:.1f} s")
+
     try:
         with torch.inference_mode():
-            name, smi_line = phase_env(torch)
-            phase_build()
-            fum_err, main_case = phase_kernels(torch)
-            phase_new_kernels(torch)
+            name, smi_line = timed("1 env", phase_env, torch)
+            timed("2 build", phase_build)
+            fum_err, main_case, olmoe_case = timed("3 FUM kernel",
+                                                   phase_kernels, torch)
+            timed("3 scout, block, flash", phase_new_kernels, torch)
             from repro_torch.configs import get_config
             from repro_torch.models import registry
             cfg = get_config("qwen2-1.5b")
@@ -1982,17 +2407,23 @@ def main() -> int:
             log(f"[model] qwen2-1.5b bf16 weights "
                 f"({cfg.param_count() / 1e9:.2f} B params) initialised in "
                 f"{time.perf_counter() - t0:.1f} s")
-            prefill_launches, calls = phase_aligned_prefill(
-                torch, cfg, params)
-            serve_launches, path_err, block_tile_call = \
-                phase_serving(torch, cfg, params)
-            verify = phase_spec_prefix(torch, cfg, params,
-                                       serve_launches["h1_tokens"])
+            prefill_launches, calls = timed(
+                "4 aligned prefill", phase_aligned_prefill, torch, cfg,
+                params)
+            serve_launches, path_err, block_tile_call = timed(
+                "5 serving", phase_serving, torch, cfg, params)
+            verify = timed("5d prefix, spec", phase_spec_prefix, torch, cfg,
+                           params, serve_launches["h1_tokens"])
             del params
-            fum_by_fmt, granite = phase_granite(torch)
-            phase_window(torch)
-            fum_timed = phase_timing(torch, main_case)
-            timed = phase_timing_prefill(torch, calls, block_tile_call)
+            fum_by_fmt, granite = timed("5b granite-8b", phase_granite,
+                                        torch)
+            timed("5c window", phase_window, torch)
+            moe = timed("5e moe, vlm", phase_moe, torch)
+            fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
+                              olmoe_case)
+            prefill_timed = timed("6 prefill kernels timing",
+                                  phase_timing_prefill, torch, calls,
+                                  block_tile_call)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2013,7 +2444,15 @@ def main() -> int:
         })
     kernels[-1]["note"] = ("the one-pass mode (S = 1), the earlier design, "
                            "timed beside the split; fum_splits gives S > 1 "
-                           "at every shape the main path runs")
+                           "at every shape qwen2's path runs (olmoe's runs "
+                           "one pass: its own entry)")
+    # the FUM runs on the card of phase 5e's graphed serves, by the pass
+    # they take: olmoe (B*N = 128) one pass, the 4-layer configs split
+    olmoe_runs = {k: v for k, v in moe["fum_runs"].items()
+                  if k.startswith("olmoe")}
+    kernels[0]["launches_by_run"] = {
+        "qwen2-1.5b graphed, horizon 1": serve_launches["fum"]["split"],
+        **{k: v for k, v in moe["fum_runs"].items() if k not in olmoe_runs}}
     for Sq in DRAFT_LENS:
         k_ms, p_ms, bound, bound_by = fum_timed[f"verify{Sq}"]
         launched, err = verify[Sq]
@@ -2047,6 +2486,24 @@ def main() -> int:
                     "values; launches over granite-8b's graphed serve on "
                     "that pool",
         })
+    k_ms, p_ms, bound, bound_by = fum_timed["olmoe"]
+    kernels.append({
+        "name": "hdp_paged_fum_decode[olmoe G=1]", "path": "single",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
+        "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
+        "launches": olmoe_runs["olmoe-1b-7b graphed, horizon 1"],
+        "launches_by_run": olmoe_runs,
+        "max_abs_err": max(fum_err["olmoe"], moe["fum_err"]),
+        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
+        "note": "olmoe-1b-7b's decode shape (MHA, G 1): B*N = 128 blocks, "
+                "so fum_splits gives one pass; timed at B8 N16 G1 hd128 "
+                "ps128 with half the 16 page slots live; launches: its "
+                "graphed horizon-1 serve (16 layers x (32 decode steps + "
+                "1 warm-up))",
+    })
     # entry: (path, source, TPU kernel, launches on the path that runs it)
     entries = {
         "hdp_scout": ("tensor_core", "hdp_scout_tc.cu", "hdp_scout.py:75",
@@ -2067,7 +2524,7 @@ def main() -> int:
             prefill_launches["flash_attention[tile]"]),
     }
     for ename, (path, src, tpu, n) in entries.items():
-        k_ms, p_ms, bound, bound_by, _, _, lib_ms = timed[ename]
+        k_ms, p_ms, bound, bound_by, _, _, lib_ms = prefill_timed[ename]
         kernels.append({
             "name": ename, "path": path, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
@@ -2079,7 +2536,13 @@ def main() -> int:
         base = ename.split("[")[0]
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
+        if path == "tensor_core":
+            kernels[-1]["launches_by_run"] = {
+                "qwen2-1.5b aligned prefill": n,
+                "olmoe-1b-7b aligned prefill": moe["prefill"][ename]}
     log(f"[granite] routes {json.dumps(granite)}")
+    log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
+    log(f"[phase] wall seconds {json.dumps(walls)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

@@ -34,7 +34,7 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
                              keep, kv_len, *, approx: bool = True,
                              int_bits: int = 4, frac_bits: int = 12,
                              k_scale=None, v_scale=None,
-                             partial: bool = False):
+                             partial: bool = False, dtype=F32):
     """Gather-free FUM decode, as a loop over each row's kept pages.
 
     qq [B,N,G,Sq,hd] fixed-grid queries; k/v_pool [P,ps,N,hd] page pools,
@@ -54,33 +54,39 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
     kernel's ``p.astype(v.dtype)``). Returns [B,N,G,Sq,hd]
     (head gate applied by the caller); with ``partial`` the softmax state
     instead, (acc [B,N,G,Sq,hd] unnormalized, m and l [B,N,G,Sq]), which
-    the kernel's blocks merge when they split a row's pages."""
+    the kernel's blocks merge when they split a row's pages. ``dtype``
+    is the arithmetic's (float64 evaluates the same function with less
+    rounding, to measure how far fp32 sum order moves an output); the
+    result is in qq's dtype."""
     B, N, G, Sq, hd = qq.shape
     ps = k_pool.shape[1]
     R = G * Sq
     scale = 1.0 / (hd ** 0.5)
     quantized = k_scale is not None
-    q = qq.reshape(B, N, R, hd).to(F32)
+    q = qq.reshape(B, N, R, hd).to(dtype)
     fq = q - torch.trunc(q)
     sq_idx = torch.arange(R, device=qq.device) % Sq
     cols_in_page = torch.arange(ps, device=qq.device)
-    out = torch.empty((B, N, R, hd), dtype=F32, device=qq.device)
-    ms, ls = torch.empty((2, B, N, R), dtype=F32, device=qq.device)
+    out = torch.empty((B, N, R, hd), dtype=dtype, device=qq.device)
+    ms, ls = torch.empty((2, B, N, R), dtype=dtype, device=qq.device)
     for b, cnt in enumerate(counts.tolist()):
-        m = torch.full((N, R), NEG, dtype=F32, device=qq.device)
-        l = torch.zeros((N, R), dtype=F32, device=qq.device)
-        acc = torch.zeros((N, R, hd), dtype=F32, device=qq.device)
+        m = torch.full((N, R), NEG, dtype=dtype, device=qq.device)
+        l = torch.zeros((N, R), dtype=dtype, device=qq.device)
+        acc = torch.zeros((N, R, hd), dtype=dtype, device=qq.device)
         for j in range(cnt):
             pid = page_ids[b, j].long()
             if quantized:
-                kq = decode_pool(k_pool[pid], k_scale[pid][None, :, None])
+                # codes x a power-of-two or fp8 scale: exact in fp32
+                kq = decode_pool(k_pool[pid],
+                                 k_scale[pid][None, :, None]).to(dtype)
                 vs = v_scale[pid][None, :, None]
                 v = (decode_pool(v_pool[pid], vs)
                      if v_pool.dtype == torch.int8
-                     else v_pool[pid].to(F32) * vs)
+                     else v_pool[pid].to(F32) * vs).to(dtype)
             else:
-                kq = quantize_fixed(k_pool[pid].to(F32), int_bits, frac_bits)
-                v = v_pool[pid].to(F32)
+                kq = quantize_fixed(k_pool[pid].to(dtype), int_bits,
+                                    frac_bits)
+                v = v_pool[pid].to(dtype)
             s = torch.einsum("nrh,pnh->nrp", q[b], kq)
             if approx:
                 fk = kq - torch.trunc(kq)
@@ -96,7 +102,7 @@ def hdp_paged_fum_decode_ref(qq, k_pool, v_pool, page_ids, logical, counts,
             l = l * corr + p.sum(-1)
             m = m_new
             if not quantized:
-                p = p.to(v_pool.dtype).to(F32)
+                p = p.to(v_pool.dtype).to(dtype)
             acc = acc * corr[..., None] + torch.einsum("nrp,pnh->nrh", p, v)
         if partial:
             out[b], ms[b], ls[b] = acc, m, l

@@ -16,8 +16,9 @@ per token step (one decode step of the whole batch): wall time (with
 and without the profiler), device busy time (the sum of kernel
 time), the device's idle share, kernels (also by group: GEMMs,
 elementwise, index, sort, reduce, copies, the FUM kernels), the FUM
-kernel's time (split pass and merge) and launches, and the top
-operators by device time and by host time; with the card's name and
+kernel's time (split pass and merge) and launches, the top kernels by
+device time, the top operators by host time and (eager runs) by the
+device time of the kernels they launched; with the card's name and
 power limit. ``--trace PREFIX`` also writes each run's Chrome trace.
 ``--kv-dtype``, ``--kv-scale``, ``--layout`` and ``--no-hdp`` pick the
 cache and the attention as ``launch/serve.py``'s flags of the same names
@@ -182,6 +183,8 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
     by_dev = sorted(kernels, key=dev_us, reverse=True)[:top]
     by_host = sorted(host, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:top]
+    by_op = sorted(host, key=lambda e: e.self_device_time_total,
+                   reverse=True)[:top]
     groups = {}
     for e in kernels:
         g = groups.setdefault(group_of(e.key), [0.0, 0.0])
@@ -216,6 +219,12 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
         "top_host_ms_per_token_step": [
             [e.key[:100], e.self_cpu_time_total / 1e3 / n_tok]
             for e in by_host],
+        # eager runs only (a graph's replay shows no operators): the
+        # device time of the kernels each operator launched itself, e.g.
+        # aten::bmm (the MoE's expert products) against aten::mm
+        "top_ops_device_ms_per_token_step": [
+            [e.key[:100], e.self_device_time_total / 1e3 / n_tok,
+             e.count / n_tok] for e in by_op if e.self_device_time_total],
     }
     if spec:
         # every "per_token_step" number above is per round here

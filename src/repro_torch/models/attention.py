@@ -1,8 +1,9 @@
 """Multi-head GQA attention with HDP.
 
 PyTorch counterpart of ``repro.models.attention``. ``attn_apply``
-projects, applies rope, describes the call with ``build_attn_call`` and
-dispatches it through the ``repro_torch.attention`` registry. The paths
+projects, applies qk-norm and rope, describes the call with
+``build_attn_call`` and dispatches it through the
+``repro_torch.attention`` registry. The paths
 behind the registry's backends:
 
 * ``chunked_attention`` — exact attention as an online softmax over KV
@@ -75,6 +76,9 @@ def attn_init(cfg, gen: torch.Generator, dtype, device) -> Dict:
         p.update(bq=torch.zeros(h, hd, dtype=dt, device=device),
                  bk=torch.zeros(n, hd, dtype=dt, device=device),
                  bv=torch.zeros(n, hd, dtype=dt, device=device))
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones(hd, dtype=dt, device=device),
+                 k_norm=torch.ones(hd, dtype=dt, device=device))
     return p
 
 
@@ -837,8 +841,8 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
                collect_stats: bool = False, page_table=None,
                write_floor=None, draft=None,
                attn: Optional[AttnSpec] = None) -> Tuple:
-    """Full MHA layer: project, rope, attend through the registry,
-    output-project.
+    """Full MHA layer: project (with qk-norm where the config has it),
+    rope, attend through the registry, output-project.
 
     mode "prefill": positions [S]; without ``cache`` this is aligned
     self-attention over the whole sequence (the full-sequence kernels'
@@ -871,6 +875,11 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        # before rope and before any pool snap: the pool codes, the scout
+        # view and the prefix cache's pages all hold the normed K
+        q = L.rms_norm(q, p["q_norm"])
+        k = L.rms_norm(k, p["k_norm"])
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 

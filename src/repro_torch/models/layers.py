@@ -1,8 +1,8 @@
 """Common building blocks over plain parameter dicts.
 
-PyTorch counterpart of ``repro.models.layers`` for the dense family:
-RMSNorm, rotary embeddings, the SiLU-GLU MLP, token embedding and tied
-logits. Initialisers draw from an explicit ``torch.Generator``; the
+PyTorch counterpart of ``repro.models.layers`` for the transformer
+families: RMSNorm and LayerNorm, rotary embeddings, the SiLU-GLU, GELU
+and squared-ReLU MLPs, token embedding and tied logits. Initialisers draw from an explicit ``torch.Generator``; the
 numbers differ from ``jax.random`` for the same seed, so the tests move
 weights between the packages with ``repro_torch.convert`` instead.
 """
@@ -59,6 +59,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     return (y * w.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
     # theta filled in on the device (not copied from the host): CUDA
@@ -82,20 +92,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def norm_init(cfg, dtype, device) -> Params:
-    return {"w": torch.ones(cfg.d_model, dtype=torch_dtype(dtype),
-                            device=device)}
+    dt = torch_dtype(dtype)
+    p = {"w": torch.ones(cfg.d_model, dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(cfg.d_model, dtype=dt, device=device)
+    return p
+
+
+def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
+    return rms_norm(x, p["w"])
 
 
 def mlp_init(cfg, gen, dtype, device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": dense_init(gen, (d, f), dtype, device),
-            "w_up": dense_init(gen, (d, f), dtype, device),
-            "w_down": dense_init(gen, (f, d), dtype, device)}
+    if cfg.act == "silu_glu":
+        return {"w_gate": dense_init(gen, (d, f), dtype, device),
+                "w_up": dense_init(gen, (d, f), dtype, device),
+                "w_down": dense_init(gen, (f, d), dtype, device)}
+    if cfg.act not in ("gelu", "relu2"):
+        raise ValueError(f"unknown act {cfg.act}")
+    p = {"w1": dense_init(gen, (d, f), dtype, device),
+         "w2": dense_init(gen, (f, d), dtype, device)}
+    if cfg.act == "gelu":           # whisper-style biases
+        dt = torch_dtype(dtype)
+        p["b1"] = torch.zeros(f, dtype=dt, device=device)
+        p["b2"] = torch.zeros(d, dtype=dt, device=device)
+    return p
 
 
 def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    if cfg.act == "silu_glu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = x @ p["w1"]
+    if cfg.act == "gelu":
+        h = F.gelu(h + p["b1"], approximate="tanh")
+        return h @ p["w2"] + p["b2"]
+    # relu2 (nemotron-4): squared ReLU, no bias
+    return torch.square(F.relu(h)) @ p["w2"]
 
 
 def embed_init(cfg, gen, dtype, device) -> Params:

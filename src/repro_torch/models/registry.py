@@ -4,19 +4,17 @@
   init_cache(cfg, B, max_len)     -> dense request cache
   apply_prefill / apply_decode    -> serving steps
 
-Only the dense transformer family is ported; any other family raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The dense, moe and vlm families are the transformer; any other family
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 from repro_torch.models import transformer
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer}
 
 #: ROADMAP.md item that ports each family not served yet
 _PENDING = {
-    "moe": "section 1, item 4 (moe/vlm model stack)",
-    "vlm": "section 1, item 4 (moe/vlm model stack)",
     "rwkv6": "section 1, item 10 (remaining families)",
     "zamba2": "section 1, item 10 (remaining families)",
     "whisper": "section 1, item 10 (remaining families)",
@@ -29,11 +27,11 @@ def module_for(cfg):
         item = _PENDING.get(cfg.family, "section 1")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md {item})")
-    if (cfg.norm, cfg.act, cfg.pos_emb, cfg.qk_norm) \
-            != ("rmsnorm", "silu_glu", "rope", False):
+    if cfg.pos_emb != "rope":
+        # the sinusoidal table is whisper's, which comes with its family
         raise NotImplementedError(
-            f"{cfg.name}: only rmsnorm + silu_glu + rope dense models without "
-            "qk-norm are ported (ROADMAP.md section 1, item 4)")
+            f"{cfg.name}: pos_emb {cfg.pos_emb!r} is not ported yet "
+            "(ROADMAP.md section 1, item 10 (remaining families))")
     return mod
 
 
@@ -54,5 +52,8 @@ def apply_decode(cfg, params, token, cache, pos, **kw):
     return module_for(cfg).apply_decode(cfg, params, token, cache, pos, **kw)
 
 
-def param_count(cfg) -> int:
-    return module_for(cfg).param_count(cfg)
+def param_count(cfg, active_only: bool = False) -> int:
+    m = module_for(cfg)
+    if active_only:
+        return m.active_param_count(cfg)
+    return m.param_count(cfg)

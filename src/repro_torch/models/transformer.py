@@ -1,6 +1,10 @@
-"""Decoder-only transformer LM, dense family (qwen2-style GQA).
+"""Decoder-only transformer LM (dense, moe and vlm families).
 
-PyTorch counterpart of ``repro.models.transformer`` for ``family="dense"``.
+PyTorch counterpart of ``repro.models.transformer``: qwen2, granite,
+h2o-danube, nemotron-4, olmoe, llama4-scout and chameleon — GQA and
+MHA, RoPE, qk-norm, QKV bias, sliding windows, the SiLU-GLU, GELU and
+squared-ReLU MLPs, RMSNorm or LayerNorm, and MoE FFNs with a shared
+expert (``repro_torch.models.moe``), all driven by ``ModelConfig``.
 Parameters are a plain dict laid out exactly like the reference's tree:
 every leaf under ``"layers"`` carries a leading L axis, so weights move
 between the packages by copy alone (``repro_torch.convert``). A Python
@@ -15,14 +19,17 @@ import torch
 
 from repro_torch.attention.stats import stack_stats
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.attention import attn_apply, attn_init
 
 
 def _layer_init(cfg, gen, dtype, device) -> Dict:
+    ffn = (M.moe_init if cfg.n_experts else L.mlp_init)(cfg, gen, dtype,
+                                                         device)
     return {"attn": attn_init(cfg, gen, dtype, device),
             "ln1": L.norm_init(cfg, dtype, device),
             "ln2": L.norm_init(cfg, dtype, device),
-            "ffn": L.mlp_init(cfg, gen, dtype, device)}
+            "ffn": ffn}
 
 
 def _index(tree, i: int):
@@ -79,12 +86,14 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
            page_table=None, write_floor=None, draft=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
     Without a cache every layer is an aligned self-attention prefill.
-    Returns (x, stats) with stats leaves stacked over layers."""
-    stats = []
+    Returns (x, stats, aux) with stats leaves stacked over layers and aux
+    the MoE load-balancing loss summed over layers (None without
+    experts; serving ignores it)."""
+    stats, aux = [], []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
         lc = None if cache is None else {k: v[li] for k, v in cache.items()}
-        h = L.rms_norm(x, lp["ln1"]["w"])
+        h = L.apply_norm(cfg, lp["ln1"], x)
         a, _, st = attn_apply(cfg, lp["attn"], h, mode=mode,
                               positions=positions, cache=lc,
                               collect_stats=collect_stats,
@@ -92,10 +101,16 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
                               write_floor=write_floor, draft=draft,
                               attn=attn)
         x = x + a
-        h = L.rms_norm(x, lp["ln2"]["w"])
-        x = x + L.mlp_apply(cfg, lp["ffn"], h)
+        h = L.apply_norm(cfg, lp["ln2"], x)
+        if cfg.n_experts:
+            m, la = M.moe_apply(cfg, lp["ffn"], h)
+            aux.append(la)
+        else:
+            m = L.mlp_apply(cfg, lp["ffn"], h)
+        x = x + m
         stats.append(st)
-    return x, (stack_stats(stats) if collect_stats else None)
+    return (x, stack_stats(stats) if collect_stats else None,
+            torch.stack(aux).sum() if aux else None)
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
@@ -112,9 +127,10 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
     x = L.embed_tokens(params["embed"], tokens)
     positions = pos_offset + torch.arange(tokens.shape[1],
                                           device=tokens.device)
-    x, stats = _stack(cfg, params, x, mode="prefill", positions=positions,
-                      cache=cache, collect_stats=collect_stats, attn=attn)
-    x = L.rms_norm(x[:, -1:], params["final_norm"]["w"])
+    x, stats, _ = _stack(cfg, params, x, mode="prefill",
+                         positions=positions, cache=cache,
+                         collect_stats=collect_stats, attn=attn)
+    x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     return L.lm_logits(params["embed"], x), cache, stats
 
 
@@ -130,19 +146,34 @@ def apply_decode(cfg, params, token, cache, pos, *,
     ``draft`` (a DraftProfile) marks a speculative draft step. Returns
     (logits [B,S,V] fp32, cache, stats)."""
     x = L.embed_tokens(params["embed"], token)
-    x, stats = _stack(cfg, params, x, mode="decode", positions=pos,
-                      cache=cache, collect_stats=collect_stats,
-                      page_table=page_table, write_floor=write_floor,
-                      draft=draft, attn=attn)
-    x = L.rms_norm(x, params["final_norm"]["w"])
+    x, stats, _ = _stack(cfg, params, x, mode="decode", positions=pos,
+                         cache=cache, collect_stats=collect_stats,
+                         page_table=page_table, write_floor=write_floor,
+                         draft=draft, attn=attn)
+    x = L.apply_norm(cfg, params["final_norm"], x)
     return L.lm_logits(params["embed"], x), cache, stats
 
 
-def param_count(cfg) -> int:
-    d, f, v, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+def _count(cfg, routed: int) -> int:
+    """The reference's parameter count (a layer's biases and qk-norm
+    weights left out) with ``routed`` experts of each MoE layer."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
     attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd \
         + cfg.n_heads * hd * d
-    ffn = 3 * d * f
-    per_layer = attn + ffn + 2 * d
-    emb = v * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.n_layers * per_layer + emb + d
+    if cfg.n_experts:
+        ffn = routed * 3 * d * f + d * cfg.n_experts \
+            + 3 * d * f * cfg.n_shared_experts
+    else:
+        ffn = (3 if cfg.act == "silu_glu" else 2) * d * f
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * (attn + ffn + 2 * d) + emb + d
+
+
+def param_count(cfg) -> int:
+    return _count(cfg, cfg.n_experts)
+
+
+def active_param_count(cfg) -> int:
+    """Parameters a token runs through: its K routed experts (with the
+    router and the shared expert) in place of all of them."""
+    return _count(cfg, cfg.n_experts_active)

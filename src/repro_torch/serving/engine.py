@@ -1,10 +1,11 @@
 """Batched serving engine with HDP over a block-paged or dense KV cache.
 
 PyTorch counterpart of the greedy core of ``repro.serving.Engine`` for
-dense transformer families. The KV cache is the block-paged pool
-(``PagedKVCache``: int8, int8 K + fp8 V, or unquantized pages in the
-model's dtype, on the static grid or with absmax page scales; the
-default for the dense family) or the dense per-slot layout
+the transformer families (``PAGEABLE_FAMILIES``: dense, moe, vlm). The
+KV cache is the block-paged pool (``PagedKVCache``: int8, int8 K + fp8
+V, or unquantized pages in the model's dtype, on the static grid or
+with absmax page scales; the default for those families) or the dense
+per-slot layout
 (``SlotCache``), with HDP on or off:
 
 * **batched bucketed prefill** — queued requests are grouped by pad
@@ -100,6 +101,9 @@ PREFIX_ENV = "REPRO_PREFIX_CACHE"
 SPEC_ENV = "REPRO_SPEC_DECODE"
 #: env default of ``draft_len`` (else 4)
 DRAFT_ENV = "REPRO_DRAFT_LEN"
+#: families with a seq-indexed KV cache: the paged layout, chunked
+#: prefill, the prefix cache and speculative verify serve them
+PAGEABLE_FAMILIES = ("dense", "moe", "vlm")
 
 #: decode backend -> its stage-3 implementation (on the card, on the CPU)
 _STAGE3_IMPL = {
@@ -154,7 +158,7 @@ class Engine:
 
     Parameters
     ----------
-    cfg: ModelConfig (dense family, HDP on or off).
+    cfg: ModelConfig (a family of ``PAGEABLE_FAMILIES``, HDP on or off).
     params: model parameter dict; drawn from ``seed`` when None.
     device: "cuda" (default) or "cpu"; CUDA raises when absent.
     max_batch: decode slot count.
@@ -208,7 +212,13 @@ class Engine:
             attn = AttnSpec(backend=attn)
         spec = attn if attn is not None else default_spec()
         self.device = resolve_device(device)
-        layout = "paged" if spec.layout == "auto" else spec.layout
+        pageable = cfg.family in PAGEABLE_FAMILIES
+        layout = spec.layout
+        if layout == "auto":
+            layout = "paged" if pageable else "dense"
+        if layout == "paged" and not pageable:
+            raise ValueError(
+                f"family {cfg.family!r} has no KV pages; use dense layout")
         kv_dtype = spec.kv_dtype
         if kv_dtype == "auto":
             kv_dtype = os.environ.get(KV_DTYPE_ENV, "") or "int8"
@@ -230,7 +240,12 @@ class Engine:
         hdp = cfg.hdp
         self.hdp_on = hdp is not None and hdp.enabled
         if spec_decode is None:
-            spec_decode = _env_flag(SPEC_ENV)
+            spec_decode = _env_flag(SPEC_ENV) and pageable   # env degrades
+        elif spec_decode and not pageable:
+            raise ValueError(
+                f"spec_decode=True: family {cfg.family!r} has no multi-query "
+                "verify path (recurrent state cannot re-score draft "
+                "positions against a cache)")
         self.spec = bool(spec_decode)
         if draft_len is None:
             draft_len = int(os.environ.get(DRAFT_ENV, "4") or 4)
@@ -335,10 +350,12 @@ class Engine:
     # --------------------------------------------------------------- public
     @property
     def _can_chunk(self) -> bool:
-        """With HDP on, chunk boundaries must sit on HDP q-block
-        boundaries, or the scout's per-block-row pooling shifts against a
-        one-shot prefill (the port serves only rope dense models, which
-        chunk)."""
+        """Chunked prefill needs a seq-indexed cache (a pageable family;
+        every config the port serves has rope), and with HDP on chunk
+        boundaries on HDP q-block boundaries, or the scout's
+        per-block-row pooling shifts against a one-shot prefill."""
+        if self.cfg.family not in PAGEABLE_FAMILIES:
+            return False
         return (not self.hdp_on
                 or self.buckets[-1] % self.cfg.hdp.block_q == 0)
 

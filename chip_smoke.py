@@ -17,7 +17,10 @@ never JAX nor the JAX package. Phases:
    shape; 48 rows split over two row blocks), split across blocks and in
    one pass, each with its poison checks; on the int8 pool also at
    olmoe-1b-7b's decode and verify shapes (MHA: G 1, one pass by
-   ``fum_splits``) and at G 5 and G 8 (llama4-scout, chameleon-34b);
+   ``fum_splits``) and at G 5 and G 8 (llama4-scout, chameleon-34b), and
+   at olmoe's shape on uniform +-127 codes against the plain version
+   evaluated in float64 (the reference's kernel tolerance, 2e-3: fp32
+   sum order alone parts kernel and fp32 plain version there);
    the integer scout on both of its paths (theta, keep and theta_head
    bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
    bad-input NaN); the block-sparse FUM attention on the
@@ -95,6 +98,22 @@ never JAX nor the JAX package. Phases:
    full width. llama4-scout, chameleon-34b and nemotron-4-15b at full
    width cut to 4 layers, eager and graphed; the four reduced configs
    card vs CPU;
+5f. the stream scheduler (ROADMAP item 3a) and the paper's polynomial
+   softmax (item 5), qwen2-1.5b at full width on phase 5's weights,
+   graphed at horizon 4: 24 requests of 200-1,000 tokens through
+   ``Engine(stream_sched=True)`` with tokens equal to the static
+   engine's, slots recycled mid-run, the FUM kernel's runs on the card
+   equal to the engine's count, TTFT/TPOT/queue wait printed; a
+   2,500-token prompt prefilled in 512-token-budget slices while 8 short
+   requests decode (interleaved), tokens equal to the static engine's
+   blocking chunked prefill; preemption of low-priority requests by two
+   high-priority arrivals (head gate off; graphed == eager, the requests
+   never preempted equal to the uninterrupted static run, the victims'
+   first divergence and top-2 logit margin printed; with HDP off every
+   request equal); reduced granite-8b with HDP, horizon 4, prefix cache,
+   spec decode and the scheduler, card vs CPU; ``approx_softmax`` on the
+   reduced config card vs CPU and one full-width serving prefill with
+   and without it;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -132,6 +151,9 @@ BF16_FLOP_S = 989e12
 INT8_OPS_S = 1979e12
 ATOL = RTOL = 1e-4   # fp32 accumulation in both; only the sum order differs
 TOL_BF16 = 2e-2      # p is rounded to bf16 before P.V in both
+#: the reference's kernel tolerance (tests/test_kernels.py), for a kernel
+#: against the plain version evaluated in float64
+TOL_KERNEL_F64 = 2e-3
 THETA_RTOL = 1e-5
 N_LAYERS_QWEN = 28
 SOURCES = ("hdp_paged_decode", "hdp_scout", "hdp_scout_tc", "hdp_block_attn",
@@ -213,7 +235,8 @@ FUM_TOL = {"int8": ATOL, "fp32": ATOL, "fp8_v": ATOL, "bf16": TOL_BF16}
 #: from the plain version in float64 at every shape of this phase (the
 #: "fp32 sum order" lines), and agree with each other only while both
 #: sum in one order; at G*Sq = 1 cuBLAS sums the plain version's scores
-#: in another
+#: in another. That case is held against the plain version evaluated in
+#: float64 instead, at the reference's kernel tolerance (TOL_KERNEL_F64)
 OLMOE_FUM = dict(B=8, N=16, G=1, hd=128, ps=128, nP=16, fmt="int8", live=0.5,
                  unit=True)
 OLMOE_FUM_LABEL = "olmoe B8N16G1"
@@ -408,20 +431,38 @@ def phase_kernels(torch):
             main_case = c
         if label.startswith(f"{OLMOE_FUM_LABEL}Sq1"):
             olmoe_case = c
-    # why olmoe's cases carry unit-RMS values: its shape with the
-    # uniform codes above (measured, not asserted)
+    # olmoe's shape with the uniform codes above: kernel and plain fp32
+    # version part by fp32 sum order alone (see OLMOE_FUM), so the kernel
+    # is held against the plain version evaluated in float64, in every
+    # mode, at the reference's kernel tolerance
     c = to_dev(make_case(torch, **dict(OLMOE_FUM, Sq=1, seed=31,
                                        unit=False)), "cuda")
     args, kws = kernel_args(c)
-    fp32_sum_order(torch, f"{OLMOE_FUM_LABEL}Sq1 with uniform +-127 codes",
-                   args, kws, hdp_paged_fum_decode_ref(*args, **kws))
+    label = f"{OLMOE_FUM_LABEL}Sq1 with uniform +-127 codes"
+    exact = fp32_sum_order(torch, label, args, kws,
+                           hdp_paged_fum_decode_ref(*args, **kws))
+    auto = fum_splits(OLMOE_FUM["B"], OLMOE_FUM["N"], c["page_ids"].shape[1],
+                      n_sm)
+    for mode, splits in (("split" if auto > 1 else "single", None),
+                         ("split", 3), ("single", 1)):
+        out = hdp_paged_fum_decode(*args, **kws, splits=splits).double()
+        torch.cuda.synchronize()
+        err = (out - exact).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and torch.allclose(
+            out, exact, atol=TOL_KERNEL_F64, rtol=TOL_KERNEL_F64),
+            f"{label} [{mode}, S={splits or auto}]: kernel vs plain in "
+            f"float64 max |err| {err:.3e} (tol {TOL_KERNEL_F64})")
+        log(f"[kernels] {label} [{mode}, S={splits or auto}]: max |kernel - "
+            f"plain in float64| {err:.3e} (tol {TOL_KERNEL_F64})")
+        worst["olmoe_f64"] = max(worst.get("olmoe_f64", 0.0), err)
     return worst, main_case, olmoe_case
 
 
 def fp32_sum_order(torch, label, args, kws, ref):
     """Logs how far fp32 sum order moves the FUM outputs of a case: the
     kernel's and the plain version's max |distance| from the plain
-    version evaluated in float64, and from each other."""
+    version evaluated in float64, and from each other. Returns the plain
+    version's output in float64."""
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     exact = hdp_paged_fum_decode_ref(args[0].double(), *args[1:], **kws,
@@ -433,6 +474,7 @@ def fp32_sum_order(torch, label, args, kws, ref):
         f"float64| {dist(out, exact):.3e}, |plain - plain in float64| "
         f"{dist(ref, exact):.3e}, |kernel - plain| {dist(out, ref):.3e} "
         f"(max |output| {exact.abs().max().item():.3e})")
+    return exact
 
 
 # ----------------------------------------------- phase 3: the new kernels
@@ -985,36 +1027,56 @@ SERVE_KW = dict(max_batch=8, max_len=1056, prefill_buckets=(256, 512, 1024),
 LONG_PROMPTS, LONG_MAX_LEN = (2500, 4000), 4128
 
 
-def serve(torch, eng, prompts, max_new):
-    """Serve ``prompts`` through ``eng`` with every launch count zeroed
-    first. Returns (tokens by uid, summary, wall s, FUM and block wrapper
-    launches by path, and the runs of the FUM and the block tile kernel
-    on the card over the whole serve, by their own counts: the only
-    count of what a graph's replays ran)."""
+def serve_requests(torch, eng, reqs, *, arrive_after=0, late=()):
+    """Serve the Requests ``reqs`` through ``eng`` with every launch count
+    zeroed first; ``late`` is submitted after ``arrive_after`` engine
+    steps. Every request must complete with tokens in the vocabulary.
+    Returns (tokens by uid, Results, summary, wall s, FUM and block
+    wrapper launches by path (and the FUM's by pool format), and the
+    runs of the FUM and the block tile kernel on the card over the whole
+    serve, by their own counts: the only count of what a graph's replays
+    ran)."""
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
     from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
-    from repro_torch.serving import Request
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    for uid, p in enumerate(prompts):
-        eng.submit(Request(uid, p, max_new_tokens=max_new))
-    res = eng.run()
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(arrive_after):
+        eng.step()
+    for r in late:
+        eng.submit(r)
+    res = eng.run(strict=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     runs = {"fum": hdp_paged_fum_decode.runs.read(),
             "block": hdp_block_sparse_attention.runs.read()}
-    s = eng.summary()
-    check(len(res) == len(prompts) and all(
-        r.complete and r.status == "ok" and len(r.tokens) == max_new
+    check(len(res) == len(reqs) + len(late) and all(
+        r.complete and r.status == "ok"
         and all(0 <= t < eng.cfg.vocab_size for t in r.tokens)
         for r in res.values()),
-        f"not every request completed with {max_new} tokens: "
+        f"not every request completed: "
         f"{[(u, r.status, r.error, len(r.tokens)) for u, r in res.items()]}")
     launches = {"fum": dict(hdp_paged_fum_decode.launches_by_path),
                 "block": dict(hdp_block_sparse_attention.launches_by_path),
                 "fum_format": dict(hdp_paged_fum_decode.launches_by_format)}
-    return {u: r.tokens for u, r in res.items()}, s, wall, launches, runs
+    return ({u: r.tokens for u, r in res.items()}, res, eng.summary(), wall,
+            launches, runs)
+
+
+def serve(torch, eng, prompts, max_new):
+    """``serve_requests`` of ``prompts`` (uids in order), each with
+    ``max_new`` tokens. Returns (tokens by uid, summary, wall s, wrapper
+    launches, runs on the card)."""
+    from repro_torch.serving import Request
+    tok, _, s, wall, launches, runs = serve_requests(
+        torch, eng, [Request(u, p, max_new_tokens=max_new)
+                     for u, p in enumerate(prompts)])
+    check(all(len(t) == max_new for t in tok.values()),
+          f"not every request made {max_new} tokens: "
+          f"{ {u: len(t) for u, t in tok.items()} }")
+    return tok, s, wall, launches, runs
 
 
 def check_decode_launches(s, launches, kernel, label, runs,
@@ -1590,6 +1652,332 @@ def phase_spec_prefix(torch, cfg, params, h1_tokens):
         f"4, one prompt chunked): card tokens (graphed) == CPU tokens; "
         f"hits {sums[0]['prefix_hits']}, acceptance_rate "
         f"{sums[0]['acceptance_rate']:.4f}")
+    return out
+
+
+# ------------------------------ phase 5f: the stream scheduler, item 5
+#: phase 5f's traffic: 24 requests of 200-1,000 prompt tokens, 32 new
+STREAM_REQUESTS = 24
+#: (c): the low-priority requests' budget and the steps before the two
+#: high-priority ones arrive
+PREEMPT_NEW, PREEMPT_AFTER_STEPS = 96, 3
+
+
+def log_sched(label, s):
+    """The scheduler's counters and the request timings of a serve (host
+    read granularity: one read per horizon)."""
+    sched = ""
+    if s["stream_sched"]:
+        sched = (f"admitted {s['sched_admitted']}, recycled "
+                 f"{s['sched_recycled']}, deferred {s['sched_deferred']}, "
+                 f"preempted {s['sched_preempted']}, chunk tokens "
+                 f"{s['sched_chunk_tokens']}, interleaved steps "
+                 f"{s['sched_interleaved_steps']}, host time in ticks "
+                 f"outside prefill {s['sched_tick_s'] - s['prefill_s']:.4f} "
+                 f"s over {s['sched_ticks']} ticks; ")
+    log(f"[sched] {label}: {sched}TTFT p50/p95/mean "
+        f"{s.get('ttft_s_p50', float('nan')):.4f}/"
+        f"{s.get('ttft_s_p95', float('nan')):.4f}/"
+        f"{s.get('ttft_s_mean', float('nan')):.4f} s, TPOT mean "
+        f"{s.get('tpot_s_mean', float('nan')) * 1e3:.3f} ms, queue wait "
+        f"mean {s.get('queue_wait_s_mean', float('nan')):.4f} s, queue "
+        f"depth mean/peak {s.get('queue_depth_mean', 0.0):.3f}/"
+        f"{s['queue_depth_peak']}")
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def top2_margin(torch, cfg, params, prompt, tokens, i):
+    """The top-2 logit margin where a greedy stream picks ``tokens[i]``:
+    one serving prefill of the prompt and ``tokens[:i]`` (K/V round
+    tripped through the int8 pool grid, as the engine's prefill does).
+    Returns (margin, top-1 logit, top-1 token, top-2 token)."""
+    from repro_torch.attention import AttnSpec
+    from repro_torch.models import registry
+    seq = list(prompt) + list(tokens[:i])
+    cache = registry.init_cache(cfg, 1, len(seq), device="cuda")
+    logits, _, _ = registry.apply_prefill(
+        cfg, params, {"tokens": torch.tensor([seq], device="cuda")}, cache,
+        attn=AttnSpec(kv_dtype="int8"))
+    top = torch.topk(logits[0, -1].float(), 2)
+    return ((top.values[0] - top.values[1]).item(), top.values[0].item(),
+            int(top.indices[0]), int(top.indices[1]))
+
+
+def phase_stream(torch, cfg, params):
+    """qwen2-1.5b at full width on phase 5's weights, graphed at horizon
+    4: (a) 24 requests through the stream scheduler and the static engine,
+    equal tokens, the FUM kernel's runs on the card equal the engine's
+    count; (b) a 2,500-token prompt prefilled in slices interleaved with
+    8 short requests' decode, equal to the static engine's blocking
+    chunked prefill; (c) preemption of low-priority requests for two
+    high-priority arrivals, head gate off, graphed equal to eager, against
+    the uninterrupted static run (and with HDP off, every request equal);
+    (d) reduced granite-8b with everything on (HDP, horizon 4, prefix
+    cache, spec decode, the scheduler), card vs CPU; (e) approx_softmax:
+    the reduced config card vs CPU, and one full-width serving prefill
+    with and without it. Returns the FUM runs of (a)'s stream serve."""
+    import numpy as np
+    from repro_torch.attention import AttnSpec
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import Engine, Request, SchedulerConfig
+    out = {}
+    kw = dict(SERVE_KW, decode_horizon=4)
+
+    # ---- (a) stream equals static, 24 requests through 8 slots, in
+    # turns (static, stream, stream, static) so their times compare
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(200, 1001, size=STREAM_REQUESTS)]
+    reqs = lambda: [Request(u, p, max_new_tokens=32)
+                    for u, p in enumerate(prompts)]
+    label = "stream, 24 requests, graphed, horizon 4"
+    st_tok, timings = None, {"static": [], "stream": []}
+    for turn in ("static", "stream", "stream", "static"):
+        eng = Engine(cfg, params, device="cuda",
+                     stream_sched=turn == "stream", **kw)
+        tok, res, s, wall, launches, runs = serve_requests(torch, eng, reqs())
+        del eng
+        timings[turn].append(dict(
+            {k: s.get(k) for k in (
+                "ttft_s_p50", "ttft_s_p95", "ttft_s_mean", "tpot_s_mean",
+                "queue_wait_s_mean", "queue_depth_mean", "queue_depth_peak",
+                "decode_tok_s", "decode_tok_s_steady", "prefill_s",
+                "sched_tick_s", "sched_ticks")}, wall_s=wall))
+        log_sched(f"{turn}, 24 requests, graphed, horizon 4 (turn "
+                  f"{len(timings[turn])})", s)
+        log(f"[sched] {turn}: wall {wall:.3f} s, decode_tok_s "
+            f"{s['decode_tok_s']:.1f} (without the capture "
+            f"{s['decode_tok_s_steady']:.1f}), prefill_s "
+            f"{s['prefill_s']:.3f}")
+        if st_tok is None:
+            st_tok = tok
+            continue
+        bad = first_divergence(tok, st_tok)
+        check(not bad, f"{label}: {turn} tokens differ from the static "
+              f"engine's (uid: first index, {turn}, static): {bad}")
+        if turn != "stream":
+            continue
+        check(s["sched_admitted"] == STREAM_REQUESTS
+              and s["sched_recycled"] > 0,
+              f"{label}: admitted {s['sched_admitted']}, recycled "
+              f"{s['sched_recycled']}")
+        check(s["graph_captures"] == 1, f"{label}: {s['graph_captures']} "
+              "graph captures, expected 1")
+        check_decode_launches(s, launches, "fum", label, runs)
+        check(all(r.ttft_s > 0 and r.queue_wait_s >= 0 and r.tpot_s > 0
+                  for r in res.values()),
+              f"{label}: request timings missing or negative")
+        log_served(label, s, wall)
+        out["fum_runs"] = runs["fum"]
+    log(f"[sched] {label}: tokens == the static engine's for all "
+        f"{STREAM_REQUESTS} requests, in both turns")
+    out["timings"] = timings
+
+    # ---- (b) a long prompt prefilled in slices under live decode
+    lkw = dict(kw, max_len=LONG_MAX_LEN)
+    rng = np.random.default_rng(22)
+    long_p = rng.integers(1, cfg.vocab_size, size=LONG_PROMPTS[0]).tolist()
+    shorts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+              for n in rng.integers(200, 1001, size=8)]
+    breqs = lambda: [Request(u, p, max_new_tokens=32)
+                     for u, p in enumerate([long_p] + shorts)]
+    static = Engine(cfg, params, device="cuda", **lkw)
+    st_tok, st_res = serve_requests(torch, static, breqs())[:2]
+    del static
+    eng = Engine(cfg, params, device="cuda",
+                 sched=SchedulerConfig(prefill_chunk_tokens=512), **lkw)
+    tok, res, s, wall, launches, runs = serve_requests(torch, eng, breqs())
+    label = "stream, a 2,500-token prompt among 8 short ones"
+    check(s["stream_sched"], f"{label}: a sched config did not turn the "
+          "scheduler on")
+    check(s["sched_interleaved_steps"] > 0
+          and s["sched_chunk_tokens"] >= LONG_PROMPTS[0],
+          f"{label}: interleaved steps {s['sched_interleaved_steps']}, chunk "
+          f"tokens {s['sched_chunk_tokens']}")
+    bad = first_divergence(tok, st_tok)
+    check(not bad, f"{label}: tokens differ from the static engine's "
+          f"blocking chunked prefill: {bad}")
+    check_decode_launches(s, launches, "fum", label, runs)
+    log_served(label, s, wall)
+    log_sched(label, s)
+    short_ttft = {name: float(np.mean([r[u].ttft_s for u in range(1, 9)]))
+                  for name, r in (("stream", res), ("static", st_res))}
+    log(f"[sched] {label}: tokens == the static engine's (one blocking "
+        f"chunked prefill); the 8 short requests' mean TTFT "
+        f"{short_ttft['stream']:.4f} s (static {short_ttft['static']:.4f} "
+        f"s), the long one's {res[0].ttft_s:.4f} s (static "
+        f"{st_res[0].ttft_s:.4f} s)")
+    out["interleaved"] = {"short_ttft_mean": short_ttft,
+                          "long_ttft": {"stream": res[0].ttft_s,
+                                        "static": st_res[0].ttft_s},
+                          "interleaved_steps": s["sched_interleaved_steps"]}
+    del eng
+
+    # ---- (c) preemption: two high-priority arrivals, head gate off
+    nogate = cfg.replace(hdp=cfg.hdp.replace(head_pruning=False))
+    rng = np.random.default_rng(23)
+    cprompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+                for n in rng.integers(200, 901, size=10)]
+    low = lambda: [Request(u, p, max_new_tokens=PREEMPT_NEW)
+                   for u, p in enumerate(cprompts[:8])]
+    high = lambda: [Request(u, p, max_new_tokens=32, priority=1)
+                    for u, p in enumerate(cprompts[8:], start=8)]
+    for hdp_on in (True, False):
+        c = nogate if hdp_on else cfg.replace(
+            hdp=cfg.hdp.replace(enabled=False))
+        tag = "HDP on, head gate off" if hdp_on else "HDP off"
+        static = Engine(c, params, device="cuda", **kw)
+        ref = serve_requests(torch, static, low() + high())[0]
+        del static
+        runs_c, cut = {}, {}
+        for graphed in (True, False):
+            eng = Engine(c, params, device="cuda", cuda_graph=graphed,
+                         sched=SchedulerConfig(preempt_after=2), **kw)
+            preempt = eng._preempt
+
+            def recording(slot, _preempt=preempt, _cut=cut):
+                # tokens a victim had generated when it was preempted
+                resume = _preempt(slot)
+                _cut[resume.uid] = len(resume.prior_tokens)
+                return resume
+
+            eng._preempt = recording
+            runs_c[graphed] = serve_requests(
+                torch, eng, low(), arrive_after=PREEMPT_AFTER_STEPS,
+                late=high())
+            del eng._preempt   # the closure holds the engine: free it
+            eng.pages.allocator.assert_drained()
+            del eng
+        tok, res, s = runs_c[True][:3]
+        label = f"preemption ({tag})"
+        check(tok == runs_c[False][0], f"{label}: graphed tokens differ from "
+              f"the eager run's: {first_divergence(tok, runs_c[False][0])}")
+        check(s["sched_preempted"] >= 1, f"{label}: nothing was preempted")
+        victims = sorted(u for u, r in res.items() if r.preemptions)
+        check(victims and all(u < 8 for u in victims),
+              f"{label}: preempted {victims}")
+        bad = first_divergence(tok, ref)
+        kept = {u: v for u, v in bad.items() if u not in victims}
+        check(not kept, f"{label}: requests never preempted differ from the "
+              f"uninterrupted static run: {kept}")
+        early = {u: bad[u] for u in victims if u in bad and bad[u][0] < cut[u]}
+        check(not early, f"{label}: victims differ from the uninterrupted "
+              f"run before their preemption ({cut}): {early}")
+        log_sched(label, s)
+        log(f"[sched] {label}: graphed == eager; {s['sched_preempted']} "
+            f"preemption(s), victims {victims} after {cut} tokens; the "
+            "other requests == the uninterrupted static run, the victims up "
+            "to their preemption; pool drained")
+        margins = {}
+        for u in victims:
+            if u not in bad:
+                log(f"[sched] {label}: victim {u} == the uninterrupted run")
+                continue
+            # the resume re-prefills the generated tokens: in bf16 that
+            # rounds apart from the decode steps that made them (and with
+            # HDP on its scout prunes by block tiles, not per step), so a
+            # victim may part from the uninterrupted run at a near-tie, in
+            # the reference too (ROADMAP.md section 3)
+            i, a, b = bad[u]
+            margin, top1, t1, t2 = top2_margin(torch, c, params, cprompts[u],
+                                               ref[u], i)
+            ulps = margin / bf16_ulp(top1)
+            margins[u] = (i, margin, ulps)
+            log(f"[sched] {label}: victim {u} parts from the uninterrupted "
+                f"run at token {i} ({a} vs {b}), {i - cut[u]} after its "
+                f"resume; top-2 logit margin there {margin:.4e} = {ulps:.1f} "
+                f"bf16 ulps of the top logit {top1:.4f} (tokens {t1}, {t2})")
+            if not hdp_on:
+                check(ulps <= 4, f"{label}: victim {u} parts at a top-2 "
+                      f"margin of {ulps:.1f} bf16 ulps, not a near-tie")
+        out[f"preempt_{'hdp' if hdp_on else 'dense'}"] = {
+            "victims": victims, "cut": cut, "diverged": margins}
+
+    # ---- (d) reduced granite-8b, everything on: card vs CPU
+    small = reduced(get_config("granite-8b"))
+    dkw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32),
+               decode_horizon=4, prefix_cache=True, spec_decode=True,
+               stream_sched=True)
+    gpu = Engine(small, device="cuda", seed=5, **dkw)
+    cpu = Engine(small, {k: _tree_to(v, "cpu") for k, v in
+                         gpu.params.items()}, device="cpu", **dkw)
+    prng = np.random.default_rng(24)
+    sp = [prng.integers(1, 250, size=int(prng.integers(4, 24))).tolist()
+          for _ in range(5)] + [prng.integers(1, 250, size=40).tolist()]
+    toks, sums = [], []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        toks.append({u: r.tokens for u, r in e.run().items()})
+        sums.append(e.summary())
+    check(toks[0] == toks[1], f"reduced granite-8b, everything on: card "
+          f"tokens {toks[0]} != CPU tokens {toks[1]}")
+    check(sums[0]["sched_recycled"] == sums[1]["sched_recycled"] > 0
+          and sums[0]["spec_graphs"] > 0,
+          f"reduced granite-8b, everything on: recycled "
+          f"{sums[0]['sched_recycled']}/{sums[1]['sched_recycled']}, spec "
+          f"graphs {sums[0]['spec_graphs']}")
+    log(f"[sched] reduced granite-8b, HDP + horizon 4 + prefix cache + spec "
+        f"decode + stream scheduler (one prompt chunked): card tokens "
+        f"(graphed) == CPU tokens; recycled {sums[0]['sched_recycled']}, "
+        f"hits {sums[0]['prefix_hits']}, acceptance "
+        f"{sums[0]['acceptance_rate']:.4f}")
+    del gpu, cpu
+
+    # ---- (e) approx_softmax: reduced card vs CPU, full-width prefill
+    small = reduced(cfg)
+    small = small.replace(hdp=small.hdp.replace(approx_softmax=True))
+    ekw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32),
+               decode_horizon=4)
+    gpu = Engine(small, device="cuda", seed=6, **ekw)
+    cpu = Engine(small, {k: _tree_to(v, "cpu") for k, v in
+                         gpu.params.items()}, device="cpu", **ekw)
+    toks = []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        toks.append({u: r.tokens for u, r in e.run().items()})
+    backends = {p: gpu.resolved_backend(p) for p in ("prefill", "decode")}
+    check(toks[0] == toks[1], f"reduced qwen2-1.5b, approx_softmax: card "
+          f"tokens {toks[0]} != CPU tokens {toks[1]}")
+    check(backends == {"prefill": "xla_hdp", "decode": "paged_hdp_decode"},
+          f"approx_softmax resolved to {backends}")
+    log(f"[approx] reduced qwen2-1.5b, approx_softmax: card tokens (graphed) "
+        f"== CPU tokens; backends {backends}, decode stage 3 "
+        f"{gpu.summary()['attn_decode_stage3']}")
+    del gpu, cpu
+    from repro_torch.models import registry
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        1, cfg.vocab_size, (1, 1024))).cuda()
+    last, secs = {}, {}
+    spec = AttnSpec(kv_dtype="int8")
+    for approx in (False, True):
+        c = cfg.replace(hdp=cfg.hdp.replace(approx_softmax=approx,
+                                            calib="none"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = registry.apply_prefill(
+            c, params, {"tokens": toks},
+            registry.init_cache(c, 1, 1024, device="cuda"), attn=spec)
+        torch.cuda.synchronize()
+        secs[approx] = time.perf_counter() - t0
+        last[approx] = logits[0, -1].float()
+    delta = (last[True] - last[False]).abs().max().item()
+    check(bool(torch.isfinite(last[True]).all()) and np.isfinite(delta),
+          f"full-width approx_softmax prefill: logits finite "
+          f"{bool(torch.isfinite(last[True]).all())}, max |delta| {delta}")
+    log(f"[approx] qwen2-1.5b full width, one serving prefill of 1,024 "
+        f"tokens (xla_hdp): max |last-position logits, approx_softmax - "
+        f"exact| {delta:.4e} (max |logit| "
+        f"{last[False].abs().max().item():.3e}); prefill {secs[True]:.3f} s "
+        f"with, {secs[False]:.3f} s without")
+    out["approx"] = {"max_abs_delta": delta, "prefill_s": secs[True],
+                     "prefill_s_exact": secs[False]}
     return out
 
 
@@ -2414,6 +2802,8 @@ def main() -> int:
                 "5 serving", phase_serving, torch, cfg, params)
             verify = timed("5d prefix, spec", phase_spec_prefix, torch, cfg,
                            params, serve_launches["h1_tokens"])
+            stream = timed("5f stream scheduler, approx_softmax",
+                           phase_stream, torch, cfg, params)
             del params
             fum_by_fmt, granite = timed("5b granite-8b", phase_granite,
                                         torch)
@@ -2452,6 +2842,8 @@ def main() -> int:
                   if k.startswith("olmoe")}
     kernels[0]["launches_by_run"] = {
         "qwen2-1.5b graphed, horizon 1": serve_launches["fum"]["split"],
+        "qwen2-1.5b stream scheduler, 24 requests, graphed, horizon 4":
+            stream["fum_runs"],
         **{k: v for k, v in moe["fum_runs"].items() if k not in olmoe_runs}}
     for Sq in DRAFT_LENS:
         k_ms, p_ms, bound, bound_by = fum_timed[f"verify{Sq}"]
@@ -2495,6 +2887,7 @@ def main() -> int:
         "launches": olmoe_runs["olmoe-1b-7b graphed, horizon 1"],
         "launches_by_run": olmoe_runs,
         "max_abs_err": max(fum_err["olmoe"], moe["fum_err"]),
+        "max_abs_err_vs_float64_uniform_codes": fum_err["olmoe_f64"],
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
@@ -2542,6 +2935,7 @@ def main() -> int:
                 "olmoe-1b-7b aligned prefill": moe["prefill"][ename]}
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
+    log(f"[sched] phase 5f {json.dumps({k: v for k, v in stream.items() if k != 'fum_runs'})}")
     log(f"[phase] wall seconds {json.dumps(walls)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

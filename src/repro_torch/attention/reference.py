@@ -7,9 +7,10 @@ decode, dense and paged layouts, causal/window masks, per-slot
 positions, HDP on or off, draft and verify decode. Everything is
 computed densely with explicit masks (no loops, no kernels, no
 fetch-upon-mask gather), so it is the ground truth the other backends
-are held against and the last resort of the auto chain. The paper's
-polynomial softmax (``approx_softmax``) is not ported yet (ROADMAP.md
-section 1, item 5) and raises.
+are held against and the last resort of the auto chain. With
+``approx_softmax`` the HDP prefill takes the paper's polynomial softmax,
+as the reference's does; decode takes the exact softmax either way, as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -112,18 +113,10 @@ def _dense_exact(q, k, v, valid):
     return torch.einsum("bngqs,bsnh->bngqh", p, v.to(F32))
 
 
-def _no_approx_softmax(hdp):
-    if hdp.approx_softmax:
-        raise NotImplementedError(
-            "approx_softmax is not ported yet (ROADMAP.md section 1, "
-            "item 5: core/ remainder)")
-
-
 def _hdp_prefill(q, k, v, call, q_pos, k_pos):
     """Blockwise scout on the (bq x bk) grid — Algorithm 2, fully dense."""
     from repro_torch.models.attention import _mask_bias
     hdp = call.hdp
-    _no_approx_softmax(hdp)
     B, N, G, Sq, hd = q.shape
     Sk = k.shape[1]
     bq, bk = hdp.block_q, hdp.block_k
@@ -157,7 +150,9 @@ def _hdp_prefill(q, k, v, call, q_pos, k_pos):
         s = s - torch.einsum("bngqh,bsnh->bngqs", fq, fk)
     s = s * (scale / (sq * sk))
     keep_e = blocking.expand_block_mask(keep, bq, bk) & valid
-    p = blocking.masked_softmax(s, keep_e)
+    softmax = (blocking.approx_softmax if hdp.approx_softmax
+               else blocking.masked_softmax)
+    p = softmax(s, keep_e)
     out = torch.einsum("bngqs,bsnh->bngqh", p, vp.to(F32))
     out = out[:, :, :, :Sq] * head_kept[..., None, None].to(F32)
 
@@ -176,7 +171,6 @@ def _hdp_decode(q, k, v, call, q_pos, k_pos, *, ik=None, fixed_grid=False,
     from repro_torch.models.attention import (_expand_keep, _fixed_split,
                                               _head_gate, _mask_bias)
     hdp = call.hdp
-    _no_approx_softmax(hdp)
     bk = hdp.block_k
     Sk = k.shape[1]
     Skp = _ceil_to(Sk, bk)

@@ -16,8 +16,16 @@ in the model dtype) and ``--kv-scale`` its scales (grid or absmax);
 ``--prefix-cache`` shares prompt-prefix pages through the radix tree
 (``--shared-prefix N`` gives every prompt a common random prefix of N
 tokens, ``--num-pages`` sizes the pool); ``--spec-decode`` serves by
-self-speculative rounds of ``--draft-len`` tokens. Each defaults to its
-REPRO_* environment variable, as in the reference.
+self-speculative rounds of ``--draft-len`` tokens. ``--stream-sched``
+serves through the continuous-batching stream scheduler (token-budget
+admission, mid-run slot recycling, chunked prefill interleaved with
+decode, ``--prefill-chunk`` tokens a step, a watchdog after
+``--watchdog-steps`` idle steps); with ``--arrival-rate R`` the requests
+arrive as a seeded Poisson stream of R a step on the engine's step
+clock (``poisson_arrivals``), drawn after the prompts, so the prompts
+and the tokens are the static run's. The summary then grows the
+scheduler's counters, TTFT, TPOT and the queue's wait and depth. Each
+defaults to its REPRO_* environment variable, as in the reference.
 Weights are random, drawn from ``--seed``; prompt lengths are drawn
 from [bucket/4, max_len - max_new] with the largest prefill bucket
 (1024, or 32 with ``--reduced``; longer prompts prefill in chunks), and
@@ -26,6 +34,7 @@ from [bucket/4, max_len - max_new] with the largest prefill bucket
     python -m repro_torch.launch.serve --arch granite-8b --kv-dtype fp8_v
     python -m repro_torch.launch.serve --prefix-cache --shared-prefix 512 \
         --spec-decode --draft-len 4
+    python -m repro_torch.launch.serve --stream-sched --arrival-rate 0.5
 """
 from __future__ import annotations
 
@@ -35,6 +44,15 @@ import sys
 from typing import Optional, Sequence
 
 import numpy as np
+
+
+def poisson_arrivals(rng: np.random.Generator, rate: float,
+                     n: int) -> np.ndarray:
+    """Arrival steps of ``n`` requests: the floor of the running sum of
+    exponential gaps of mean ``1/rate`` steps (the reference traffic
+    generator's Poisson rule, ``benchmarks/traffic.py``)."""
+    gaps = rng.exponential(1.0 / rate, size=n)
+    return np.floor(np.cumsum(gaps)).astype(int)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -100,6 +118,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--draft-len", type=int, default=None,
                     help="tokens proposed and verified per round; default "
                          "honors REPRO_DRAFT_LEN, else 4")
+    ap.add_argument("--stream-sched", dest="stream_sched",
+                    action="store_true", default=None,
+                    help="continuous-batching stream scheduler: token-"
+                         "budget admission, prefix-hit-first order, mid-run "
+                         "slot recycling, chunked prefill interleaved with "
+                         "decode; the static run's tokens. Default honors "
+                         "REPRO_STREAM_SCHED, else off")
+    ap.add_argument("--no-stream-sched", dest="stream_sched",
+                    action="store_false",
+                    help="force the stream scheduler off (the static leg)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="mean request arrivals per engine step (a seeded "
+                         "Poisson stream): requests are submitted while "
+                         "the engine decodes; 0 submits all up front. "
+                         "Needs --stream-sched")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="interleaved-prefill token budget per engine step "
+                         "for prompts past the largest bucket; default one "
+                         "largest-bucket chunk a step")
+    ap.add_argument("--watchdog-steps", type=int, default=500,
+                    help="idle engine steps with requests pending before "
+                         "the scheduler's watchdog sheds the stalled queue "
+                         "head")
     return ap.parse_args(argv)
 
 
@@ -107,7 +148,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     from repro_torch.attention import AttnSpec
     from repro_torch.configs import get_config, reduced
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine, Request, SchedulerConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -124,19 +165,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          f"--shared-prefix {args.shared_prefix}")
     spec = AttnSpec(backend=args.backend, layout=args.layout,
                     kv_dtype=args.kv_dtype, kv_scale=args.kv_scale)
+    sched = SchedulerConfig(prefill_chunk_tokens=args.prefill_chunk,
+                            watchdog_steps=args.watchdog_steps) \
+        if args.stream_sched else None
     eng = Engine(cfg, seed=args.seed, device=args.device,
                  max_batch=args.max_batch, max_len=max_len,
                  prefill_buckets=buckets, collect_stats=True, attn=spec,
                  num_pages=args.num_pages, prefix_cache=args.prefix_cache,
                  decode_horizon=args.decode_horizon,
-                 spec_decode=args.spec_decode, draft_len=args.draft_len)
+                 spec_decode=args.spec_decode, draft_len=args.draft_len,
+                 stream_sched=args.stream_sched, sched=sched)
+    if args.arrival_rate > 0 and eng.sched is None:
+        raise SystemExit("--arrival-rate needs --stream-sched")
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(1, cfg.vocab_size, args.shared_prefix).tolist()
+    reqs = []
     for uid in range(args.requests):
         n = int(rng.integers(lo, hi + 1))
-        eng.submit(Request(uid, shared + rng.integers(
+        reqs.append(Request(uid, shared + rng.integers(
             1, cfg.vocab_size, n).tolist(), max_new_tokens=args.max_new))
-    results = eng.run()
+    if args.arrival_rate > 0:
+        # arrival steps drawn after the prompts: the prompts (and the
+        # tokens) stay the static run's
+        arrive = poisson_arrivals(rng, args.arrival_rate, args.requests)
+        step = 0
+        while reqs or eng._n_pending():
+            while reqs and arrive[reqs[0].uid] <= step:
+                eng.submit(reqs.pop(0))
+            eng.step()
+            step += 1
+        results = eng.results()
+    else:
+        for req in reqs:
+            eng.submit(req)
+        results = eng.run()
     summary = eng.summary()
     # order-independent fingerprint of every generated token
     summary["tokens_fp"] = int(np.sum([

@@ -204,11 +204,9 @@ def hdp_prefill_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
 
     Pass A: integer scout per q-block -> theta, row threshold, keep
     mask, head importance. Pass B: approximate attention (QK^T - FQ FK^T)
-    on surviving blocks. Python loops over q-blocks take the place of
-    the reference's ``lax.scan``."""
-    if hdp.approx_softmax:
-        raise NotImplementedError(
-            "approx_softmax is not ported yet (ROADMAP.md section 1, item 5)")
+    on surviving blocks, with the exact softmax or, with
+    ``hdp.approx_softmax``, the HDP softmax unit's polynomial one. Python
+    loops over q-blocks take the place of the reference's ``lax.scan``."""
     B, N, G, Sq, hd = q.shape
     Sk = k.shape[1]
     bq, bk = hdp.block_q, hdp.block_k
@@ -259,9 +257,12 @@ def hdp_prefill_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
         keep_e = keep_rows[i].repeat_interleave(bk, dim=-1)[..., None, :] \
             & valid
         s = torch.where(keep_e, s, _NEG)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = torch.where(keep_e, p, 0.0)
-        p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+        if hdp.approx_softmax:
+            p = blocking.approx_softmax(s, keep_e)
+        else:
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            p = torch.where(keep_e, p, 0.0)
+            p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
         outs.append(_einsum_f32("bngqs,bsnh->bngqh", p.to(vp.dtype), vp))
     out = torch.cat(outs, dim=3)[:, :, :, :Sq]
     out = out * head_kept[..., None, None].to(out.dtype)
@@ -355,10 +356,9 @@ def hdp_decode_attention(q, k, v, *, q_pos, k_pos, hdp: HDPConfig,
     ``per_query`` scouts each query row for itself (the verify shape);
     ``draft`` (a DraftProfile, its thresholds already in ``hdp``) scores
     from the scout copies, recomputed here from the cache's K with the
-    paged pool's fraction grid, so the scores equal the paged draft's."""
-    if hdp.approx_softmax:
-        raise NotImplementedError(
-            "approx_softmax is not ported yet (ROADMAP.md section 1, item 5)")
+    paged pool's fraction grid, so the scores equal the paged draft's.
+    The softmax is the exact one whatever ``hdp.approx_softmax`` says:
+    the reference's decode never reads that flag."""
     hd = q.shape[-1]
     Sk = k.shape[1]
     bk = hdp.block_k

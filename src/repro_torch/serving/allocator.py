@@ -23,10 +23,17 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.common.transient import TransientError
 
-class PoolExhausted(RuntimeError):
-    """The page pool cannot satisfy an allocation right now (a transient
-    condition: defer the request and retry once pages come back)."""
+
+class PoolExhausted(TransientError):
+    """The page pool cannot satisfy an allocation right now.
+
+    A typed exhaustion signal, so that callers can tell recoverable
+    pressure (defer the request, evict, retry next tick: what the stream
+    scheduler's token-budget admission does) from genuine bugs that also
+    surface as RuntimeError. It is a `TransientError`: retry layers may
+    back off and try again."""
 
 
 class PageAllocator:

@@ -58,12 +58,29 @@ per-slot layout
   int8 code -128), fenced like the writes. ``k`` is ``draft_len``
   clamped to the longest remaining budget; on a CUDA device each width
   is one CUDA graph, captured at its first round;
+* the **stream scheduler** (``stream_sched=`` or ``REPRO_STREAM_SCHED``;
+  ``scheduler.StreamScheduler``) — ``submit()`` enqueues into a waiting
+  queue and every ``step()`` runs one scheduling tick before its decode:
+  token-budget admission against free slots and free-or-evictable
+  pages, priority and biggest-prefix-hit-first ordering, slots vacated
+  mid-run refilled at once, long cold prompts prefilled a chunk slice
+  per step while the batch decodes, preemption of lower-priority
+  requests for a starved queue head (recompute: the generated tokens
+  are folded into the prompt), and a watchdog that sheds a request that
+  can never be admitted. Admission writes the graph's static buffers
+  between replays, on the stream the graph replays on. Per-request
+  TTFT, TPOT and queue wait, taken at the host read of each horizon,
+  and queue-depth aggregates land in ``summary()``; ``serve()`` yields
+  Results in completion order. Scheduling reorders admission only, so
+  every request's tokens are the static engine's;
 * EOS and budget handling, and the per-slot non-finite tripwire (only
   the faulted request aborts); a finished request frees its pages at
-  once (a dense slot is cleared).
+  once (a dense slot is cleared); ``cancel`` aborts a request wherever
+  it is, with a typed ``Result(status="cancelled")``.
 
-Not ported yet (ROADMAP.md section 1): acceptance-adaptive speculation,
-the stream scheduler, fault handling and tensor parallelism.
+Not ported yet (ROADMAP.md section 1): acceptance-adaptive speculation
+and the cost policy (item 7), fault injection, deadlines and replicas
+(items 3b and 3c), and tensor parallelism (item 8).
 """
 from __future__ import annotations
 
@@ -72,6 +89,7 @@ import gc
 import math
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -89,6 +107,8 @@ from repro_torch.models.layers import resolve_device
 from repro_torch.serving.allocator import PoolExhausted, RadixPrefixCache
 from repro_torch.serving.kv_cache import (KV_DTYPES, PagedKVCache, SlotCache,
                                           cache_bytes)
+from repro_torch.serving.scheduler import (QueueFull, SchedulerConfig,
+                                           StreamScheduler)
 
 #: env default of ``decode_horizon`` (the reference's name)
 HORIZON_ENV = "REPRO_DECODE_HORIZON"
@@ -101,6 +121,9 @@ PREFIX_ENV = "REPRO_PREFIX_CACHE"
 SPEC_ENV = "REPRO_SPEC_DECODE"
 #: env default of ``draft_len`` (else 4)
 DRAFT_ENV = "REPRO_DRAFT_LEN"
+#: env default of ``stream_sched`` (else off, or on when a ``sched``
+#: config is passed)
+STREAM_ENV = "REPRO_STREAM_SCHED"
 #: families with a seq-indexed KV cache: the paged layout, chunked
 #: prefill, the prefix cache and speculative verify serve them
 PAGEABLE_FAMILIES = ("dense", "moe", "vlm")
@@ -136,6 +159,20 @@ class Request:
     prompt: Sequence[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    #: admission priority (the scheduler's "prefix" order): higher admits
+    #: first, and only a strictly lower-priority running request may be
+    #: preempted to unblock a starved queue head
+    priority: int = 0
+    # --- preempt-and-restore bookkeeping (the engine's) ---
+    #: tokens generated before the last preemption: folded into
+    #: ``prompt`` for the recompute resume, and re-emitted at the head of
+    #: the final ``Result.tokens``
+    prior_tokens: Tuple[int, ...] = ()
+    #: prompt length of the original submission (``prompt`` grows with
+    #: each resume); None until the first preemption
+    orig_prompt_len: Optional[int] = None
+    #: times the request was preempted so far
+    preemptions: int = 0
 
 
 @dataclasses.dataclass
@@ -146,11 +183,25 @@ class Result:
     prefill_s: float = 0.0
     decode_steps: int = 0
     #: False when ``run`` ran out of steps before the request finished
-    #: (tokens then hold the partial generation)
+    #: (tokens then hold the partial generation), and for every status
+    #: but "ok"
     complete: bool = True
-    #: "ok" | "error" (non-finite logits: the per-slot tripwire)
+    #: "ok" | "cancelled" | "error" (non-finite logits: the per-slot
+    #: tripwire; or shed by the scheduler's watchdog)
     status: str = "ok"
     error: Optional[str] = None
+    #: times the request was preempted before it finished (its tokens
+    #: equal an uninterrupted run's all the same)
+    preemptions: int = 0
+    #: seconds from submit() to slot activation (queue and prefill wait)
+    queue_wait_s: Optional[float] = None
+    #: seconds from submit() to the first generated token, at the
+    #: granularity of the host read: every token of one horizon or
+    #: speculative round shares that read's timestamp
+    ttft_s: Optional[float] = None
+    #: mean seconds per token after the first (same granularity; None
+    #: below two tokens)
+    tpot_s: Optional[float] = None
 
 
 class Engine:
@@ -194,6 +245,18 @@ class Engine:
         speculative round) as one captured CUDA graph (the default);
         False steps eagerly, op by op. A failed capture or replay
         raises. Ignored on the CPU, which always steps eagerly.
+    stream_sched: the continuous-batching stream scheduler: ``submit()``
+        enqueues into a waiting queue and every ``step()`` runs one
+        ``scheduler.StreamScheduler`` tick (token-budget admission,
+        priority and prefix-hit-first order, mid-run slot recycling,
+        interleaved chunked prefill, preemption, watchdog) before its
+        decode. Composes with every decode mode and changes no request's
+        tokens, only when and in what order requests are admitted. None
+        reads REPRO_STREAM_SCHED (default off); passing a ``sched``
+        config implies True.
+    sched: SchedulerConfig of the scheduler (chunk token budget per
+        step, admission order, watchdog, queue bound, preemption); None
+        uses the defaults.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
@@ -207,7 +270,9 @@ class Engine:
                  spec_decode: Optional[bool] = None,
                  draft_len: Optional[int] = None,
                  draft_profile: Optional[DraftProfile] = None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True,
+                 stream_sched: Optional[bool] = None,
+                 sched: Optional[SchedulerConfig] = None):
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
         spec = attn if attn is not None else default_spec()
@@ -307,6 +372,19 @@ class Engine:
         self._results: Dict[int, Result] = {}
         self._queue: List[Request] = []
         self.metrics: Dict[str, float] = self._fresh_metrics()
+        #: submit() timestamps by uid (popped at finish) and the order in
+        #: which requests finished, which ``serve()`` drains
+        self._t_submit: Dict[int, float] = {}
+        self._finished: List[int] = []
+        #: activation counter: the preemption victim's tiebreak (the
+        #: newest activation goes first: it has the least sunk work)
+        self._act_seq = 0
+        if stream_sched is None:
+            env = os.environ.get(STREAM_ENV, "")
+            stream_sched = (env.lower() in ("1", "true", "on") if env
+                            else sched is not None)
+        self.sched = StreamScheduler(self, sched or SchedulerConfig()) \
+            if stream_sched else None
         self._init_decode_state()
 
     def _init_decode_state(self) -> None:
@@ -360,7 +438,11 @@ class Engine:
                 or self.buckets[-1] % self.cfg.hdp.block_q == 0)
 
     def submit(self, req: Request) -> None:
-        """Enqueue a request."""
+        """Enqueue a request: into the stream scheduler's waiting queue
+        when it is on, else into the static queue. Raises `QueueFull`
+        when the scheduler's waiting queue is at
+        ``SchedulerConfig.max_queue_depth`` (typed backpressure: the
+        request is not enqueued and no Result is recorded for it)."""
         plen = len(req.prompt)
         if plen == 0:
             raise ValueError(f"request {req.uid}: empty prompt")
@@ -373,32 +455,123 @@ class Engine:
                 f"largest prefill bucket ({self.buckets[-1]}), and chunked "
                 "prefill needs the largest bucket to be a multiple of HDP's "
                 f"block_q ({self.cfg.hdp.block_q})")
-        self._queue.append(req)
+        if self.sched is not None:
+            depth_max = self.sched.cfg.max_queue_depth
+            if depth_max is not None and self.sched.depth >= depth_max:
+                self.metrics["queue_rejected"] += 1
+                raise QueueFull(
+                    f"request {req.uid}: waiting queue at "
+                    f"max_queue_depth={depth_max}; back off and resubmit")
+        self._t_submit[req.uid] = time.perf_counter()
+        if self.sched is not None:
+            self.sched.enqueue(req)
+        else:
+            self._queue.append(req)
 
-    def run(self, max_steps: int = 10_000) -> Dict[int, Result]:
-        """Step until every submitted request completes (or ``max_steps``
-        steps ran; unfinished Results are then marked incomplete)."""
+    def _n_pending(self) -> int:
+        """Requests not finished yet: active slots, the static queue, and
+        the scheduler's waiting and mid-prefill requests."""
+        n = len(self._queue) + len(self._active)
+        if self.sched is not None:
+            n += self.sched.depth
+        return n
+
+    def _pending_requests(self) -> List[Request]:
+        reqs = list(self._queue)
+        if self.sched is not None:
+            reqs += self.sched.pending_requests()
+        return reqs
+
+    def _sample_queue_depth(self) -> None:
+        """One queue-depth sample per step, after the tick: the depth the
+        step decodes under."""
+        d = self.sched.depth
+        m = self.metrics
+        m["queue_depth_sum"] += d
+        m["queue_depth_samples"] += 1
+        m["queue_depth_peak"] = max(m["queue_depth_peak"], d)
+
+    def run(self, max_steps: int = 10_000, *,
+            strict: bool = False) -> Dict[int, Result]:
+        """Step until every submitted request completes. If ``max_steps``
+        steps run out first, the unfinished Results are marked
+        ``complete=False`` (active slots keep their partial tokens,
+        waiting requests get an empty Result) and a RuntimeWarning is
+        issued, or with ``strict`` a RuntimeError raised; the engine's
+        state stays intact, so a further ``run()`` continues."""
         steps = 0
-        while (self._queue or self._active) and steps < max_steps:
+        while self._n_pending() and steps < max_steps:
             self.step()
             steps += 1
-        for st in self._active.values():
-            res = self._results[st["req"].uid]
-            res.tokens = list(st["generated"])
-            res.decode_steps = len(res.tokens)
-            res.complete = False
-        for req in self._queue:
-            self._results[req.uid] = Result(req.uid, len(req.prompt), [],
-                                            complete=False)
+        if self._n_pending():
+            waiting = self._pending_requests()
+            msg = (f"Engine.run: step budget {max_steps} exhausted with "
+                   f"{len(self._active)} active and {len(waiting)} "
+                   f"queued request(s) unfinished")
+            for st in self._active.values():
+                res = self._results[st["req"].uid]
+                res.tokens = list(st["generated"])
+                res.decode_steps = len(res.tokens)
+                res.complete = False
+            for req in waiting:
+                self._results[req.uid] = Result(req.uid, len(req.prompt), [],
+                                                complete=False)
+            if strict:
+                raise RuntimeError(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return dict(self._results)
+
+    def serve(self, reqs: Optional[Sequence[Request]] = None, *,
+              max_steps: int = 10_000):
+        """Streaming serve loop: yields each Result as it completes.
+
+        ``reqs`` are submitted first (beside anything already submitted);
+        more may be submitted between yields, and the loop steps until
+        nothing is pending. Results come in completion order. Raises
+        RuntimeError when ``max_steps`` steps pass without draining."""
+        if reqs is not None:
+            for r in reqs:
+                self.submit(r)
+        emitted = len(self._finished)   # results from before the loop
+        steps = 0
+        while self._n_pending():
+            if steps >= max_steps:
+                raise RuntimeError(
+                    f"Engine.serve: step budget {max_steps} exhausted "
+                    f"with {self._n_pending()} request(s) unfinished")
+            self.step()
+            steps += 1
+            while emitted < len(self._finished):
+                uid = self._finished[emitted]
+                emitted += 1
+                yield self._results[uid]
+
+    def results(self) -> Dict[int, Result]:
+        """Every Result recorded so far (finished requests, and the
+        active ones' partial shells)."""
         return dict(self._results)
 
     def step(self) -> int:
-        """Admit what fits, then one decode horizon over all slots: up to
-        ``decode_horizon`` steps (never past the longest remaining
-        budget), or with ``spec_decode`` one speculative round, with one
-        host sync. Returns the number of active slots stepped."""
-        self._admit()
+        """Admit what fits (with the stream scheduler: one tick, whose
+        progress feeds its watchdog), then one decode horizon over all
+        slots: up to ``decode_horizon`` steps (never past the longest
+        remaining budget), or with ``spec_decode`` one speculative
+        round, with one host sync. Returns the number of active slots
+        stepped. (The reference also flushes pending cost-policy probes
+        at the top of a step, ``_maybe_retune``; the port has no cost
+        policy until ROADMAP.md section 1, item 7.)"""
+        if self.sched is not None:
+            t0 = time.perf_counter()
+            ticked = self.sched.tick()
+            # wall time of the tick: its policy, and the admissions'
+            # prefills (counted in prefill_s as well)
+            self.metrics["sched_tick_s"] += time.perf_counter() - t0
+            self._sample_queue_depth()
+        else:
+            self._admit()
         if not self._active:
+            if self.sched is not None:
+                self.sched.watchdog(ticked)
             return 0
         n_stepped = len(self._active)
         rem_max = max(st["req"].max_new_tokens - len(st["generated"])
@@ -409,6 +582,8 @@ class Engine:
             self._spec_step(min(self.draft_len, rem_max))
         else:
             self._decode_horizon(min(self.horizon, rem_max))
+        if self.sched is not None:
+            self.sched.watchdog(True)      # decode progressed
         return n_stepped
 
     # ------------------------------------------------------------ admission
@@ -714,6 +889,77 @@ class Engine:
         self.metrics["prefill_calls"] += 1
         self._install(req, cache, 0, dt)
 
+    # ------------------------------------------------- interleaved prefill
+    def _begin_stream_prefill(self, req: Request) -> Dict[str, Any]:
+        """Open an incremental chunked prefill for the stream scheduler.
+
+        The slot and the request's whole page footprint are reserved up
+        front, so a begun prefill can always complete: later pool
+        pressure defers other admissions and never strands a half
+        prefilled prompt. ``_advance_stream_prefill`` advances the
+        returned state one token-budget slice per engine step, with
+        decode running in between. The request cache is allocated here,
+        outside any graph capture, from the default memory pool."""
+        pages = self._reserve(self._pages_for(req)) if self.paged else []
+        slot = self._free.pop(0)
+        return {"req": req, "slot": slot, "pages": pages,
+                "prompt": np.asarray(req.prompt, np.int64),
+                "cache": registry.init_cache(self.cfg, 1, self.max_len,
+                                             device=self.device),
+                "off": 0, "spent": 0.0}
+
+    @torch.no_grad()
+    def _advance_stream_prefill(self, st: Dict[str, Any],
+                                budget: int) -> bool:
+        """Advance an interleaved prefill by at least one chunk, up to
+        ``budget`` prompt tokens; install and activate it when it is
+        done (returns True). The chunk step and the install are the ones
+        ``_prefill_long`` runs in one blocking loop, so the tokens are
+        identical; only the pacing differs."""
+        prompt = st["prompt"]
+        plen = len(prompt)
+        t0 = time.perf_counter()
+        done = 0
+        while st["off"] < plen and done < budget:
+            off0 = st["off"]
+            st["off"] = self._chunk_step(prompt, st["cache"], off0)
+            done += st["off"] - off0
+            self.metrics["sched_chunk_tokens"] += st["off"] - off0
+        self._sync()
+        st["spent"] += time.perf_counter() - t0
+        if st["off"] < plen:
+            return False
+        self.metrics["prefill_s"] += st["spent"]
+        self.metrics["prefill_calls"] += 1
+        req, slot = st["req"], st["slot"]
+        try:
+            if self.paged:
+                self.pages.assign(slot, st["pages"])
+                st["pages"] = []           # owned by the slot from here
+            self._store.insert(st["cache"], slot, row=0)
+            self._activate(req, slot, st["spent"])
+        except BaseException:
+            # roll the slot back; _abort_stream_prefill (the scheduler's
+            # unwind) returns it and any pages still held, and requeues
+            if self.paged and self.pages.slot_pages(slot):
+                self.pages.free(slot)
+            self._active.pop(slot, None)
+            raise
+        st["installed"] = True
+        if self.prefix is not None:
+            self._register_prefix(req, slot)
+        return True
+
+    def _abort_stream_prefill(self, st: Dict[str, Any]) -> None:
+        """Unwind a failed interleaved prefill: pages and slot return to
+        their pools (a prefill that reached activation keeps its slot:
+        the live request owns the teardown from there)."""
+        if st.get("installed"):
+            return
+        if self.paged and st["pages"]:
+            self.pages.allocator.unref(st["pages"])
+        self._free.insert(0, st["slot"])
+
     def _install(self, req: Request, one_cache, row: int,
                  prefill_s: float) -> None:
         """Give a prefilled request a slot and pages, and arm it."""
@@ -745,9 +991,17 @@ class Engine:
         at its own position (an idempotent K/V rewrite, in an owned page:
         ``floor`` fences the shared prefix) and yields the first
         generated token."""
-        self._active[slot] = {"req": req, "generated": []}
-        self._results[req.uid] = Result(req.uid, len(req.prompt), [],
-                                        prefill_s=prefill_s)
+        self._active[slot] = {"req": req, "generated": [],
+                              "act_seq": self._act_seq}
+        self._act_seq += 1
+        # prompt_len is the original submission's (a resume folds the
+        # generated tokens into req.prompt)
+        res = Result(req.uid, req.orig_prompt_len or len(req.prompt), [],
+                     prefill_s=prefill_s, preemptions=req.preemptions)
+        t_sub = self._t_submit.get(req.uid)
+        if t_sub is not None:
+            res.queue_wait_s = time.perf_counter() - t_sub
+        self._results[req.uid] = res
         self._tok[slot] = int(req.prompt[-1])
         self._pos[slot] = len(req.prompt) - 1
         self._act[slot] = True
@@ -905,7 +1159,8 @@ class Engine:
         for _ in range(length):
             self._step_once()
         hist, stats = self._read_history(length)
-        self.metrics["decode_s"] += time.perf_counter() - t0
+        t_sync = time.perf_counter()
+        self.metrics["decode_s"] += t_sync - t0
         toks, act, fault = hist[:, 0], hist[:, 1] > 0, hist[:, 2] > 0
         any_act = act.any(axis=1)
         ran = int(any_act.sum())               # steps with any active slot
@@ -919,17 +1174,10 @@ class Engine:
                 if not act[t, slot]:
                     continue
                 if fault[t, slot]:
-                    self._finish(slot, status="error",
+                    self._finish(slot, t_sync, status="error",
                                  error="non-finite logits (per-slot tripwire)")
                     continue
-                st = self._active[slot]
-                req = st["req"]
-                tok = int(toks[t, slot])
-                st["generated"].append(tok)
-                self.metrics["tokens_out"] += 1
-                if len(st["generated"]) >= req.max_new_tokens or \
-                        (req.eos_id is not None and tok == req.eos_id):
-                    self._finish(slot)
+                self._emit(slot, int(toks[t, slot]), t_sync)
 
     # ---------------------------------------------------- speculative round
     @torch.no_grad()
@@ -1059,7 +1307,8 @@ class Engine:
         if self._hist_stats is not None:
             bufs.append(self._hist_stats[0])
         out = self._read(bufs)
-        self.metrics["decode_s"] += time.perf_counter() - t0
+        t_sync = time.perf_counter()
+        self.metrics["decode_s"] += t_sync - t0
         toks, com = out[0][:, 0], out[0][:, 1] > 0             # [k, B]
         fault = out[0][0, 2] > 0                                 # [B]
         n_act = len(self._active)
@@ -1078,36 +1327,63 @@ class Engine:
             if not com[t].any():
                 break
             for slot in list(self._active):
-                if not com[t, slot]:
-                    continue
-                st = self._active[slot]
-                req = st["req"]
-                tok = int(toks[t, slot])
-                st["generated"].append(tok)
-                self.metrics["tokens_out"] += 1
-                if len(st["generated"]) >= req.max_new_tokens or \
-                        (req.eos_id is not None and tok == req.eos_id):
-                    self._finish(slot)
+                if com[t, slot]:
+                    self._emit(slot, int(toks[t, slot]), t_sync)
         # a faulted slot committed nothing (the tripwire fires at the
         # verify, before any accept): abort it after the drain
         for slot in list(self._active):
             if fault[slot]:
-                self._finish(slot, status="error",
+                self._finish(slot, t_sync, status="error",
                              error="non-finite logits (per-slot tripwire)")
 
-    def _finish(self, slot: int, *, status: str = "ok",
-                error: Optional[str] = None) -> None:
+    def _emit(self, slot: int, tok: int, t_sync: float) -> None:
+        """One generated token of an active slot, read at ``t_sync`` (the
+        first token's read is its request's TTFT); finishes the slot at
+        its budget or EOS."""
+        st = self._active[slot]
+        req = st["req"]
+        if not st["generated"]:
+            st["t_first"] = t_sync
+        st["generated"].append(tok)
+        self.metrics["tokens_out"] += 1
+        if len(st["generated"]) >= req.max_new_tokens or \
+                (req.eos_id is not None and tok == req.eos_id):
+            self._finish(slot, t_sync)
+
+    def _finish(self, slot: int, now: Optional[float] = None, *,
+                status: str = "ok", error: Optional[str] = None) -> None:
+        """Finish an active request: its Result (tokens generated before
+        a preemption first, then TTFT and TPOT from ``now``, the host
+        read that ended it), then the slot parked."""
         st = self._active.pop(slot)
-        res = self._results[st["req"].uid]
-        res.tokens = list(st["generated"])
+        req = st["req"]
+        res = self._results[req.uid]
+        res.tokens = list(req.prior_tokens) + st["generated"]
         res.decode_steps = len(res.tokens)
         res.complete = status == "ok"
         res.status, res.error = status, error
-        # park the slot (the decode step has parked its device state
-        # already): its table row is zeroed, so later decode writes of
-        # the parked slot land in the scratch page; a dense slot is
-        # cleared. Unref, not free: pages the prefix cache or another
-        # slot still holds survive the slot
+        res.preemptions = req.preemptions
+        if status != "ok":
+            self._count_status(status)
+        t_sub = self._t_submit.pop(req.uid, None)
+        t_first = st.get("t_first")
+        if t_sub is not None and t_first is not None:
+            res.ttft_s = t_first - t_sub
+        if now is not None and t_first is not None and len(res.tokens) > 1:
+            res.tpot_s = (now - t_first) / (len(res.tokens) - 1)
+        self._finished.append(req.uid)
+        self._park_slot(slot)
+
+    def _park_slot(self, slot: int) -> None:
+        """Release a slot's cache state, park its static device state,
+        and return it to the free pool. Its table row is zeroed (later
+        decode writes of the parked slot land in the scratch page; a
+        dense slot is cleared); unref, not free: pages the prefix cache
+        or another slot still holds survive the slot. The decode step
+        parks a slot that finished on the device itself, but a
+        preempted or cancelled slot is still armed there, so the host
+        zeroes its token, position, active flag, budget and floor (on
+        the stream the graph replays on, between replays)."""
         if self.paged:
             self.pages.free(slot)
         else:
@@ -1118,6 +1394,86 @@ class Engine:
         self._rem[slot] = 0
         self._floor[slot] = 0
         self._free.append(slot)
+
+    def _count_status(self, status: str) -> None:
+        key = {"cancelled": "req_cancelled",
+               "deadline": "req_deadline"}.get(status, "req_errors")
+        self.metrics[key] += 1
+
+    # ---------------------------------------------------- request lifecycle
+    def _fail_request(self, req: Request, *, status: str,
+                      error: Optional[str] = None) -> None:
+        """Finish a request that never reached a slot, or no longer holds
+        one, with a typed Result that is not "ok"; tokens generated
+        before a preemption are kept."""
+        res = Result(req.uid, req.orig_prompt_len or len(req.prompt),
+                     list(req.prior_tokens), complete=False, status=status,
+                     error=error, preemptions=req.preemptions)
+        res.decode_steps = len(res.tokens)
+        t_sub = self._t_submit.pop(req.uid, None)
+        if t_sub is not None:
+            res.queue_wait_s = time.perf_counter() - t_sub
+        self._results[req.uid] = res
+        self._finished.append(req.uid)
+        self._count_status(status)
+
+    def cancel(self, uid: int, *, status: str = "cancelled",
+               error: Optional[str] = None) -> bool:
+        """Abort a request wherever it is (decoding in a slot, in an
+        interleaved prefill, or queued), unwinding its pages, slot and
+        radix refs, with a typed ``Result(status=...)``. Returns True
+        when the request was found (False: unknown or finished)."""
+        for slot, st in list(self._active.items()):
+            if st["req"].uid == uid:
+                self._finish(slot, time.perf_counter(), status=status,
+                             error=error)
+                return True
+        for req in list(self._queue):
+            if req.uid == uid:
+                self._queue.remove(req)
+                self._fail_request(req, status=status, error=error)
+                return True
+        if self.sched is not None:
+            req = self.sched.cancel(uid)
+            if req is not None:
+                self._fail_request(req, status=status, error=error)
+                return True
+        return False
+
+    # ----------------------------------------------------- preempt, restore
+    @staticmethod
+    def _make_resume(req: Request, generated: List[int]) -> Request:
+        """The recompute resume of a running request: its generated
+        tokens extend the prompt and its budget shrinks to match. Greedy
+        decode and the chunked-prefill equivalence make serving it give
+        the tokens of a run that was never interrupted."""
+        return dataclasses.replace(
+            req,
+            prompt=list(req.prompt) + list(generated),
+            max_new_tokens=req.max_new_tokens - len(generated),
+            prior_tokens=tuple(req.prior_tokens) + tuple(generated),
+            orig_prompt_len=req.orig_prompt_len or len(req.prompt),
+            preemptions=req.preemptions + 1)
+
+    def _preempt_victim(self, max_priority: int) -> Optional[int]:
+        """Slot of the best preemption victim: the lowest priority
+        strictly below ``max_priority``, the newest activation among
+        ties. None when nothing ranks below: equal priorities never
+        preempt each other, so the default (all 0) cannot livelock."""
+        cands = [(st["req"].priority, -st["act_seq"], slot)
+                 for slot, st in self._active.items()
+                 if st["req"].priority < max_priority]
+        return min(cands)[2] if cands else None
+
+    def _preempt(self, slot: int) -> Request:
+        """Tear a running slot down (pages freed, slot parked and
+        recycled) and return its recompute resume. Its Result shell stays
+        registered; the resume's activation replaces it."""
+        st = self._active.pop(slot)
+        resume = self._make_resume(st["req"], st["generated"])
+        self._park_slot(slot)
+        self.metrics["sched_preempted"] += 1
+        return resume
 
     # -------------------------------------------------------------- metrics
     @staticmethod
@@ -1130,7 +1486,21 @@ class Engine:
                 "graph_captures": 0, "graph_capture_s": 0.0,
                 "graph_allocated_bytes": 0, "graph_reserved_bytes": 0,
                 "cow_copies": 0, "spec_rounds": 0, "draft_tokens": 0,
-                "accepted_tokens": 0}
+                "accepted_tokens": 0,
+                # stream-scheduler counters (zero when it is off)
+                "sched_admitted": 0, "sched_recycled": 0,
+                "sched_deferred": 0, "sched_chunk_tokens": 0,
+                "sched_interleaved_steps": 0, "sched_tick_s": 0.0,
+                "queue_depth_sum": 0,
+                "queue_depth_samples": 0, "queue_depth_peak": 0,
+                "sched_preempted": 0, "watchdog_shed": 0,
+                "queue_rejected": 0,
+                "req_cancelled": 0, "req_deadline": 0, "req_errors": 0}
+
+    def reset_metrics(self) -> None:
+        """Zero the serving metrics (after a warm-up pass, say, so the
+        reported rates leave out one-time costs)."""
+        self.metrics = self._fresh_metrics()
 
     @staticmethod
     def _masked_mean(x, mask) -> float:
@@ -1197,6 +1567,26 @@ class Engine:
         if m["page_samples"]:
             m["page_sparsity"] /= m["page_samples"]
         m["completed"] = sum(r.complete for r in self._results.values())
+        m["stream_sched"] = self.sched is not None
+        n_depth = m.pop("queue_depth_samples")
+        depth_sum = m.pop("queue_depth_sum")
+        if n_depth and self.sched is not None:
+            m["queue_depth_mean"] = depth_sum / n_depth
+            m["sched_ticks"] = n_depth
+        ttfts = sorted(r.ttft_s for r in self._results.values()
+                       if r.ttft_s is not None)
+        if ttfts:
+            m["ttft_s_mean"] = float(np.mean(ttfts))
+            m["ttft_s_p50"] = float(ttfts[int(0.5 * (len(ttfts) - 1))])
+            m["ttft_s_p95"] = float(ttfts[int(0.95 * (len(ttfts) - 1))])
+        tpots = [r.tpot_s for r in self._results.values()
+                 if r.tpot_s is not None]
+        if tpots:
+            m["tpot_s_mean"] = float(np.mean(tpots))
+        waits = [r.queue_wait_s for r in self._results.values()
+                 if r.queue_wait_s is not None]
+        if waits:
+            m["queue_wait_s_mean"] = float(np.mean(waits))
         m["device"] = str(self.device)
         m["decode_horizon"] = self.horizon
         m["cuda_graph"] = self.cuda_graph

@@ -114,6 +114,23 @@ never JAX nor the JAX package. Phases:
    spec decode and the scheduler, card vs CPU; ``approx_softmax`` on the
    reduced config card vs CPU and one full-width serving prefill with
    and without it;
+5g. fault injection, deadlines and replicas (ROADMAP items 3b, 3c),
+   qwen2-1.5b at full width on phase 5's weights and traffic, graphed at
+   horizon 4: fault-free (tokens equal phase 5's, the decode step now
+   reading the NaN mask); ``nan@2:uid=3`` (that request errors, the 7
+   others equal phase 5's tokens, one graph capture, the FUM kernel's
+   runs on the card = 28 x (decode steps + 1)); ``error@3`` raised out
+   of ``run()`` with every static buffer and the pool's addresses as
+   the step found them, then a second ``run()`` equal to phase 5's;
+   ``exhaust@0`` under the stream scheduler (deferred, equal); a
+   deadline expiring while decoding and a queue wait while queued;
+   speculative decode at draft_len 4 with a NaN and a step error;
+   ``ReplicaSet.build(cfg, 2)`` sharing the weights, equal to the single
+   engine, then with ``kill@3:replica=0`` (each uid once, moved requests
+   equal up to their failover, their parting printed with its top-2
+   margin, asserted a near-tie with HDP off); the reduced config (fp32,
+   HDP off) on the reference's chaos plan, card vs CPU. ``[faults]``
+   lines, each sub-phase's wall seconds;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -1022,22 +1039,37 @@ def zero_launches():
 
 
 # ------------------------------------------------------------ phase 5
+def kernel_counts(torch):
+    """After the card finishes: the FUM and block wrappers' launches by
+    path (and the FUM's by pool format), and the runs of the FUM and the
+    block tile kernel on the card by their own counts (the only count of
+    what a graph's replays ran), since the last ``zero_launches``."""
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    torch.cuda.synchronize()
+    return ({"fum": dict(hdp_paged_fum_decode.launches_by_path),
+             "block": dict(hdp_block_sparse_attention.launches_by_path),
+             "fum_format": dict(hdp_paged_fum_decode.launches_by_format)},
+            {"fum": hdp_paged_fum_decode.runs.read(),
+             "block": hdp_block_sparse_attention.runs.read()})
+
+
 SERVE_KW = dict(max_batch=8, max_len=1056, prefill_buckets=(256, 512, 1024),
                 collect_stats=True)
 LONG_PROMPTS, LONG_MAX_LEN = (2500, 4000), 4128
 
 
-def serve_requests(torch, eng, reqs, *, arrive_after=0, late=()):
+def serve_requests(torch, eng, reqs, *, arrive_after=0, late=(),
+                   faulted=()):
     """Serve the Requests ``reqs`` through ``eng`` with every launch count
     zeroed first; ``late`` is submitted after ``arrive_after`` engine
-    steps. Every request must complete with tokens in the vocabulary.
+    steps. Every request but the uids in ``faulted`` (which an injected
+    fault targets) must complete with tokens in the vocabulary.
     Returns (tokens by uid, Results, summary, wall s, FUM and block
     wrapper launches by path (and the FUM's by pool format), and the
     runs of the FUM and the block tile kernel on the card over the whole
     serve, by their own counts: the only count of what a graph's replays
     ran)."""
-    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
-    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
@@ -1050,17 +1082,13 @@ def serve_requests(torch, eng, reqs, *, arrive_after=0, late=()):
     res = eng.run(strict=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    runs = {"fum": hdp_paged_fum_decode.runs.read(),
-            "block": hdp_block_sparse_attention.runs.read()}
+    launches, runs = kernel_counts(torch)
     check(len(res) == len(reqs) + len(late) and all(
         r.complete and r.status == "ok"
         and all(0 <= t < eng.cfg.vocab_size for t in r.tokens)
-        for r in res.values()),
+        for u, r in res.items() if u not in faulted),
         f"not every request completed: "
         f"{[(u, r.status, r.error, len(r.tokens)) for u, r in res.items()]}")
-    launches = {"fum": dict(hdp_paged_fum_decode.launches_by_path),
-                "block": dict(hdp_block_sparse_attention.launches_by_path),
-                "fum_format": dict(hdp_paged_fum_decode.launches_by_format)}
     return ({u: r.tokens for u, r in res.items()}, res, eng.summary(), wall,
             launches, runs)
 
@@ -1981,6 +2009,461 @@ def phase_stream(torch, cfg, params):
     return out
 
 
+# ------------------- phase 5g: fault injection, deadlines, ReplicaSet
+#: phase 5g's fault plans: the engine step (or fleet step, for kill) of
+#: each event, and the requests they target
+NAN_STEP, NAN_UID = 2, 3
+ERR_STEP = 3
+KILL_STEP = 3
+#: (d): the deadline (s) of the request that expires while decoding
+DEADLINE_S, DEADLINE_UID = 0.25, 5
+#: (e): the speculative serve's plan
+SPEC_PLAN = "nan@2:uid=4;error@4"
+#: (g): test_chaos_identity_acceptance's plan (tests/test_faults.py)
+CHAOS_PLAN = "slow@0:s=0.005;exhaust@2;nan@1:uid=3;kill@3:replica=0"
+
+
+def static_buffers(eng):
+    """Every static buffer the decode step or round reads or writes
+    (clones), and the pool tensors' addresses."""
+    bufs = {n: getattr(eng, n).clone() for n in
+            ("_tok", "_pos", "_act", "_rem", "_eos", "_floor", "_inject",
+             "_t", "_hist")}
+    bufs["table"] = eng.pages.table().clone()
+    return bufs, {k: v.data_ptr() for k, v in eng.pages.cache.items()}
+
+
+def check_fleet_runs(rs, runs, label):
+    """Each replica counts 28 FUM launches per decode step it ran, and
+    each captured graph ran one warm-up step: the kernel's count on the
+    card over the fleet's serve is their sum. With HDP off the decode
+    (``xla_dense``) runs no kernel, and every count is 0."""
+    on = rs.engines[0].resolved_backend("decode") == "pallas_paged_decode"
+    per = N_LAYERS_QWEN if on else 0
+    steps = sum(e.metrics["decode_steps"] for e in rs.engines)
+    caps = sum(e.metrics["graph_captures"] for e in rs.engines)
+    n = sum(e.metrics["fum_kernel_launches"] for e in rs.engines)
+    check(n == per * steps and steps > 0
+          and runs["fum"] == per * (steps + caps) and runs["block"] == 0,
+          f"{label}: {runs} kernel runs on the card, the replicas counted "
+          f"{n} FUM launches over {steps} decode steps and {caps} "
+          f"captures; expected {per} a step")
+    log(f"[faults] {label}: {runs['fum']} runs of the fum kernel on the "
+        f"card = {per} layers x ({steps} decode steps + {caps} warm-up "
+        "steps) over the replicas")
+    return runs["fum"]
+
+
+def check_moved(torch, cfg, params, label, got, ref, prompts, moved, cut,
+                assert_tie):
+    """Requests never moved equal the uninterrupted run; a moved one
+    equals it up to its failover (``cut`` tokens) and may part after its
+    recompute resume only at a near-tie (asserted with ``assert_tie``,
+    printed either way). Returns {uid: (index, margin, ulps)}."""
+    bad = first_divergence(got, ref)
+    kept = {u: v for u, v in bad.items() if u not in moved}
+    check(not kept, f"{label}: requests never moved differ from the "
+          f"uninterrupted run: {kept}")
+    early = {u: bad[u] for u in moved if u in bad and bad[u][0] < cut[u]}
+    check(not early, f"{label}: moved requests differ from the "
+          f"uninterrupted run before their failover ({cut}): {early}")
+    margins = {}
+    for u in sorted(moved):
+        if u not in bad:
+            log(f"[faults] {label}: moved request {u} (after {cut[u]} "
+                "tokens) == the uninterrupted run")
+            continue
+        i, a, b = bad[u]
+        margin, top1, t1, t2 = top2_margin(torch, cfg, params, prompts[u],
+                                           ref[u], i)
+        ulps = margin / bf16_ulp(top1)
+        margins[u] = (i, margin, ulps)
+        log(f"[faults] {label}: moved request {u} parts from the "
+            f"uninterrupted run at token {i} ({a} vs {b}), {i - cut[u]} "
+            f"after its failover; top-2 logit margin there {margin:.4e} = "
+            f"{ulps:.1f} bf16 ulps of the top logit {top1:.4f} (tokens "
+            f"{t1}, {t2})")
+        if assert_tie:
+            check(ulps <= 4, f"{label}: moved request {u} parts at a top-2 "
+                  f"margin of {ulps:.1f} bf16 ulps, not a near-tie")
+    return margins
+
+
+def kill_serve(torch, cfg, params, prompts, label):
+    """Phase 5's traffic through two graphed replicas with replica 0
+    killed at fleet step ``KILL_STEP``. Returns (tokens, the moved uids,
+    the tokens each had made at the kill, FUM runs on the card)."""
+    from repro_torch.serving import ReplicaSet, Request
+    rs = ReplicaSet.build(cfg, 2, params=params, device="cuda",
+                          faults=f"kill@{KILL_STEP}:replica=0",
+                          decode_horizon=4, **SERVE_KW)
+    zero_launches()
+    for u, p in enumerate(prompts):
+        rs.submit(Request(u, p, max_new_tokens=32))
+    for _ in range(KILL_STEP):
+        rs.step()
+    made = {st["req"].uid: len(st["generated"])
+            for st in rs.engines[0]._active.values()}
+    res = rs.run()
+    _, runs = kernel_counts(torch)
+    s = rs.summary()
+    moved = set(rs._failed_over)
+    cut = {u: made.get(u, 0) for u in moved}
+    check(s["health"] == ["dead", "up"] and s["failovers"] == 1
+          and s["requests_failed_over"] == len(moved) > 0
+          and not rs.faults.pending,
+          f"{label}: health {s['health']}, failovers {s['failovers']}, "
+          f"moved {sorted(moved)}")
+    check(sorted(res) == list(range(len(prompts)))
+          and sorted(rs._finish_log) == list(range(len(prompts)))
+          and all(r.complete and r.status == "ok" for r in res.values()),
+          f"{label}: not every uid finished exactly once: finish log "
+          f"{rs._finish_log}, {[(u, r.status) for u, r in res.items()]}")
+    rs.engines[1].pages.allocator.assert_drained()
+    fum = check_fleet_runs(rs, runs, label)
+    log(f"[faults] {label}: health {s['health']}, {len(moved)} requests "
+        f"moved ({ {u: cut[u] for u in sorted(moved)} } tokens made "
+        f"before), each uid finished once, the survivor's allocator "
+        f"drained; requests_per_replica {s['requests_per_replica']}")
+    return {u: r.tokens for u, r in res.items()}, moved, cut, fum
+
+
+def phase_faults(torch, cfg, params, h1_tokens):
+    """qwen2-1.5b at full width on phase 5's weights and traffic, graphed
+    at horizon 4: (0) fault-free, equal to phase 5's tokens; (a) a NaN
+    injected into one request's logits; (b) an injected step error, then
+    a second run; (c) an injected pool exhaustion under the stream
+    scheduler; (d) a deadline that expires while decoding and a queue
+    wait that expires while queued; (e) speculative decode at draft_len
+    4 with a NaN and a step error; (f) two replicas without faults and
+    with replica 0 killed (HDP on, and HDP off where a moved request's
+    parting is asserted to be a near-tie); (g) the reduced config in fp32,
+    HDP off, on the reference's chaos plan and traffic, card vs CPU.
+    Returns the FUM runs on the card by serve, the sub-phases' wall
+    seconds and what they measured."""
+    import numpy as np
+    from repro_torch.configs import reduced
+    from repro_torch.serving import (Engine, InjectedFault, ReplicaSet,
+                                     Request, SchedulerConfig)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(200, 1001, size=8)]
+    kw = dict(SERVE_KW, decode_horizon=4)
+    reqs = lambda: [Request(u, p, max_new_tokens=32)
+                    for u, p in enumerate(prompts)]
+    out, secs, fum = {}, {}, {}
+
+    def sub(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 2)
+        log(f"[faults] ({name}) wall {secs[name]:.2f} s")
+
+    # ---- (0) fault-free: the decode step now reads the NaN mask
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda", **kw)
+    tok, _, s, wall, launches, runs = serve_requests(torch, eng, reqs())
+    del eng
+    check(tok == h1_tokens, "fault-free: tokens differ from phase 5's: "
+          f"{first_divergence(tok, h1_tokens)}")
+    check_decode_launches(s, launches, "fum", "5g fault-free", runs)
+    fum["qwen2-1.5b 5g (0) fault-free, graphed, horizon 4"] = runs["fum"]
+    one_tok_s = (s["decode_tok_s"], s["decode_tok_s_steady"])
+    out["fault_free"] = {"decode_tok_s": s["decode_tok_s"],
+                         "decode_tok_s_steady": s["decode_tok_s_steady"],
+                         "wall_s": wall}
+    log_served("5g fault-free, graphed, horizon 4 (reads the NaN mask)",
+               s, wall)
+    sub("0", t0)
+
+    # ---- (a) nan@S:uid=U
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda",
+                 faults=f"nan@{NAN_STEP}:uid={NAN_UID}", **kw)
+    tok, res, s, wall, launches, runs = serve_requests(
+        torch, eng, reqs(), faulted=(NAN_UID,))
+    label = f"nan@{NAN_STEP}:uid={NAN_UID}"
+    r = res[NAN_UID]
+    check(r.status == "error" and not r.complete
+          and "non-finite" in (r.error or ""),
+          f"{label}: uid {NAN_UID} came back {r.status} ({r.error})")
+    bad = first_divergence({u: t for u, t in tok.items() if u != NAN_UID},
+                           h1_tokens)
+    check(not bad, f"{label}: untargeted requests differ from phase 5's: "
+          f"{bad}")
+    check(s["faults_injected"] == 1 and s["req_errors"] == 1
+          and s["graph_captures"] == 1 and not eng._inject.any(),
+          f"{label}: faults_injected {s['faults_injected']}, req_errors "
+          f"{s['req_errors']}, graph_captures {s['graph_captures']}")
+    eng.pages.allocator.assert_drained()
+    check_decode_launches(s, launches, "fum", label, runs)
+    del eng
+    fum[f"qwen2-1.5b 5g (a) {label}, graphed, horizon 4"] = runs["fum"]
+    log(f"[faults] (a) {label}: uid {NAN_UID} error after "
+        f"{len(tok[NAN_UID])} tokens ({r.error}); the 7 others == phase "
+        f"5's tokens; faults_injected 1, one graph capture, pool drained; "
+        f"decode_tok_s {s['decode_tok_s']:.1f}")
+    sub("a", t0)
+
+    # ---- (b) error@S: raised out of run(); a second run() completes
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda", faults=f"error@{ERR_STEP}",
+                 **kw)
+    label = f"error@{ERR_STEP}"
+    zero_launches()
+    for rq in reqs():
+        eng.submit(rq)
+    for _ in range(ERR_STEP):
+        eng.step()
+    before, ptrs = static_buffers(eng)
+    caps = eng.metrics["graph_captures"]
+    try:
+        eng.run()
+        raised = False
+    except InjectedFault:
+        raised = True
+    check(raised, f"{label}: run() did not raise InjectedFault")
+    after, ptrs_after = static_buffers(eng)
+    changed = [n for n in before if not torch.equal(before[n], after[n])]
+    check(not changed and ptrs_after == ptrs
+          and eng.metrics["graph_captures"] == caps == 1,
+          f"{label}: the failed step left {changed} changed, pool "
+          f"addresses equal {ptrs_after == ptrs}, captures "
+          f"{eng.metrics['graph_captures']}")
+    res = eng.run(strict=True)
+    launches, runs = kernel_counts(torch)
+    s = eng.summary()
+    tok = {u: r.tokens for u, r in res.items()}
+    check(tok == h1_tokens and all(r.complete for r in res.values()),
+          f"{label}: the second run's tokens differ from phase 5's: "
+          f"{first_divergence(tok, h1_tokens)}")
+    check({k: v.data_ptr() for k, v in eng.pages.cache.items()} == ptrs
+          and s["graph_captures"] == 1,
+          f"{label}: pool moved or graph re-captured "
+          f"({s['graph_captures']} captures)")
+    eng.pages.allocator.assert_drained()
+    check_decode_launches(s, launches, "fum", label, runs)
+    del eng
+    fum[f"qwen2-1.5b 5g (b) {label}, graphed, horizon 4"] = runs["fum"]
+    log(f"[faults] (b) {label}: InjectedFault out of run() at step "
+        f"{ERR_STEP}; every static buffer (slot state, history, step "
+        f"index, table rows, write floors, NaN mask) as the step found "
+        f"it, pool addresses and the one capture unchanged; the second "
+        f"run() == phase 5's tokens")
+    sub("b", t0)
+
+    # ---- (c) exhaust@0 under the stream scheduler
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda", stream_sched=True,
+                 faults="exhaust@0", **kw)
+    tok, res, s, wall, launches, runs = serve_requests(torch, eng, reqs())
+    label = "exhaust@0, stream scheduler"
+    check(tok == h1_tokens, f"{label}: tokens differ from phase 5's: "
+          f"{first_divergence(tok, h1_tokens)}")
+    check(s["sched_deferred"] >= 1 and s["faults_injected"] == 1
+          and s["graph_captures"] == 1,
+          f"{label}: sched_deferred {s['sched_deferred']}, faults_injected "
+          f"{s['faults_injected']}, captures {s['graph_captures']}")
+    eng.pages.allocator.assert_drained()
+    check_decode_launches(s, launches, "fum", label, runs)
+    del eng
+    fum[f"qwen2-1.5b 5g (c) {label}, graphed, horizon 4"] = runs["fum"]
+    log(f"[faults] (c) {label}: sched_deferred {s['sched_deferred']}, "
+        "tokens == phase 5's")
+    sub("c", t0)
+
+    # ---- (d) deadlines: one expires while decoding, one while queued
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda", **kw)
+    label = "deadlines"
+    zero_launches()
+    extra = rng.integers(1, cfg.vocab_size, size=300).tolist()
+    t_sub = time.perf_counter()
+    for rq in reqs():
+        eng.submit(rq, deadline_s=DEADLINE_S if rq.uid == DEADLINE_UID
+                   else None)
+    eng.submit(Request(8, extra, max_new_tokens=32), max_queue_wait_s=0.0)
+    eng.step()              # the queued one expires; the 8 decode
+    check(len(eng._active) == 8, f"{label}: {len(eng._active)} active")
+    time.sleep(max(0.0, DEADLINE_S - (time.perf_counter() - t_sub)) + 0.01)
+    res = eng.run(strict=True)
+    launches, runs = kernel_counts(torch)
+    s = eng.summary()
+    r, q = res[DEADLINE_UID], res[8]
+    check(r.status == q.status == "deadline" and not r.complete
+          and "deadline_s" in r.error and "max_queue_wait_s" in q.error
+          and q.tokens == [] and s["req_deadline"] == 2,
+          f"{label}: uid {DEADLINE_UID} {r.status} ({r.error}), uid 8 "
+          f"{q.status} ({q.error}), req_deadline {s['req_deadline']}")
+    check(r.tokens == h1_tokens[DEADLINE_UID][:len(r.tokens)]
+          and len(r.tokens) == 4,
+          f"{label}: uid {DEADLINE_UID}'s {len(r.tokens)} tokens")
+    bad = first_divergence({u: res[u].tokens for u in range(8)
+                            if u != DEADLINE_UID}, h1_tokens)
+    check(not bad, f"{label}: the other requests differ from phase 5's: "
+          f"{bad}")
+    check(s["graph_captures"] == 1 and not eng._deadlines,
+          f"{label}: captures {s['graph_captures']}, deadlines left "
+          f"{eng._deadlines}")
+    eng.pages.allocator.assert_drained()
+    check_decode_launches(s, launches, "fum", label, runs)
+    del eng
+    fum[f"qwen2-1.5b 5g (d) {label}, graphed, horizon 4"] = runs["fum"]
+    log(f"[faults] (d) {label}: uid {DEADLINE_UID} (deadline_s "
+        f"{DEADLINE_S}) cancelled while decoding after {len(r.tokens)} "
+        f"tokens ({r.error}); uid 8 (max_queue_wait_s 0) cancelled while "
+        f"queued; the 7 others == phase 5's tokens")
+    sub("d", t0)
+
+    # ---- (e) speculative decode, draft_len 4, with nan@ and error@
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, device="cuda", spec_decode=True, draft_len=4,
+                 faults=SPEC_PLAN, **SERVE_KW)
+    label = f"spec decode, draft_len 4, {SPEC_PLAN}"
+    zero_launches()
+    for rq in reqs():
+        eng.submit(rq)
+    try:
+        eng.run()
+        raised = False
+    except InjectedFault:
+        raised = True
+    check(raised, f"{label}: run() did not raise InjectedFault")
+    caps = eng.metrics["graph_captures"]
+    res = eng.run()
+    launches, runs = kernel_counts(torch)
+    s = eng.summary()
+    spec_uid = int(SPEC_PLAN.split("uid=")[1].split(";")[0])
+    r = res[spec_uid]
+    check(r.status == "error" and "non-finite" in (r.error or ""),
+          f"{label}: uid {spec_uid} came back {r.status} ({r.error})")
+    bad = first_divergence({u: res[u].tokens for u in range(8)
+                            if u != spec_uid}, h1_tokens)
+    check(not bad and all(res[u].complete for u in range(8)
+                          if u != spec_uid),
+          f"{label}: untargeted requests differ from phase 5's: {bad}")
+    check(s["faults_injected"] == 1 and s["accepted_tokens"] >= 0
+          and s["graph_captures"] == caps == s["spec_graphs"],
+          f"{label}: faults_injected {s['faults_injected']}, accepted "
+          f"{s['accepted_tokens']}, captures {s['graph_captures']} "
+          f"(before the second run {caps})")
+    eng.pages.allocator.assert_drained()
+    want = _check_spec_runs(s, runs, N_LAYERS_QWEN, label, graphed=True)
+    del eng
+    fum[f"qwen2-1.5b 5g (e) {label}"] = runs["fum"]
+    log(f"[faults] (e) {label}: InjectedFault out of the first run(); "
+        f"uid {spec_uid} error ({r.error}); the others == phase 5's tokens "
+        f"after the second run; {runs['fum']} FUM runs on the card = "
+        f"{want} ({N_LAYERS_QWEN} x ({s['spec_rounds']} verifies + "
+        f"{s['graph_captures']} warm-up rounds)); accepted_tokens "
+        f"{s['accepted_tokens']}, captures {s['graph_captures']}")
+    sub("e", t0)
+
+    # ---- (f) ReplicaSet: two replicas sharing the weights
+    t0 = time.perf_counter()
+    rs = ReplicaSet.build(cfg, 2, params=params, device="cuda", **kw)
+    label = "ReplicaSet dp 2, no faults"
+    ptr = [e.params["embed"]["tok"].data_ptr() for e in rs.engines]
+    check(ptr[0] == ptr[1] and rs.engines[0].params is rs.engines[1].params,
+          f"{label}: the replicas' embedding tables at {ptr}")
+    zero_launches()
+    for rq in reqs():
+        rs.submit(rq)
+    res = rs.run()
+    _, runs = kernel_counts(torch)
+    s = rs.summary()
+    tok = {u: r.tokens for u, r in res.items()}
+    check(tok == h1_tokens, f"{label}: tokens differ from the single "
+          f"engine's: {first_divergence(tok, h1_tokens)}")
+    fum[f"qwen2-1.5b 5g (f) {label}, graphed, horizon 4"] = \
+        check_fleet_runs(rs, runs, label)
+    steady = s["tokens_out"] / (s["decode_s"] - sum(
+        e.metrics["graph_capture_s"] for e in rs.engines))
+    out["fleet"] = {"decode_tok_s": s["decode_tok_s"],
+                    "decode_tok_s_steady": steady,
+                    "one_engine": one_tok_s,
+                    "requests_per_replica": s["requests_per_replica"]}
+    log(f"[faults] (f) {label}: tokens == the single graphed engine's; "
+        f"shared params (embedding at {ptr[0]:#x} in both); "
+        f"requests_per_replica {s['requests_per_replica']}; fleet "
+        f"decode_tok_s {s['decode_tok_s']:.1f}, without the 2 captures "
+        f"{steady:.1f} (the replicas step in turn on the one card), one "
+        f"engine's {one_tok_s[0]:.1f}, without its capture "
+        f"{one_tok_s[1]:.1f}")
+    del rs
+    for hdp_on in (True, False):
+        c = cfg if hdp_on else cfg.replace(
+            hdp=cfg.hdp.replace(enabled=False))
+        tag = "HDP on" if hdp_on else "HDP off"
+        if hdp_on:
+            ref = h1_tokens
+        else:
+            ref = serve_requests(torch, Engine(c, params, device="cuda",
+                                               **kw), reqs())[0]
+        label = f"ReplicaSet dp 2, kill@{KILL_STEP}:replica=0, {tag}"
+        tok, moved, cut, runs_k = kill_serve(torch, c, params, prompts,
+                                             label)
+        if hdp_on:    # HDP off decodes through xla_dense, no kernel
+            fum[f"qwen2-1.5b 5g (f) {label}, graphed, horizon 4"] = runs_k
+        out[f"kill_{'hdp' if hdp_on else 'dense'}"] = {
+            "moved": sorted(moved), "cut": cut,
+            "diverged": check_moved(torch, c, params, label, tok, ref,
+                                    prompts, moved, cut,
+                                    assert_tie=not hdp_on)}
+    sub("f", t0)
+
+    # ---- (g) the reduced config, fp32, HDP off: the chaos plan, card
+    # vs CPU
+    t0 = time.perf_counter()
+    small = reduced(cfg)
+    small = small.replace(hdp=small.hdp.replace(enabled=False))
+    gkw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32),
+               stream_sched=True,
+               sched=SchedulerConfig(preempt_after=2, watchdog_steps=80))
+    gpu = ReplicaSet.build(small, 2, seed=8, device="cuda",
+                           faults=CHAOS_PLAN, **gkw)
+    cpu = ReplicaSet.build(small, 2, params={
+        k: _tree_to(v, "cpu") for k, v in gpu.engines[0].params.items()},
+        device="cpu", faults=CHAOS_PLAN, **gkw)
+    prng = np.random.default_rng(32)
+    cp = [prng.integers(1, 250, size=int(prng.integers(10, 20))).tolist()
+          for _ in range(7)]
+    got = []
+    for rs in (gpu, cpu):
+        for uid in range(6):
+            rs.submit(Request(uid, cp[uid], max_new_tokens=12))
+        for _ in range(5):
+            rs.step()
+        rs.submit(Request(6, cp[6], max_new_tokens=4, priority=1))
+        res = rs.run(max_steps=400)
+        s = rs.summary()
+        got.append((
+            {u: (r.tokens, r.status, r.complete, r.preemptions)
+             for u, r in sorted(res.items())},
+            {u: rs.engines.index(e) for u, e in rs._home.items()},
+            {k: s[k] for k in ("health", "failovers", "requests_failed_over",
+                               "requests_per_replica", "faults_fired",
+                               "tokens_out")},
+            [{k: e.metrics[k] for k in (
+                "faults_injected", "req_errors", "sched_preempted",
+                "sched_deferred", "sched_admitted", "decode_steps",
+                "tokens_out", "prefill_calls")} for e in rs.engines]))
+    label = "reduced qwen2-1.5b fp32, HDP off, the chaos plan"
+    check(got[0] == got[1], f"{label}: card {got[0]} != CPU {got[1]}")
+    res, _, s, m = got[0]
+    check(res[3][1] == "error" and s["failovers"] == 1
+          and sum(x["sched_preempted"] for x in m) >= 1
+          and not gpu.faults.pending
+          and gpu.engines[0].metrics["graph_captures"] >= 1,
+          f"{label}: uid 3 {res[3][1]}, failovers {s['failovers']}, "
+          f"preempted {[x['sched_preempted'] for x in m]}")
+    log(f"[faults] (g) {label} ({CHAOS_PLAN}): card (graphed) == CPU on "
+        f"every token, status and counter; {s}, {m}")
+    del gpu, cpu
+    sub("g", t0)
+    out["secs"] = secs
+    out["fum_runs"] = fum
+    return out
+
+
 # ------------------------------------------- phase 5b: granite-8b serving
 N_LAYERS_GRANITE = 36
 GRANITE_KW = dict(max_batch=8, max_len=4096 + 32,
@@ -2804,6 +3287,8 @@ def main() -> int:
                            params, serve_launches["h1_tokens"])
             stream = timed("5f stream scheduler, approx_softmax",
                            phase_stream, torch, cfg, params)
+            faults = timed("5g faults, deadlines, replicas", phase_faults,
+                           torch, cfg, params, serve_launches["h1_tokens"])
             del params
             fum_by_fmt, granite = timed("5b granite-8b", phase_granite,
                                         torch)
@@ -2844,6 +3329,7 @@ def main() -> int:
         "qwen2-1.5b graphed, horizon 1": serve_launches["fum"]["split"],
         "qwen2-1.5b stream scheduler, 24 requests, graphed, horizon 4":
             stream["fum_runs"],
+        **faults["fum_runs"],
         **{k: v for k, v in moe["fum_runs"].items() if k not in olmoe_runs}}
     for Sq in DRAFT_LENS:
         k_ms, p_ms, bound, bound_by = fum_timed[f"verify{Sq}"]
@@ -2936,6 +3422,7 @@ def main() -> int:
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
     log(f"[sched] phase 5f {json.dumps({k: v for k, v in stream.items() if k != 'fum_runs'})}")
+    log(f"[faults] phase 5g {json.dumps({k: v for k, v in faults.items() if k != 'fum_runs'})}")
     log(f"[phase] wall seconds {json.dumps(walls)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -24,8 +24,15 @@ decode, ``--prefill-chunk`` tokens a step, a watchdog after
 arrive as a seeded Poisson stream of R a step on the engine's step
 clock (``poisson_arrivals``), drawn after the prompts, so the prompts
 and the tokens are the static run's. The summary then grows the
-scheduler's counters, TTFT, TPOT and the queue's wait and depth. Each
-defaults to its REPRO_* environment variable, as in the reference.
+scheduler's counters, TTFT, TPOT and the queue's wait and depth.
+``--fault-plan`` injects a deterministic schedule of faults
+(``kind@step[:k=v,..];...``, kinds exhaust, error, nan, slow and kill;
+``serving.faults``), and ``--dp N`` serves through N engine replicas
+sharing one set of weights on the card (``serving.replica.ReplicaSet``:
+prefix-affinity then least-loaded dispatch, failover of a dead
+replica's requests); its summary is replica 0's with the fleet's
+throughput and counters, health and failovers. Each defaults to its
+REPRO_* environment variable, as in the reference.
 Weights are random, drawn from ``--seed``; prompt lengths are drawn
 from [bucket/4, max_len - max_new] with the largest prefill bucket
 (1024, or 32 with ``--reduced``; longer prompts prefill in chunks), and
@@ -35,11 +42,14 @@ from [bucket/4, max_len - max_new] with the largest prefill bucket
     python -m repro_torch.launch.serve --prefix-cache --shared-prefix 512 \
         --spec-decode --draft-len 4
     python -m repro_torch.launch.serve --stream-sched --arrival-rate 0.5
+    python -m repro_torch.launch.serve --dp 2 --stream-sched \
+        --fault-plan "nan@2:uid=3;kill@4:replica=0"
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -141,14 +151,60 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="idle engine steps with requests pending before "
                          "the scheduler's watchdog sheds the stalled queue "
                          "head")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault-injection schedule "
+                         "('kind@step[:k=v,..];...', kinds exhaust | error "
+                         "| nan | slow | kill; see repro_torch.serving."
+                         "faults); steps count engine steps (kill: fleet "
+                         "steps). Default honors REPRO_FAULT_PLAN, else no "
+                         "faults")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="engine replicas behind one dispatching front-end "
+                         "(prefix affinity, then least loaded), sharing "
+                         "one set of weights, so the tokens do not depend "
+                         "on dispatch. Default honors REPRO_MESH_DP, else 1")
     return ap.parse_args(argv)
+
+
+#: the fleet-summed counters of a --dp > 1 summary (the reference's)
+FLEET_SUMS = ("tokens_out", "decode_s", "prefill_s", "prefill_calls",
+              "prefill_tokens", "decode_steps", "cache_bytes",
+              "req_cancelled", "req_deadline", "req_errors",
+              "sched_preempted", "watchdog_shed", "faults_injected",
+              "queue_rejected")
+#: the fleet's own keys copied into a --dp > 1 summary
+FLEET_KEYS = ("health", "failovers", "requests_failed_over",
+              "replica_queue_depth", "replica_inflight",
+              "replica_last_step_s", "fault_plan", "faults_fired",
+              "requests_per_replica")
+
+
+def fleet_summary(fleet) -> dict:
+    """Replica 0's summary (shapes, backends) with the throughput and the
+    counters summed over the fleet, the HDP stats averaged, and the
+    fleet's health, load and fault keys (the reference CLI's merge)."""
+    subs = fleet["replicas"]
+    s = dict(subs[0])
+    for k in FLEET_SUMS:
+        s[k] = sum(sub.get(k, 0) for sub in subs)
+    if s["decode_s"]:
+        s["decode_tok_s"] = s["tokens_out"] / s["decode_s"]
+    for k in ("block_sparsity", "head_sparsity", "page_sparsity"):
+        s[k] = sum(sub.get(k, 0.0) for sub in subs) / len(subs)
+    for k in FLEET_KEYS:
+        if k in fleet:
+            s[k] = fleet[k]
+    s["dp"] = fleet["dp"]
+    return s
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     from repro_torch.attention import AttnSpec
     from repro_torch.configs import get_config, reduced
-    from repro_torch.serving import Engine, Request, SchedulerConfig
+    from repro_torch.serving import (Engine, ReplicaSet, Request,
+                                     SchedulerConfig)
+    from repro_torch.serving.engine import MESH_DP_ENV
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -168,14 +224,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     sched = SchedulerConfig(prefill_chunk_tokens=args.prefill_chunk,
                             watchdog_steps=args.watchdog_steps) \
         if args.stream_sched else None
-    eng = Engine(cfg, seed=args.seed, device=args.device,
-                 max_batch=args.max_batch, max_len=max_len,
-                 prefill_buckets=buckets, collect_stats=True, attn=spec,
-                 num_pages=args.num_pages, prefix_cache=args.prefix_cache,
-                 decode_horizon=args.decode_horizon,
-                 spec_decode=args.spec_decode, draft_len=args.draft_len,
-                 stream_sched=args.stream_sched, sched=sched)
-    if args.arrival_rate > 0 and eng.sched is None:
+    engine_kw = dict(device=args.device, max_batch=args.max_batch,
+                     max_len=max_len, prefill_buckets=buckets,
+                     collect_stats=True, attn=spec, num_pages=args.num_pages,
+                     prefix_cache=args.prefix_cache,
+                     decode_horizon=args.decode_horizon,
+                     spec_decode=args.spec_decode, draft_len=args.draft_len,
+                     stream_sched=args.stream_sched, sched=sched)
+    dp = args.dp if args.dp is not None else \
+        int(os.environ.get(MESH_DP_ENV) or 1)
+    if dp < 1:
+        raise SystemExit(f"--dp must be >= 1, got {dp}")
+    if dp > 1:
+        eng = ReplicaSet.build(cfg, dp, seed=args.seed,
+                               faults=args.fault_plan, **engine_kw)
+        eng0 = eng.engines[0]
+    else:
+        eng = eng0 = Engine(cfg, seed=args.seed, faults=args.fault_plan,
+                            **engine_kw)
+    if args.arrival_rate > 0 and eng0.sched is None:
         raise SystemExit("--arrival-rate needs --stream-sched")
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(1, cfg.vocab_size, args.shared_prefix).tolist()
@@ -199,12 +266,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for req in reqs:
             eng.submit(req)
         results = eng.run()
-    summary = eng.summary()
+    summary = fleet_summary(eng.summary()) if dp > 1 else eng.summary()
+    summary["completed"] = sum(r.complete for r in results.values())
+    # every submitted request must come back as some typed Result, also
+    # under injected faults: a lost one is what the fault harness catches
+    summary["requests_ok"] = sum(r.status == "ok" for r in results.values())
+    summary["requests_failed"] = len(results) - summary["requests_ok"]
+    summary["requests_lost"] = args.requests - len(results)
     # order-independent fingerprint of every generated token
     summary["tokens_fp"] = int(np.sum([
         (uid + 1) * (i + 1) * (t + 1) for uid, r in results.items()
         for i, t in enumerate(r.tokens)]) % (2 ** 31))
     print(json.dumps(summary, default=str))
+    if summary.get("fault_plan"):
+        # under injected faults some requests fail by design: success is
+        # that none was lost
+        return 0 if summary["requests_lost"] == 0 else 1
     return 0 if summary["completed"] == args.requests else 1
 
 

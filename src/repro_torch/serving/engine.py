@@ -76,11 +76,21 @@ per-slot layout
 * EOS and budget handling, and the per-slot non-finite tripwire (only
   the faulted request aborts); a finished request frees its pages at
   once (a dense slot is cleared); ``cancel`` aborts a request wherever
-  it is, with a typed ``Result(status="cancelled")``.
+  it is, with a typed ``Result(status="cancelled")``; a request past
+  its ``deadline_s`` (or, still waiting, its ``max_queue_wait_s``) is
+  cancelled at the top of the next step with ``status="deadline"``;
+* **fault injection** (``faults=`` or ``REPRO_FAULT_PLAN``;
+  ``serving.faults``) — a deterministic plan keyed on the engine's step
+  counter: a slow step, an injected ``PoolExhausted`` in ``_reserve``,
+  a hard ``InjectedFault`` inside the decode call bracket (before the
+  replay; the engine unwinds what the step wrote and stays usable), and
+  NaN logits for one request through a ``[max_batch]`` bool buffer that
+  the decode step and the verify read (a static buffer of the graphs:
+  a fault never re-captures). ``serving.replica.ReplicaSet`` serves N
+  engines behind one front-end and fails a dead one's work over.
 
 Not ported yet (ROADMAP.md section 1): acceptance-adaptive speculation
-and the cost policy (item 7), fault injection, deadlines and replicas
-(items 3b and 3c), and tensor parallelism (item 8).
+and the cost policy (item 7), and tensor parallelism (item 8).
 """
 from __future__ import annotations
 
@@ -105,6 +115,7 @@ from repro_torch.models import registry
 from repro_torch.models.attention import build_attn_call, resolve_write_pages
 from repro_torch.models.layers import resolve_device
 from repro_torch.serving.allocator import PoolExhausted, RadixPrefixCache
+from repro_torch.serving.faults import FaultInjector, FaultPlan, coerce_injector
 from repro_torch.serving.kv_cache import (KV_DTYPES, PagedKVCache, SlotCache,
                                           cache_bytes)
 from repro_torch.serving.scheduler import (QueueFull, SchedulerConfig,
@@ -124,6 +135,9 @@ DRAFT_ENV = "REPRO_DRAFT_LEN"
 #: env default of ``stream_sched`` (else off, or on when a ``sched``
 #: config is passed)
 STREAM_ENV = "REPRO_STREAM_SCHED"
+#: env default of the serve CLI's ``--dp``, the engine replicas behind one
+#: ``serving.replica.ReplicaSet`` (the Engine itself is one replica)
+MESH_DP_ENV = "REPRO_MESH_DP"
 #: families with a seq-indexed KV cache: the paged layout, chunked
 #: prefill, the prefix cache and speculative verify serve them
 PAGEABLE_FAMILIES = ("dense", "moe", "vlm")
@@ -163,6 +177,13 @@ class Request:
     #: first, and only a strictly lower-priority running request may be
     #: preempted to unblock a starved queue head
     priority: int = 0
+    #: wall-clock budget from submit() to completion; past it the request
+    #: is cancelled with ``Result(status="deadline")`` wherever it is
+    #: (queued, mid-prefill or decoding)
+    deadline_s: Optional[float] = None
+    #: wall-clock budget from submit() to slot activation; expires only
+    #: while the request still waits (an admitted request may finish)
+    max_queue_wait_s: Optional[float] = None
     # --- preempt-and-restore bookkeeping (the engine's) ---
     #: tokens generated before the last preemption: folded into
     #: ``prompt`` for the recompute resume, and re-emitted at the head of
@@ -186,8 +207,9 @@ class Result:
     #: (tokens then hold the partial generation), and for every status
     #: but "ok"
     complete: bool = True
-    #: "ok" | "cancelled" | "error" (non-finite logits: the per-slot
-    #: tripwire; or shed by the scheduler's watchdog)
+    #: "ok" | "cancelled" | "deadline" | "error" (non-finite logits: the
+    #: per-slot tripwire; shed by the scheduler's watchdog; or lost twice
+    #: by replica failover)
     status: str = "ok"
     error: Optional[str] = None
     #: times the request was preempted before it finished (its tokens
@@ -257,6 +279,11 @@ class Engine:
     sched: SchedulerConfig of the scheduler (chunk token budget per
         step, admission order, watchdog, queue bound, preemption); None
         uses the defaults.
+    faults: deterministic fault injection: a ``serving.faults``
+        FaultInjector (share one across a ReplicaSet for events that
+        fire once fleet-wide), a FaultPlan, or a plan spec string. None
+        reads REPRO_FAULT_PLAN (default: no injection). The plan's steps
+        count this engine's ``step()`` calls from construction.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
@@ -272,7 +299,8 @@ class Engine:
                  draft_profile: Optional[DraftProfile] = None,
                  cuda_graph: bool = True,
                  stream_sched: Optional[bool] = None,
-                 sched: Optional[SchedulerConfig] = None):
+                 sched: Optional[SchedulerConfig] = None,
+                 faults: Union[FaultInjector, FaultPlan, str, None] = None):
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
         spec = attn if attn is not None else default_spec()
@@ -376,9 +404,16 @@ class Engine:
         #: which requests finished, which ``serve()`` drains
         self._t_submit: Dict[int, float] = {}
         self._finished: List[int] = []
+        #: uid -> (absolute deadline, absolute queue-wait deadline),
+        #: enforced at the top of every step; popped at finish
+        self._deadlines: Dict[int, Tuple[Optional[float],
+                                         Optional[float]]] = {}
         #: activation counter: the preemption victim's tiebreak (the
         #: newest activation goes first: it has the least sunk work)
         self._act_seq = 0
+        #: the engine's step counter, which the fault plan's steps index
+        self._cur_step = 0
+        self.faults = coerce_injector(faults)
         if stream_sched is None:
             env = os.environ.get(STREAM_ENV, "")
             stream_sched = (env.lower() in ("1", "true", "on") if env
@@ -393,7 +428,10 @@ class Engine:
         ``_active_dev``, ``_remaining_dev``, ``_eos_dev`` and
         ``_floor_dev`` (each slot's write floor, its first owned page),
         written by the host only at activation and finish and advanced in
-        place by every step; and the history of one horizon, row ``t``
+        place by every step; the fault harness's NaN mask ``_inject``
+        (the reference's ``inject`` operand: all False but for the
+        horizon or round that poisons a request's logits); and the
+        history of one horizon, row ``t``
         per step (token, pre-step active mask and fault mask, [H, 3, B];
         the stats leaves, [H, 3, L, B]), with the device step counter
         ``_t``. A speculative round writes its exact tokens and commit
@@ -409,6 +447,7 @@ class Engine:
         self._rem = torch.zeros(B, dtype=i64, device=dev)
         self._eos = torch.full((B,), -1, dtype=i64, device=dev)
         self._floor = torch.zeros(B, dtype=i64, device=dev)
+        self._inject = torch.zeros(B, dtype=torch.bool, device=dev)
         self._t = torch.zeros(1, dtype=i64, device=dev)
         self._hist = torch.zeros((H, 3, B), dtype=i64, device=dev)
         self._hist_stats = torch.zeros(
@@ -437,12 +476,18 @@ class Engine:
         return (not self.hdp_on
                 or self.buckets[-1] % self.cfg.hdp.block_q == 0)
 
-    def submit(self, req: Request) -> None:
+    def submit(self, req: Request, *, deadline_s: Optional[float] = None,
+               max_queue_wait_s: Optional[float] = None) -> None:
         """Enqueue a request: into the stream scheduler's waiting queue
-        when it is on, else into the static queue. Raises `QueueFull`
-        when the scheduler's waiting queue is at
+        when it is on, else into the static queue. ``deadline_s`` and
+        ``max_queue_wait_s`` override the request's own fields. Raises
+        `QueueFull` when the scheduler's waiting queue is at
         ``SchedulerConfig.max_queue_depth`` (typed backpressure: the
         request is not enqueued and no Result is recorded for it)."""
+        if deadline_s is not None:
+            req = dataclasses.replace(req, deadline_s=deadline_s)
+        if max_queue_wait_s is not None:
+            req = dataclasses.replace(req, max_queue_wait_s=max_queue_wait_s)
         plen = len(req.prompt)
         if plen == 0:
             raise ValueError(f"request {req.uid}: empty prompt")
@@ -462,7 +507,13 @@ class Engine:
                 raise QueueFull(
                     f"request {req.uid}: waiting queue at "
                     f"max_queue_depth={depth_max}; back off and resubmit")
-        self._t_submit[req.uid] = time.perf_counter()
+        now = time.perf_counter()
+        self._t_submit[req.uid] = now
+        if req.deadline_s is not None or req.max_queue_wait_s is not None:
+            self._deadlines[req.uid] = (
+                now + req.deadline_s if req.deadline_s is not None else None,
+                now + req.max_queue_wait_s
+                if req.max_queue_wait_s is not None else None)
         if self.sched is not None:
             self.sched.enqueue(req)
         else:
@@ -552,7 +603,8 @@ class Engine:
         return dict(self._results)
 
     def step(self) -> int:
-        """Admit what fits (with the stream scheduler: one tick, whose
+        """Run the fault plan's slow events and cancel expired requests,
+        admit what fits (with the stream scheduler: one tick, whose
         progress feeds its watchdog), then one decode horizon over all
         slots: up to ``decode_horizon`` steps (never past the longest
         remaining budget), or with ``spec_decode`` one speculative
@@ -560,6 +612,17 @@ class Engine:
         stepped. (The reference also flushes pending cost-policy probes
         at the top of a step, ``_maybe_retune``; the port has no cost
         policy until ROADMAP.md section 1, item 7.)"""
+        try:
+            return self._step_inner(self._cur_step)
+        finally:
+            # one increment per call, raise or return: the fault hooks
+            # key on this counter, and _reserve reads it mid-step
+            self._cur_step += 1
+
+    def _step_inner(self, step_no: int) -> int:
+        if self.faults is not None:
+            self.faults.sleep(step_no)
+        self._enforce_deadlines()
         if self.sched is not None:
             t0 = time.perf_counter()
             ticked = self.sched.tick()
@@ -579,9 +642,9 @@ class Engine:
         if self.spec:
             # never draft past the longest remaining budget: no slot
             # could commit those proposals (at most draft_len widths)
-            self._spec_step(min(self.draft_len, rem_max))
+            self._spec_step(min(self.draft_len, rem_max), step_no)
         else:
-            self._decode_horizon(min(self.horizon, rem_max))
+            self._decode_horizon(min(self.horizon, rem_max), step_no)
         if self.sched is not None:
             self.sched.watchdog(True)      # decode progressed
         return n_stepped
@@ -681,6 +744,11 @@ class Engine:
 
     def _reserve(self, need: int) -> List[int]:
         """Allocate fresh pages, evicting LRU cached prefixes on pressure."""
+        if self.faults is not None \
+                and self.faults.pool_exhausted(self._cur_step):
+            self.metrics["faults_injected"] += 1
+            raise PoolExhausted(
+                f"injected pool exhaustion (engine step {self._cur_step})")
         short = need - self.pages.allocator.available
         if short > 0 and self.prefix is not None:
             self.prefix.evict(short)
@@ -1014,7 +1082,8 @@ class Engine:
     def _decode_body(self) -> None:
         """One decode step on the device state alone (the reference's
         ``_decode_step`` plus one ``body`` of ``_decode_loop``): parked
-        slots read and write the scratch page, the argmax feeds the next
+        slots read and write the scratch page, the rows ``_inject`` marks
+        get NaN logits (the fault harness), the argmax feeds the next
         step, a slot whose logits go non-finite is faulted, done (budget
         or EOS) and faulted slots park, and the step's outputs go to
         history row ``_t``. Nothing is read back to the host, so a CUDA
@@ -1025,7 +1094,7 @@ class Engine:
             self.cfg, self.params, self._tok, self._store.cache,
             self._pos[:, None], collect_stats=self.collect_stats,
             page_table=table, write_floor=floor, attn=self.attn_spec)
-        last = logits[:, -1]
+        last = self._poison(logits)[:, -1]
         nxt = torch.argmax(last, dim=-1)
         # per-slot tripwire: a non-finite logit row means this request's
         # state is poisoned; only that request aborts
@@ -1043,6 +1112,12 @@ class Engine:
         self._tok.copy_(torch.where(gone, 0, nxt)[:, None])
         self._pos.copy_(torch.where(gone, 0, self._pos + 1))
         self._act.copy_(act & ~gone)
+
+    def _poison(self, logits: torch.Tensor) -> torch.Tensor:
+        """The fault harness's NaN injection: the rows of ``logits``
+        ([B, S, V]) whose slot ``_inject`` marks become NaN, so the
+        tripwire fires as it would for organic NaNs."""
+        return torch.where(self._inject[:, None, None], float("nan"), logits)
 
     def _step_table(self):
         """The decode's page table (parked slots' rows zeroed, so their
@@ -1150,15 +1225,49 @@ class Engine:
         out = self._read(bufs)
         return out[0], (out[1] if len(out) > 1 else None)
 
-    def _decode_horizon(self, length: int) -> None:
+    def _inject_mask(self, step_no: int) -> bool:
+        """Write the NaN mask of this horizon or round (the reference's
+        ``_inject_mask``): the slots of the live requests whose ``nan``
+        events are due. Host-side, between replays, on the stream the
+        graph replays on; returns whether any slot was marked (the
+        caller zeroes the mask after the host read)."""
+        if self.faults is None:
+            return False
+        by_uid = {st["req"].uid: slot for slot, st in self._active.items()}
+        uids = self.faults.nan_uids(step_no, by_uid)
+        for u in uids:
+            self._inject[by_uid[u]] = True
+        self.metrics["faults_injected"] += len(uids)
+        return bool(uids)
+
+    def _fault_bracket(self, step_no: int, run: Callable[[], Any]):
+        """The decode call bracket: the NaN mask written, the injected
+        step error (before ``run`` replays anything, so a raise leaves
+        every static buffer as the step found it), then ``run`` (the
+        replays and the host read). The mask is zeroed after, raise or
+        return."""
+        injected = self._inject_mask(step_no)
+        try:
+            if self.faults is not None:
+                self.faults.step_error(step_no)
+            return run()
+        finally:
+            if injected:
+                self._inject.zero_()
+
+    def _decode_horizon(self, length: int, step_no: int) -> None:
         """``length`` decode steps with no sync between them, one read of
         the history, then the host walk: emit tokens, finish slots at EOS
         or budget, abort faulted slots only."""
         t0 = time.perf_counter()
-        self._t.zero_()
-        for _ in range(length):
-            self._step_once()
-        hist, stats = self._read_history(length)
+
+        def run():
+            self._t.zero_()
+            for _ in range(length):
+                self._step_once()
+            return self._read_history(length)
+
+        hist, stats = self._fault_bracket(step_no, run)
         t_sync = time.perf_counter()
         self.metrics["decode_s"] += t_sync - t0
         toks, act, fault = hist[:, 0], hist[:, 1] > 0, hist[:, 2] > 0
@@ -1191,8 +1300,9 @@ class Engine:
         floor-fenced write path). Verify: one ``k``-wide multi-query
         decode over [last committed, d_1..d_{k-1}] re-scores every
         position at full fidelity, rewrites their K/V exactly, and gives
-        the exact greedy token e_j per row. Accept: e_1..e_m commit,
-        where m - 1 is the longest prefix with d_j == e_j; EOS and the
+        the exact greedy token e_j per row (the rows ``_inject`` marks
+        get NaN logits; the draft steps never read it). Accept: e_1..e_m
+        commit, where m - 1 is the longest prefix with d_j == e_j; EOS and the
         budget cut commits as the horizon does; a slot whose verify
         logits are not finite is faulted and commits nothing. The K of
         rejected staged positions is poisoned. Writes the exact tokens
@@ -1228,6 +1338,7 @@ class Engine:
         self.round_launches[k] = {
             "draft": {m: c1[m] - c0[m] for m in c0},
             "verify": {m: c2[m] - c1[m] for m in c0}}
+        logits = self._poison(logits)
         exact = torch.argmax(logits, dim=-1)                     # [B, k]
         fault = act & ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
         # longest accepted prefix: drafts[:, j] proposed what the verify
@@ -1296,17 +1407,21 @@ class Engine:
         kc[:, b, stale] = torch.where(reject[None, :, :, None, None],
                                       torch.full_like(cur, float("nan")), cur)
 
-    def _spec_step(self, k: int) -> None:
+    def _spec_step(self, k: int, step_no: int) -> None:
         """One speculative round of width ``k``, one read of its
         history, then the host walk (the reference's ``_spec_step``):
         emit each slot's commits in order, finish slots at EOS or budget,
         abort faulted slots after the drain."""
         t0 = time.perf_counter()
-        self._run(k, lambda: self._spec_body(k), k)
         bufs = [self._hist[:k]]
         if self._hist_stats is not None:
             bufs.append(self._hist_stats[0])
-        out = self._read(bufs)
+
+        def run():
+            self._run(k, lambda: self._spec_body(k), k)
+            return self._read(bufs)
+
+        out = self._fault_bracket(step_no, run)
         t_sync = time.perf_counter()
         self.metrics["decode_s"] += t_sync - t0
         toks, com = out[0][:, 0], out[0][:, 1] > 0             # [k, B]
@@ -1366,6 +1481,7 @@ class Engine:
         if status != "ok":
             self._count_status(status)
         t_sub = self._t_submit.pop(req.uid, None)
+        self._deadlines.pop(req.uid, None)
         t_first = st.get("t_first")
         if t_sub is not None and t_first is not None:
             res.ttft_s = t_first - t_sub
@@ -1413,6 +1529,7 @@ class Engine:
         t_sub = self._t_submit.pop(req.uid, None)
         if t_sub is not None:
             res.queue_wait_s = time.perf_counter() - t_sub
+        self._deadlines.pop(req.uid, None)
         self._results[req.uid] = res
         self._finished.append(req.uid)
         self._count_status(status)
@@ -1439,6 +1556,23 @@ class Engine:
                 self._fail_request(req, status=status, error=error)
                 return True
         return False
+
+    def _enforce_deadlines(self) -> None:
+        """Cancel expired requests, once at the top of every step (a
+        deadline's granularity is the engine step, as the host reads the
+        device once per horizon)."""
+        if not self._deadlines:
+            return
+        now = time.perf_counter()
+        active_uids = {st["req"].uid for st in self._active.values()}
+        for uid, (dl, qdl) in list(self._deadlines.items()):
+            if dl is not None and now >= dl:
+                self.cancel(uid, status="deadline",
+                            error=f"deadline_s exceeded after {now - dl:.3f}s")
+            elif qdl is not None and now >= qdl and uid not in active_uids:
+                self.cancel(uid, status="deadline",
+                            error="max_queue_wait_s exceeded before "
+                                  "activation")
 
     # ----------------------------------------------------- preempt, restore
     @staticmethod
@@ -1494,7 +1628,7 @@ class Engine:
                 "queue_depth_sum": 0,
                 "queue_depth_samples": 0, "queue_depth_peak": 0,
                 "sched_preempted": 0, "watchdog_shed": 0,
-                "queue_rejected": 0,
+                "queue_rejected": 0, "faults_injected": 0,
                 "req_cancelled": 0, "req_deadline": 0, "req_errors": 0}
 
     def reset_metrics(self) -> None:
@@ -1593,6 +1727,9 @@ class Engine:
         m["attn_backend_prefill"] = self.resolved_backend("prefill")
         m["attn_backend_decode"] = decode = self.resolved_backend("decode")
         m["attn_decode_stage3"] = self._stage3(decode)
+        if self.faults is not None:
+            m["fault_plan"] = self.faults.plan.spec
+            m["faults_fired"] = len(self.faults.fired)
         m["spec_decode"] = self.spec
         if self.spec:
             m["draft_len"] = self.draft_len

@@ -9,13 +9,14 @@ on the port's engine and on the JAX engine (int8 pool, XLA backends) on
 the same weights and traffic, and the tokens, Result fields, admission
 order and counters must agree.
 
-``test_transient_taxonomy_and_retry`` leaves out the reference's
-``InjectedFault`` assertion: the fault injector comes with ROADMAP.md
-section 1, item 3b. Its retry half drives the reference's
-``training.fault.retry`` with the port's classifier, since the port has
-no training package yet (item 11). The tests that inject faults
-(``FaultPlan``, ``FaultInjector``), deadlines and ``ReplicaSet`` wait
-for items 3b and 3c.
+``test_transient_taxonomy_and_retry`` holds the port's classifier to
+the reference's, ``InjectedFault`` included (hard by design: a retry
+layer must not paper over an injected fault). Its retry half drives the
+reference's ``training.fault.retry`` with the port's classifier, since
+the port has no training package yet (item 11). The tests that inject
+faults (``FaultPlan``, ``FaultInjector``) and expire deadlines are in
+``test_torch_faults.py``, the ``ReplicaSet`` ones in
+``test_torch_replica.py``.
 """
 from __future__ import annotations
 
@@ -32,13 +33,14 @@ from repro.serving import Engine as JEngine
 from repro.serving import Request as JRequest
 from repro.serving import SchedulerConfig as JSchedulerConfig
 from repro.serving import is_transient as jax_is_transient
+from repro.serving.faults import InjectedFault as JInjectedFault
 from repro.training.fault import retry
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import registry
-from repro_torch.serving import (Engine, PoolExhausted, QueueFull, Request,
-                                 SchedulerConfig, TransientError,
-                                 is_transient)
+from repro_torch.serving import (Engine, InjectedFault, PoolExhausted,
+                                 QueueFull, Request, SchedulerConfig,
+                                 TransientError, is_transient)
 
 # One intra-op thread per process: the suite runs in several worker
 # processes at once, and the reference's timing tests share the cores.
@@ -140,6 +142,14 @@ def test_transient_taxonomy_and_retry():
     assert [is_transient(e) for e in cases] == want
     # the reference classifies the same messages and types alike
     assert [jax_is_transient(e) for e in cases[2:8]] == want[2:8]
+    # an injected fault is hard by design, in both packages, whatever its
+    # message says
+    for msg in ("boom", "injected step failure (scheduled step 3)",
+                "collective timeout"):
+        assert not is_transient(InjectedFault(msg))
+        assert not jax_is_transient(JInjectedFault(msg))
+    assert issubclass(InjectedFault, RuntimeError)
+    assert not issubclass(InjectedFault, TransientError)
 
     calls = []
 
@@ -161,6 +171,15 @@ def test_transient_taxonomy_and_retry():
     with pytest.raises(RuntimeError, match="assertion"):
         retry(hard, retries=3, backoff_s=0.0, transient=is_transient)
     assert len(calls) == 1                # fail-fast: no retry burned
+
+    def injected():
+        calls.append(1)
+        raise InjectedFault("injected step failure (scheduled step 0)")
+
+    calls.clear()
+    with pytest.raises(InjectedFault):
+        retry(injected, retries=3, backoff_s=0.0, transient=is_transient)
+    assert len(calls) == 1                # an injected fault is not retried
 
 
 def test_cancel_queued_and_active(qwen):

@@ -131,6 +131,23 @@ never JAX nor the JAX package. Phases:
    margin, asserted a near-tie with HDP off); the reduced config (fp32,
    HDP off) on the reference's chaos plan, card vs CPU. ``[faults]``
    lines, each sub-phase's wall seconds;
+5h. the hardware profile, the cost policy and acceptance-adaptive
+   speculation (ROADMAP item 7), qwen2-1.5b at full width on phase 5's
+   weights and traffic: ``detect_profile()`` is the H100 profile, the
+   card's memory its ``mem_bytes``, a 1 GiB device copy and a bf16
+   8192^3 matmul at most 1.05 x its peaks, the dispatch constants
+   measured beside it (``launch/measure_profile.py``); the cost policy
+   graphed at horizon 4 on an explicit tuner that finds every signature
+   ambiguous, so each is probed on the card (tokens equal phase 5's,
+   decode on the FUM kernel, one probe per pending signature, one
+   capture per attention epoch, the FUM kernel's runs on the card = 28
+   x (decode steps + warm-ups) + its probe runs), the same traffic on
+   the settled decisions, and a warm start from the saved cache (no
+   probe, the same decisions and tokens; a CPU cache refused);
+   adaptive speculation at draft_len 4, graphed, natural and on the
+   reference test's forced plan (tokens equal phase 5's horizon-1
+   tokens, each (k, tier) captured once, its FUM runs 28 x (rounds + 1
+   warm-up)), beside fixed draft_len 4 and horizon 1. ``[tune]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -161,10 +178,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: NVIDIA H100 SXM data-sheet peaks (dense, at the full 700 W limit)
-HBM_BYTES_S = 3.35e12
+#: NVIDIA H100 SXM data-sheet peaks (dense, at the full 700 W limit). The
+#: HBM3 rate and the bf16 peak are the H100 hardware profile's
+#: (``repro_torch.roofline.hardware.H100_SXM``, the cost model's
+#: yardstick), set in main() once the port is importable
+HBM_BYTES_S = BF16_FLOP_S = None
 FP32_FLOP_S = 67e12
-BF16_FLOP_S = 989e12
 INT8_OPS_S = 1979e12
 ATOL = RTOL = 1e-4   # fp32 accumulation in both; only the sum order differs
 TOL_BF16 = 2e-2      # p is rounded to bf16 before P.V in both
@@ -1460,6 +1479,13 @@ def check_verify_call(torch, label, rec):
     return err
 
 
+def key_names(by_key):
+    """A dict keyed by the engine's graph keys ("decode", or a round's
+    (k, tier)) as {"k" or "k:tier": value}, in key order."""
+    from repro_torch.serving.engine import _key_name
+    return {_key_name(k): v for k, v in sorted(by_key.items(), key=str)}
+
+
 def first_divergence(a, b):
     """Per request: (first index where the token lists differ, the two
     tokens) for the requests whose lists differ."""
@@ -1524,20 +1550,9 @@ def phase_spec_prefix(torch, cfg, params, h1_tokens):
     for k in DRAFT_LENS:
         eng = Engine(cfg, params, device="cuda", spec_decode=True,
                      draft_len=k, **SERVE_KW)
-        counter = hdp_paged_fum_decode.runs.tensor("cuda")
-        rounds = []    # (width, FUM runs before, after) per round
-        run_once = eng._run
-
-        def marking(key, body, width, _run=run_once, _rounds=rounds):
-            # the FUM kernel's count on the card, copied on the stream
-            # (no wait for the card) before and after each round: the
-            # runs between are that round's, its capture's warm-up
-            # included
-            before = counter.clone()
-            _run(key, body, width)
-            _rounds.append((key, before, counter.clone()))
-
-        eng._run = marking
+        # (key, FUM runs before, after) per round: the runs between are
+        # that round's, its capture's warm-up included
+        rounds = count_rounds(torch, eng)
         tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
         del eng._run       # the closure holds the engine: free it with del
         label = f"spec decode, draft_len {k}, graphed"
@@ -1549,6 +1564,7 @@ def phase_spec_prefix(torch, cfg, params, h1_tokens):
               f"{label}: verify stage 3 resolved to "
               f"{s['attn_verify_stage3']}")
         rl = s["round_launches"]
+        # keyed (k, tier): a fixed draft profile is the "base" tier
         graphs = {w: n for w, (_, n) in eng._graphs.items()}
         check(all(v["draft"]["fum_kernel_launches"] == 0
                   and v["verify"]["fum_kernel_launches"] == N_LAYERS_QWEN
@@ -1583,26 +1599,27 @@ def phase_spec_prefix(torch, cfg, params, h1_tokens):
         log(f"[spec] {label}: {runs['fum']} FUM runs on the card = "
             f"{N_LAYERS_QWEN} layers x ({s['spec_rounds']} verifies + "
             f"{s['graph_captures']} warm-up rounds), by round width "
-            f"{dict(sorted(per_width.items()))} = the engine's count")
+            f"{key_names(per_width)} = the engine's count")
         check(s["spec_graphs"] == len(set(widths)) <= k
               and s["graph_captures"] == s["spec_graphs"],
               f"{label}: {s['spec_graphs']} graphs for widths "
-              f"{sorted(set(widths))}")
+              f"{sorted(set(widths), key=str)}")
         log(f"[spec] {label}: "
             f"tokens == graphed horizon 1's; wall {wall:.2f} s, rounds "
-            f"{s['spec_rounds']} (widths {dict(sorted(Counter(widths).items()))}), "
+            f"{s['spec_rounds']} (widths {key_names(Counter(widths))}), "
             f"acceptance_rate {s['acceptance_rate']:.4f}, decode_tok_s "
             f"{s['decode_tok_s']:.1f} (without the captures "
             f"{s['decode_tok_s_steady']:.1f}), graphs {s['spec_graphs']} "
             f"captured in {s['graph_capture_s']:.2f} s holding "
             f"{s['graph_allocated_bytes'] / 2**20:.1f} MiB allocated / "
             f"{s['graph_reserved_bytes'] / 2**20:.1f} MiB reserved; FUM "
-            f"launches per round: draft {rl[k]['draft']['fum_kernel_launches']}, "
-            f"verify {rl[k]['verify']['fum_kernel_launches']}; backends "
+            f"launches per round: draft "
+            f"{rl[f'{k}:base']['draft']['fum_kernel_launches']}, verify "
+            f"{rl[f'{k}:base']['verify']['fum_kernel_launches']}; backends "
             f"draft {s['attn_backend_draft']} ({s['attn_draft_stage3']}), "
             f"verify {s['attn_backend_verify']}")
         # the kernel's runs at Sq = k on the card
-        launched = per_width[k]
+        launched = per_width[(k, "base")]
         del eng
         # the FUM kernel at the path's own verify calls: the same serve
         # eagerly, recording the call that listed the most pages
@@ -2464,6 +2481,373 @@ def phase_faults(torch, cfg, params, h1_tokens):
     return out
 
 
+# ---------- phase 5h: hardware profile, cost policy, adaptive speculation
+#: the forced plan of phase 5h (d): the reference test's thrashing
+#: schedule of round widths (k 1 conservative, 2 base, 3-4 aggressive)
+FORCED_PLAN = (4, 1, 2, 4, 1, 3, 2, 1, 4, 2)
+#: timed runs per probed candidate in phase 5h (b) (the tuner's default
+#: is 3): an eager probe of a decode route times mostly the host's
+#: dispatch of the plain stages 1-2 both routes share, and the minimum
+#: of 3 runs let the block route win one of three runs of this phase
+PROBE_REPS = 20
+#: the profile's peaks may be exceeded by a measurement by this factor
+#: at most; a higher reading means the yardstick is wrong
+PEAK_SLACK = 1.05
+
+
+class ForcedPlan:
+    """A SpecController stand-in replaying ``FORCED_PLAN`` (then k = 1),
+    each width with its fixed tier; the real controller folds each
+    round's acceptance in and keeps the summary."""
+
+    def __init__(self, ctl):
+        self.ctl, self.ks, self.plans = ctl, list(FORCED_PLAN), []
+
+    def plan(self):
+        k = self.ks.pop(0) if self.ks else 1
+        tier = {1: self.ctl.conservative, 2: self.ctl.base}
+        self.plans.append(k)
+        return k, tier.get(k, self.ctl.aggressive)
+
+    def update(self, accepted, drafted):
+        self.ctl.update(accepted, drafted)
+
+    def summary(self):
+        return self.ctl.summary()
+
+
+def count_rounds(torch, eng):
+    """Wrap ``eng._run`` so that the FUM kernel's count on the card is
+    copied on the stream (no wait for the card) before and after each
+    graph run: returns the list of (key, before, after) it fills; undo
+    with ``del eng._run``."""
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    counter = hdp_paged_fum_decode.runs.tensor("cuda")
+    rounds = []
+    run_once = eng._run
+
+    def marking(key, body, width):
+        before = counter.clone()
+        run_once(key, body, width)
+        rounds.append((key, before, counter.clone()))
+
+    eng._run = marking
+    return rounds
+
+
+def check_round_runs(s, rounds, runs, label):
+    """Each (k, tier) of a graphed speculative serve is captured once, and
+    the FUM kernel's runs on the card in the rounds of each key are 28 x
+    (its rounds + 1 warm-up). Returns the runs by key."""
+    keys = [k for k, _, _ in rounds]
+    per_key = Counter()
+    for k, before, after in rounds:
+        per_key[k] += int((after - before).item())
+    want = {k: N_LAYERS_QWEN * (keys.count(k) + 1) for k in set(keys)}
+    check(s["graph_captures"] == s["spec_graphs"] == len(set(keys)),
+          f"{label}: {s['graph_captures']} captures, {s['spec_graphs']} "
+          f"spec graphs for {len(set(keys))} keys {key_names(Counter(keys))}")
+    check(per_key == want and runs["fum"] == sum(want.values())
+          == N_LAYERS_QWEN * (s["spec_rounds"] + s["graph_captures"])
+          and runs["block"] == 0,
+          f"{label}: FUM runs on the card by (k, tier) "
+          f"{key_names(per_key)}, expected {key_names(want)} (28 x (rounds "
+          f"+ 1 warm-up)); in all {runs}")
+    log(f"[tune] {label}: rounds by (k, tier) {key_names(Counter(keys))}, "
+        f"each captured once; FUM runs on the card {key_names(per_key)} "
+        f"= 28 x (rounds + 1 warm-up), {runs['fum']} in all")
+    return per_key
+
+
+def phase_autotune(torch, cfg, params, h1_tokens):
+    """qwen2-1.5b at full width on phase 5's weights and traffic: (a) the
+    H100 hardware profile against measurements on the card (memory, a
+    device copy's bandwidth and a bf16 matmul's rate at most the
+    profile's peaks, the dispatch constants beside the profile's); (b)
+    the cost policy, graphed at horizon 4, on a tuner that finds every
+    signature ambiguous, so each is probed on the card (tokens equal
+    phase 5's, the FUM kernel kept, one probe per pending signature, one
+    capture per epoch, the FUM kernel's runs = 28 x (decode steps +
+    warm-ups) + its probe runs), then the same traffic again on the
+    settled decisions (no probe, no capture; the requests that differ
+    from phase 5's printed with phase 5's top-2 margin where they part);
+    (c) a warm start from the saved cache (no probe, the settled serve's
+    decisions and tokens; a CPU cache refused); (d)
+    acceptance-adaptive speculation at draft_len 4, graphed: natural
+    and on the forced plan (tokens equal phase 5's horizon-1 tokens,
+    each (k, tier) captured once, the FUM runs per key 28 x (rounds + 1
+    warm-up)), beside fixed draft_len 4 and horizon 1 on the same
+    traffic. Returns the FUM runs on the card by serve, the sub-phases'
+    wall seconds and what they measured."""
+    import numpy as np
+    from repro_torch.attention import AttnSpec
+    from repro_torch.autotune import SpecController, Tuner, reset_default_tuner
+    from repro_torch.launch.measure_profile import measure
+    from repro_torch.roofline.hardware import (CARD_PROFILES, H100_SXM,
+                                               HOST_CPU, detect_profile)
+    from repro_torch.serving import Engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(200, 1001, size=8)]
+    out, secs, fum = {}, {}, {}
+
+    def sub(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 2)
+        log(f"[tune] ({name}) wall {secs[name]:.2f} s")
+
+    # ---- (a) the hardware profile against the card
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    prof = detect_profile()
+    check(prof is H100_SXM and detect_profile("cuda") is H100_SXM
+          and CARD_PROFILES.get(name) is H100_SXM,
+          f"detect_profile() on {name!r} gave {prof.name!r}, expected "
+          f"{H100_SXM.name!r}")
+    check(detect_profile("cpu") is HOST_CPU, "the CPU's profile")
+    rec = measure(torch)
+    check(rec["total_memory"] == prof.mem_bytes,
+          f"total_memory {rec['total_memory']} != the profile's "
+          f"mem_bytes {prof.mem_bytes}")
+    check(0 < rec["copy_bytes_s"] <= PEAK_SLACK * prof.hbm_bw,
+          f"a device copy moved {rec['copy_bytes_s'] / 1e12:.3f} TB/s, "
+          f"above {PEAK_SLACK} x the profile's hbm_bw "
+          f"{prof.hbm_bw / 1e12:.3f} TB/s")
+    check(0 < rec["matmul_bf16_flop_s"] <= PEAK_SLACK * prof.peak_flops,
+          f"a bf16 8192^3 matmul ran {rec['matmul_bf16_flop_s'] / 1e12:.1f} "
+          f"TFLOP/s, above {PEAK_SLACK} x the profile's peak_flops "
+          f"{prof.peak_flops / 1e12:.1f}")
+    log(f"[tune] profile {prof.name} for {name!r}: mem_bytes "
+        f"{prof.mem_bytes} (total_memory {rec['total_memory']}); device "
+        f"copy of 1 GiB (read + write) {rec['copy_bytes_s'] / 1e12:.4f} "
+        f"TB/s = {rec['copy_bytes_s'] / prof.hbm_bw:.4f} of hbm_bw "
+        f"{prof.hbm_bw / 1e12:.3f} TB/s; bf16 8192^3 matmul "
+        f"{rec['matmul_bf16_flop_s'] / 1e12:.2f} TFLOP/s = "
+        f"{rec['matmul_bf16_flop_s'] / prof.peak_flops:.4f} of peak_flops "
+        f"{prof.peak_flops / 1e12:.1f}")
+    log(f"[tune] dispatch_s measured {rec['dispatch_s']:.4e} s (one replay "
+        f"of a one-kernel graph, synchronized, median of 200) beside the "
+        f"profile's {prof.dispatch_s:.4e}; op_overhead_s measured "
+        f"{rec['op_overhead_s']:.4e} s (a {rec['op_graph_nodes']}-kernel "
+        f"graph's device time per node, median of 20) beside the "
+        f"profile's {prof.op_overhead_s:.4e}")
+    out["profile"] = {k: rec[k] for k in (
+        "copy_bytes_s", "matmul_bf16_flop_s", "dispatch_s", "op_overhead_s")}
+    sub("a", t0)
+
+    # ---- (b) the cost policy, every signature probed on the card
+    t0 = time.perf_counter()
+    kw = dict(SERVE_KW, decode_horizon=4)
+    cost = AttnSpec(policy="cost")
+    tuner = Tuner(margin=1e9, probe_reps=PROBE_REPS)
+    check(tuner.hw is H100_SXM and tuner.device.type == "cuda",
+          f"the tuner prices with {tuner.hw.name} and probes on "
+          f"{tuner.device}")
+    pending_seen = []
+    flush = tuner.flush_probes
+
+    def recording_flush():
+        if tuner.pending:
+            pending_seen.append({k: v[2] for k, v in tuner.pending.items()})
+        return flush()
+
+    tuner.flush_probes = recording_flush
+    try:
+        eng = Engine(cfg, params, device="cuda", attn=cost, tuner=tuner,
+                     **kw)
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        epochs = eng._attn_epoch
+        label = "cost policy, graphed, horizon 4"
+        check(tok == h1_tokens, f"{label}: tokens differ from phase 5's: "
+              f"{first_divergence(tok, h1_tokens)}")
+        check(s["attn_policy"] == "cost"
+              and s["attn_backend_decode"] == "pallas_paged_decode"
+              and s["attn_decode_stage3"] == "cuda:hdp_paged_fum_decode",
+              f"{label}: decode resolved to {s['attn_backend_decode']} "
+              f"({s['attn_decode_stage3']}) under policy {s['attn_policy']}")
+        pending = {k: v for p in pending_seen for k, v in p.items()}
+        st = tuner.stats()
+        check(st["probes"] == sum(map(len, pending_seen)) == len(pending)
+              > 0 and st["pending"] == 0
+              and set(tuner.measured) == set(pending)
+              == set(tuner.probe_times),
+              f"{label}: {st} after flushes of {pending_seen}; every "
+              "pending signature must become one measured entry")
+        for key, times in tuner.probe_times.items():
+            log(f"[tune] probe {key}: candidates "
+                + ", ".join(f"{n} {t * 1e3:.4f} ms" for n, t in times.items())
+                + f"; measured winner {tuner.measured[key]}, decision "
+                f"{tuner.decision[key]}")
+        check(s["graph_captures"] == 1 + epochs,
+              f"{label}: {s['graph_captures']} captures over {epochs} "
+              "attention epoch bump(s), expected 1 + bumps")
+        # each probed candidate runs once untimed and probe_reps times:
+        # the FUM kernel for pallas_paged_decode, the block tile kernel
+        # (fp32 V) for the block route
+        reps = 1 + tuner.probe_reps
+        probed_fum = sum("pallas_paged_decode" in names
+                         for names in pending.values())
+        probed_block = sum("pallas_hdp_block" in names
+                           for names in pending.values())
+        probe_runs = reps * probed_fum
+        want = s["fum_kernel_launches"] + N_LAYERS_QWEN * s["graph_captures"]
+        check(s["fum_kernel_launches"] == N_LAYERS_QWEN * s["decode_steps"]
+              and runs["fum"] == want + probe_runs
+              and runs["block"] == reps * probed_block,
+              f"{label}: {runs} kernel runs on the card, expected "
+              f"{want + probe_runs} FUM runs = 28 x ({s['decode_steps']} "
+              f"decode steps + {s['graph_captures']} warm-ups) + "
+              f"{probe_runs} probe runs ({reps} x {probed_fum} probed "
+              f"signature(s) listing the FUM kernel), and "
+              f"{reps * probed_block} block tile runs (the block route's "
+              "probes)")
+        log(f"[tune] {label}: tokens == phase 5's; {runs['fum']} FUM runs "
+            f"on the card = 28 x ({s['decode_steps']} decode steps + "
+            f"{s['graph_captures']} warm-up(s)) + {probe_runs} probe runs "
+            f"({reps} x {probed_fum}), block tile runs {runs['block']} "
+            f"(the block route's probes); {len(pending)} "
+            f"signatures probed, {epochs} epoch bump(s), "
+            f"{s['graph_captures']} capture(s); tuner hits/misses "
+            f"{s['tuner_hits']}/{s['tuner_misses']} (consultations); "
+            f"pred_decode_step_s {s['pred_decode_step_s']:.4e} beside "
+            f"meas_decode_step_s {s['meas_decode_step_s']:.4e} (decode_s "
+            f"over decode steps, the capture included); decode_tok_s "
+            f"{s['decode_tok_s']:.1f} (without the capture "
+            f"{s['decode_tok_s_steady']:.1f})")
+        fum[f"qwen2-1.5b cost policy, graphed, horizon 4 (with "
+            f"{probe_runs} probe runs)"] = runs["fum"]
+        # the same traffic again on the settled decisions: no probe, no
+        # capture; a flipped prefill decision serves its backend now
+        tok2, s2, _, _, runs2 = serve(torch, eng, prompts, 32)
+        del eng
+        del tuner.flush_probes
+        steps2 = s2["decode_steps"] - s["decode_steps"]
+        check(tuner.probes == st["probes"] and not tuner.pending
+              and s2["graph_captures"] == s["graph_captures"]
+              and runs2["fum"] == N_LAYERS_QWEN * steps2
+              and runs2["block"] == 0,
+              f"{label}, settled: probes {tuner.probes}, captures "
+              f"{s2['graph_captures']}, runs {runs2} over {steps2} steps")
+        settled = {p: s2[f"attn_backend_{p}"] for p in ("prefill", "decode")}
+        moved = first_divergence(tok2, h1_tokens)
+        margins = {}
+        for u, (i, _, _) in sorted(moved.items()):
+            m, top1, *_ = top2_margin(torch, cfg, params, prompts[u],
+                                      h1_tokens[u], i)
+            margins[u] = (i, round(m / bf16_ulp(top1), 1))
+        log(f"[tune] {label}, the same traffic on the settled decisions "
+            f"{settled}: no probe, no capture, {runs2['fum']} FUM runs = 28 "
+            f"x {steps2} decode steps; {len(moved)} of 8 requests differ "
+            "from phase 5's (uid: first index, phase 5's top-2 margin "
+            f"there in bf16 ulps) {margins}")
+        out["cost_settled"] = dict(backends=settled, differ=margins)
+        out["cost"] = dict(
+            probes=st["probes"], epochs=epochs, captures=s["graph_captures"],
+            probe_ms={k: {n: t * 1e3 for n, t in v.items()}
+                      for k, v in tuner.probe_times.items()},
+            pred_decode_step_s=s["pred_decode_step_s"],
+            meas_decode_step_s=s["meas_decode_step_s"],
+            decode_tok_s=s["decode_tok_s"],
+            decode_tok_s_steady=s["decode_tok_s_steady"])
+        sub("b", t0)
+
+        # ---- (c) warm start from the saved cache
+        t0 = time.perf_counter()
+        cache_dir = ROOT / "build"
+        cache_dir.mkdir(exist_ok=True)
+        path = str(cache_dir / "tuner_5h.json")
+        tuner.save(path)
+        warm = Tuner(cache_path=path)
+        check(warm.measured == tuner.measured,
+              f"warm start loaded {warm.measured}, saved {tuner.measured}")
+        eng = Engine(cfg, params, device="cuda", attn=cost, tuner=warm, **kw)
+        wtok, ws, _, _, wruns = serve(torch, eng, prompts, 32)
+        del eng
+        check(wtok == tok2 and ws["tuner_probes"] == 0
+              and warm.decision == tuner.decision
+              and ws["graph_captures"] == 1
+              and wruns["fum"] == N_LAYERS_QWEN * (ws["decode_steps"] + 1),
+              f"warm start: probes {ws['tuner_probes']}, decisions "
+              f"{warm.decision} vs {tuner.decision}, captures "
+              f"{ws['graph_captures']}, FUM runs {wruns}, tokens equal "
+              f"the settled serve's {wtok == tok2}")
+        cpu_path = str(cache_dir / "tuner_5h_cpu.json")
+        cpu = Tuner(hw=HOST_CPU)
+        cpu.measured.update(tuner.measured)
+        cpu.save(cpu_path)
+        check(Tuner().load(cpu_path) is False,
+              "a tuner on the card loaded a host_cpu cache")
+        log(f"[tune] warm start: {len(warm.measured)} measured entries "
+            f"loaded, 0 probes, the settled serve's decisions and tokens, "
+            f"one capture; a host_cpu cache refused on the card")
+        fum["qwen2-1.5b cost policy warm start, graphed, horizon 4"] = \
+            wruns["fum"]
+        sub("c", t0)
+    finally:
+        reset_default_tuner()
+
+    # ---- (d) acceptance-adaptive speculation, graphed
+    t0 = time.perf_counter()
+    rates = {}
+    for label, ekw in (
+            ("adaptive, draft_len 4", dict(spec_decode=True, draft_len=4,
+                                           adaptive_spec=True)),
+            ("forced plan, draft_len 4", dict(spec_decode=True, draft_len=4,
+                                              adaptive_spec=True)),
+            ("fixed draft_len 4", dict(spec_decode=True, draft_len=4)),
+            ("horizon 1", dict(spec_decode=False, decode_horizon=1))):
+        eng = Engine(cfg, params, device="cuda", **ekw, **SERVE_KW)
+        forced = None
+        if label.startswith("forced"):
+            forced = eng.spec_ctl = ForcedPlan(eng.spec_ctl)
+        rounds = count_rounds(torch, eng) if eng.spec else None
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        if rounds is not None:
+            del eng._run
+        bad = first_divergence(tok, h1_tokens)
+        check(not bad, f"{label}: tokens differ from phase 5's graphed "
+              f"horizon-1 tokens (uid: first index, this, horizon 1): {bad}")
+        rates[label] = (s["decode_tok_s"], s["decode_tok_s_steady"])
+        if eng.spec:
+            per_key = check_round_runs(s, rounds, runs, label)
+            if forced is not None:
+                # the stand-in plans; the controller behind it only folds
+                # the acceptance in, so its own draft_len_mean stays 0
+                s["draft_len_mean"] = sum(forced.plans) / len(forced.plans)
+                check(forced.plans[:len(FORCED_PLAN)] == list(FORCED_PLAN),
+                      f"{label}: plans {forced.plans}")
+                check({key for key, _, _ in rounds}
+                      == {(4, "aggressive"), (1, None), (2, "base"),
+                          (3, "aggressive")},
+                      f"{label}: keys {key_names(per_key)}")
+            log(f"[tune] {label}: tokens == phase 5's horizon 1; rounds "
+                f"{s['spec_rounds']}, acceptance_rate "
+                f"{s['acceptance_rate']:.4f}"
+                + (f", acceptance_ema {s['acceptance_ema']:.4f}, "
+                   f"draft_len_mean {s['draft_len_mean']:.4f}"
+                   if s["adaptive_spec"] else "")
+                + f"; {s['spec_graphs']} spec graph(s) hold "
+                f"{s['graph_allocated_bytes'] / 2**20:.2f} MiB allocated / "
+                f"{s['graph_reserved_bytes'] / 2**20:.2f} MiB reserved")
+            out[label] = dict(
+                rounds=s["spec_rounds"], acceptance_rate=s["acceptance_rate"],
+                graphs=s["spec_graphs"], runs=key_names(per_key),
+                graph_allocated_bytes=s["graph_allocated_bytes"],
+                graph_reserved_bytes=s["graph_reserved_bytes"])
+            if s["adaptive_spec"]:
+                out[label].update(acceptance_ema=s["acceptance_ema"],
+                                  draft_len_mean=s["draft_len_mean"])
+            fum[f"qwen2-1.5b {label}, graphed"] = runs["fum"]
+        del eng
+    log("[tune] decode tok/s on phase 5's traffic (with the captures / "
+        "without): " + "; ".join(f"{k} {a:.1f} / {b:.1f}"
+                                 for k, (a, b) in rates.items()))
+    out["decode_tok_s"] = rates
+    sub("d", t0)
+    out["secs"] = secs
+    out["fum_runs"] = fum
+    return out
+
+
 # ------------------------------------------- phase 5b: granite-8b serving
 N_LAYERS_GRANITE = 36
 GRANITE_KW = dict(max_batch=8, max_len=4096 + 32,
@@ -3248,6 +3632,9 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global HBM_BYTES_S, BF16_FLOP_S
+    from repro_torch.roofline.hardware import H100_SXM
+    HBM_BYTES_S, BF16_FLOP_S = H100_SXM.hbm_bw, H100_SXM.peak_flops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3289,6 +3676,9 @@ def main() -> int:
                            phase_stream, torch, cfg, params)
             faults = timed("5g faults, deadlines, replicas", phase_faults,
                            torch, cfg, params, serve_launches["h1_tokens"])
+            tuned = timed("5h profile, cost policy, adaptive spec",
+                          phase_autotune, torch, cfg, params,
+                          serve_launches["h1_tokens"])
             del params
             fum_by_fmt, granite = timed("5b granite-8b", phase_granite,
                                         torch)
@@ -3330,6 +3720,7 @@ def main() -> int:
         "qwen2-1.5b stream scheduler, 24 requests, graphed, horizon 4":
             stream["fum_runs"],
         **faults["fum_runs"],
+        **tuned["fum_runs"],
         **{k: v for k, v in moe["fum_runs"].items() if k not in olmoe_runs}}
     for Sq in DRAFT_LENS:
         k_ms, p_ms, bound, bound_by = fum_timed[f"verify{Sq}"]
@@ -3423,6 +3814,7 @@ def main() -> int:
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
     log(f"[sched] phase 5f {json.dumps({k: v for k, v in stream.items() if k != 'fum_runs'})}")
     log(f"[faults] phase 5g {json.dumps({k: v for k, v in faults.items() if k != 'fum_runs'})}")
+    log(f"[tune] phase 5h {json.dumps({k: v for k, v in tuned.items() if k != 'fum_runs'})}")
     log(f"[phase] wall seconds {json.dumps(walls)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

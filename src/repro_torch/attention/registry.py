@@ -16,8 +16,12 @@ calls.
   (``allow_fallback=True``) or raises ``BackendUnsupported``.
 * ``REPRO_ATTN_BACKEND`` overrides every "auto" request; explicit
   non-auto requests win over it.
-* The cost policy is not ported yet: ``AttnSpec(policy="cost")`` raises
-  ``NotImplementedError``.
+* Under the cost policy (``AttnSpec(policy="cost")``, or policy "auto"
+  with ``REPRO_ATTN_POLICY=cost``) an "auto" request is ranked by the
+  ``repro_torch.autotune`` tuner on the call's shape signature
+  (``REPRO_ATTN_BACKEND`` still wins over it). The reference consults
+  the tuner once per jit trace; the port on every eager dispatch, and on
+  the warm-up and the capture of a CUDA graph.
 """
 from __future__ import annotations
 
@@ -32,6 +36,11 @@ from repro_torch.attention.spec import AttnCall, AttnSpec
 
 #: env var forcing every "auto" backend request (explicit requests win).
 BACKEND_ENV = "REPRO_ATTN_BACKEND"
+
+#: env var deciding how policy="auto" specs rank auto-selected backends:
+#: "cost" routes through the repro_torch.autotune cost model; anything
+#: else (including unset) keeps the static priority order.
+POLICY_ENV = "REPRO_ATTN_POLICY"
 
 _BACKEND_MODULES = ("repro_torch.attention.reference",
                     "repro_torch.attention.backends")
@@ -112,9 +121,28 @@ def default_spec() -> AttnSpec:
     return AttnSpec(backend=os.environ.get(BACKEND_ENV, "auto"))
 
 
-def resolve_backend(call: AttnCall,
-                    spec: Optional[AttnSpec] = None) -> Backend:
-    """Pick the backend serving ``call`` under ``spec``."""
+def effective_policy(spec: AttnSpec) -> str:
+    """The selection policy ``spec`` actually runs under: its own unless
+    "auto", in which case REPRO_ATTN_POLICY=cost opts the process in."""
+    if spec.policy != "auto":
+        return spec.policy
+    return ("cost" if os.environ.get(POLICY_ENV, "").strip() == "cost"
+            else "static")
+
+
+_COST_WARNED = False
+
+
+def resolve_backend(call: AttnCall, spec: Optional[AttnSpec] = None, *,
+                    sig=None, tuner=None) -> Backend:
+    """Pick the backend serving ``call`` under ``spec``.
+
+    ``sig`` (a :class:`repro_torch.autotune.cost.CallSig`) activates
+    cost-based ranking of the auto candidates when the spec's effective
+    policy is "cost"; without it (or under explicit requests) the static
+    priority order decides. ``tuner`` overrides the process-default
+    tuner.
+    """
     _ensure_backends()
     spec = spec if spec is not None else default_spec()
     cands = [b for b in _REGISTRY.values() if b.supports(call)]
@@ -129,6 +157,23 @@ def resolve_backend(call: AttnCall,
         # "auto" always consults the env override; explicit non-auto
         # requests still win
         req = os.environ.get(BACKEND_ENV, "auto")
+    if req == "auto" and sig is not None and effective_policy(spec) == "cost":
+        try:
+            if tuner is None:
+                from repro_torch.autotune.tuner import default_tuner
+                tuner = default_tuner()
+            return tuner.choose(call, sig, cands)
+        except Exception:
+            # never let a cost-model bug change dispatch correctness —
+            # degrade to the static order, warn once per process
+            global _COST_WARNED
+            if not _COST_WARNED:
+                _COST_WARNED = True
+                import warnings
+                warnings.warn("cost-policy backend selection failed; "
+                              "falling back to static priority order",
+                              RuntimeWarning, stacklevel=2)
+            return best(cands)
     if req != "auto":
         known = {n for b in _REGISTRY.values() for n in (b.name, *b.tags)}
         if req not in known:
@@ -161,6 +206,16 @@ def attention(q, k, v, call: AttnCall, *, spec: Optional[AttnSpec] = None,
         q_pos = torch.arange(q.shape[-2], device=q.device)
     if k_pos is None and k is not None:
         k_pos = torch.arange(k.shape[1], device=q.device)
-    backend = resolve_backend(call, spec)
+    sig = None
+    eff_spec = spec if spec is not None else default_spec()
+    if (effective_policy(eff_spec) == "cost"
+            and eff_spec.requested_for(call.mode) == "auto"):
+        # the signature reads shapes and dtypes only, so consulting the
+        # tuner reads nothing back from the device (a graph capture can
+        # hold the call); tp is 1 until the port serves tensor-parallel
+        from repro_torch.autotune.cost import call_signature
+        sig = call_signature(call, q, k=k, cache=cache,
+                             page_table=page_table, tp=1)
+    backend = resolve_backend(call, eff_spec, sig=sig)
     return backend.run(q, k, v, call, q_pos=q_pos, k_pos=k_pos,
                        cache=cache, page_table=page_table)

@@ -1,8 +1,8 @@
 """Attention call descriptors and backend-selection specs.
 
 PyTorch counterpart of ``repro.attention.spec`` (plain dataclasses, the
-same fields and checks). ``policy="cost"`` is not ported yet: it raises
-``NotImplementedError`` (ROADMAP.md section 1, item 7).
+same fields and checks; ``policy="cost"`` ranks auto candidates through
+``repro_torch.autotune``).
 
 ``AttnCall`` is the frozen, hashable descriptor of ONE attention
 invocation — everything a backend needs to decide *whether* it can serve
@@ -36,10 +36,6 @@ DRAFT_SCORES = ("scout", "int", "approx")
 POLICIES = ("auto", "static", "cost")
 KV_DTYPES = ("auto", "fp32", "int8", "fp8_v")
 KV_SCALES = ("grid", "absmax")
-
-COST_UNPORTED = ("the cost policy is not ported yet (ROADMAP.md section 1, "
-                 "item 7: autotune/ and roofline/hardware.py)")
-
 
 @dataclasses.dataclass(frozen=True)
 class DraftProfile:
@@ -195,10 +191,13 @@ class AttnSpec:
         fall down the auto chain instead of raising.
       policy: how "auto" picks among supporting candidates —
         * ``"static"``: registry priority order (the historical rule).
-        * ``"cost"``: the cost model's ranking; not ported yet, so it
-          raises ``NotImplementedError`` (ROADMAP.md section 1, item 7).
-        * ``"auto"`` (default): the static order, as long as the cost
-          policy is not ported.
+        * ``"cost"``: the :mod:`repro_torch.autotune` cost model ranks
+          the candidates under the device's hardware profile, probing
+          ambiguous calls once. Only consulted when the *requested*
+          backend resolves to "auto" — an exact name or family tag still
+          pins.
+        * ``"auto"`` (default): ``REPRO_ATTN_POLICY`` decides (``cost``
+          enables the tuner, anything else means static).
     """
 
     backend: str = "auto"
@@ -223,8 +222,6 @@ class AttnSpec:
         if self.policy not in POLICIES:
             raise ValueError(
                 f"policy must be one of {POLICIES}, got {self.policy!r}")
-        if self.policy == "cost":
-            raise NotImplementedError(COST_UNPORTED)
 
     def requested_for(self, mode: str) -> str:
         over = self.prefill if mode == "prefill" else self.decode

@@ -236,7 +236,7 @@ def profile_run(args, cfg, params, horizon: int, graph: bool) -> dict:
             "tokens_per_round": done["tokens_out"] / n_tok,
             "acceptance_rate": (done["accepted_tokens"] / done["draft_tokens"]
                                 if done["draft_tokens"] else 0.0),
-            "round_launches": dict(eng.round_launches),
+            "round_launches": eng.summary()["round_launches"],
         })
         if not graph:
             split = range_split(prof)

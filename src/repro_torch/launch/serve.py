@@ -31,8 +31,16 @@ scheduler's counters, TTFT, TPOT and the queue's wait and depth.
 sharing one set of weights on the card (``serving.replica.ReplicaSet``:
 prefix-affinity then least-loaded dispatch, failover of a dead
 replica's requests); its summary is replica 0's with the fleet's
-throughput and counters, health and failovers. Each defaults to its
-REPRO_* environment variable, as in the reference.
+throughput and counters, health and failovers. ``--policy cost`` ranks
+the auto backends through the cost model under the device's hardware
+profile (``repro_torch.autotune``; ambiguous calls probed once, on the
+card), ``--tuner-cache PATH`` loads the tuner's measured cache before
+serving and saves it after, and ``--adaptive-spec`` (with
+``--spec-decode``) lets an acceptance-rate EMA plan each round's draft
+length and draft thresholds; the summary grows ``attn_policy``, the
+tuner's counters, ``pred_decode_step_s`` beside ``meas_decode_step_s``,
+and ``acceptance_ema``/``draft_len_mean``. Each defaults to its REPRO_*
+environment variable, as in the reference.
 Weights are random, drawn from ``--seed``; prompt lengths are drawn
 from [bucket/4, max_len - max_new] with the largest prefill bucket
 (1024, or 32 with ``--reduced``; longer prompts prefill in chunks), and
@@ -44,6 +52,8 @@ from [bucket/4, max_len - max_new] with the largest prefill bucket
     python -m repro_torch.launch.serve --stream-sched --arrival-rate 0.5
     python -m repro_torch.launch.serve --dp 2 --stream-sched \
         --fault-plan "nan@2:uid=3;kill@4:replica=0"
+    python -m repro_torch.launch.serve --policy cost --tuner-cache t.json
+    python -m repro_torch.launch.serve --spec-decode --adaptive-spec
 """
 from __future__ import annotations
 
@@ -128,6 +138,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--draft-len", type=int, default=None,
                     help="tokens proposed and verified per round; default "
                          "honors REPRO_DRAFT_LEN, else 4")
+    ap.add_argument("--policy", default=None, choices=["static", "cost"],
+                    help="auto-selection policy for the attention backend: "
+                         "static = registry priority order; cost = the "
+                         "repro_torch.autotune cost model ranks candidates "
+                         "under the device's hardware profile (probing "
+                         "ambiguous calls once). Default honors "
+                         "REPRO_ATTN_POLICY, else static")
+    ap.add_argument("--tuner-cache", default=None,
+                    help="JSON path for the cost-policy tuner's measured "
+                         "cache: loaded before serving (warm start) and "
+                         "written back after, so repeat runs skip probes")
+    ap.add_argument("--adaptive-spec", dest="adaptive_spec",
+                    action="store_true", default=None,
+                    help="acceptance-adaptive speculation: an EMA of the "
+                         "draft acceptance rate re-plans draft length and "
+                         "draft prune aggressiveness per round (the tokens "
+                         "of greedy decode at any plan). Default honors "
+                         "REPRO_ADAPTIVE_SPEC, else off")
+    ap.add_argument("--no-adaptive-spec", dest="adaptive_spec",
+                    action="store_false",
+                    help="force adaptive speculation off (fixed draft-len)")
     ap.add_argument("--stream-sched", dest="stream_sched",
                     action="store_true", default=None,
                     help="continuous-batching stream scheduler: token-"
@@ -220,7 +251,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          f"(tail) beside --max-new {args.max_new} and "
                          f"--shared-prefix {args.shared_prefix}")
     spec = AttnSpec(backend=args.backend, layout=args.layout,
-                    kv_dtype=args.kv_dtype, kv_scale=args.kv_scale)
+                    kv_dtype=args.kv_dtype, kv_scale=args.kv_scale,
+                    policy=args.policy if args.policy is not None
+                    else "auto")
+    tuner = None
+    if args.tuner_cache:
+        from repro_torch.autotune import Tuner
+        from repro_torch.roofline.hardware import detect_profile
+        tuner = Tuner(detect_profile(args.device),
+                      cache_path=args.tuner_cache)
     sched = SchedulerConfig(prefill_chunk_tokens=args.prefill_chunk,
                             watchdog_steps=args.watchdog_steps) \
         if args.stream_sched else None
@@ -230,6 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      prefix_cache=args.prefix_cache,
                      decode_horizon=args.decode_horizon,
                      spec_decode=args.spec_decode, draft_len=args.draft_len,
+                     adaptive_spec=args.adaptive_spec, tuner=tuner,
                      stream_sched=args.stream_sched, sched=sched)
     dp = args.dp if args.dp is not None else \
         int(os.environ.get(MESH_DP_ENV) or 1)
@@ -277,6 +317,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     summary["tokens_fp"] = int(np.sum([
         (uid + 1) * (i + 1) * (t + 1) for uid, r in results.items()
         for i, t in enumerate(r.tokens)]) % (2 ** 31))
+    if args.tuner_cache and eng0.tuner is not None:
+        eng0.tuner.save(args.tuner_cache)   # warm-start the next run
     print(json.dumps(summary, default=str))
     if summary.get("fault_plan"):
         # under injected faults some requests fail by design: success is

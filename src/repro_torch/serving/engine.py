@@ -57,7 +57,14 @@ per-slot layout
   does, and the K of rejected staged positions is poisoned (NaN, or the
   int8 code -128), fenced like the writes. ``k`` is ``draft_len``
   clamped to the longest remaining budget; on a CUDA device each width
-  is one CUDA graph, captured at its first round;
+  is one CUDA graph, captured at its first round. With
+  **acceptance-adaptive speculation** (``adaptive_spec=`` or
+  ``REPRO_ADAPTIVE_SPEC``; ``autotune.SpecController``) each round's
+  ``k`` (1..draft_len, still clamped) and draft profile tier
+  (conservative, base or aggressive thresholds) come from an
+  acceptance-rate EMA; the thresholds are constants of a captured
+  round, so each (k, tier) is its own graph (k = 1 drafts nothing and
+  has no tier);
 * the **stream scheduler** (``stream_sched=`` or ``REPRO_STREAM_SCHED``;
   ``scheduler.StreamScheduler``) — ``submit()`` enqueues into a waiting
   queue and every ``step()`` runs one scheduling tick before its decode:
@@ -87,10 +94,17 @@ per-slot layout
   NaN logits for one request through a ``[max_batch]`` bool buffer that
   the decode step and the verify read (a static buffer of the graphs:
   a fault never re-captures). ``serving.replica.ReplicaSet`` serves N
-  engines behind one front-end and fails a dead one's work over.
+  engines behind one front-end and fails a dead one's work over;
+* the **cost policy** (``AttnSpec(policy="cost")`` or
+  ``REPRO_ATTN_POLICY=cost``; ``autotune.Tuner``) — every "auto"
+  dispatch is ranked by the tuner's cost model under the device's
+  hardware profile. Ambiguous signatures are probed at the top of the
+  next step (and when the scheduler recycles a slot), never inside a
+  graph capture; a probe that flips a decision bumps the attention
+  epoch, which drops every captured graph, so the next step re-captures
+  under the new decision (the eager prefill re-consults on every call).
 
-Not ported yet (ROADMAP.md section 1): acceptance-adaptive speculation
-and the cost policy (item 7), and tensor parallelism (item 8).
+Not ported yet (ROADMAP.md section 1): tensor parallelism (item 8).
 """
 from __future__ import annotations
 
@@ -106,7 +120,7 @@ import numpy as np
 import torch
 
 from repro_torch.attention import (AttnSpec, DraftProfile, default_spec,
-                                   resolve_backend)
+                                   effective_policy, resolve_backend)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import POISON_CODE
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
@@ -135,6 +149,9 @@ DRAFT_ENV = "REPRO_DRAFT_LEN"
 #: env default of ``stream_sched`` (else off, or on when a ``sched``
 #: config is passed)
 STREAM_ENV = "REPRO_STREAM_SCHED"
+#: env default of ``adaptive_spec`` (degrades silently when spec decode
+#: is off; an explicit True raises there instead)
+ADAPTIVE_ENV = "REPRO_ADAPTIVE_SPEC"
 #: env default of the serve CLI's ``--dp``, the engine replicas behind one
 #: ``serving.replica.ReplicaSet`` (the Engine itself is one replica)
 MESH_DP_ENV = "REPRO_MESH_DP"
@@ -161,6 +178,14 @@ _STAT_NAMES = ("block_sparsity", "head_sparsity", "page_sparsity")
 
 def _launch_counts() -> Dict[str, int]:
     return {m: fn.launches for m, fn in _DECODE_KERNELS.items()}
+
+
+def _key_name(key) -> str:
+    """A graph or round key as text: "decode", "k" or "k:tier"."""
+    if isinstance(key, str):
+        return key
+    k, tier = key
+    return str(k) if tier is None else f"{k}:{tier}"
 
 
 def _env_flag(name: str) -> bool:
@@ -263,6 +288,20 @@ class Engine:
     draft_profile: the draft's DraftProfile (score source, threshold
         overrides); None: scores from the scout copies, the exact
         thresholds.
+    adaptive_spec: acceptance-adaptive speculation: an
+        ``autotune.SpecController`` keeps an acceptance-rate EMA and
+        plans each round's width (1..draft_len) and draft profile tier.
+        The tokens stay those of greedy decode at any plan. None reads
+        REPRO_ADAPTIVE_SPEC and degrades silently when spec decode is
+        off; True without spec decode raises.
+    tuner: an ``autotune.Tuner`` to install as the process default,
+        which cost-policy dispatch consults (engines share it); None
+        keeps the current default. Under the cost policy the default is
+        made on first use with the engine's device's profile, and an
+        engine whose device the default's profile does not describe
+        raises (``autotune.reset_default_tuner()`` or ``tuner=`` fixes
+        it): a CPU engine prices with ``HOST_CPU``, a card engine with
+        the card's profile.
     cuda_graph: on a CUDA device, run the decode step (and each width of
         speculative round) as one captured CUDA graph (the default);
         False steps eagerly, op by op. A failed capture or replay
@@ -297,6 +336,8 @@ class Engine:
                  spec_decode: Optional[bool] = None,
                  draft_len: Optional[int] = None,
                  draft_profile: Optional[DraftProfile] = None,
+                 adaptive_spec: Optional[bool] = None,
+                 tuner=None,
                  cuda_graph: bool = True,
                  stream_sched: Optional[bool] = None,
                  sched: Optional[SchedulerConfig] = None,
@@ -347,6 +388,24 @@ class Engine:
         self.draft_len = int(draft_len)
         self.draft_profile = (draft_profile if draft_profile is not None
                               else DraftProfile())
+        if adaptive_spec is None:
+            adaptive_spec = _env_flag(ADAPTIVE_ENV) and self.spec  # degrades
+        elif adaptive_spec and not self.spec:
+            raise ValueError(
+                "adaptive_spec=True requires spec_decode (there is no "
+                "draft length to adapt without speculative rounds)")
+        self.spec_ctl = None
+        if adaptive_spec:
+            from repro_torch.autotune import SpecConfig, SpecController
+            self.spec_ctl = SpecController(
+                self.draft_profile, hdp if self.hdp_on else None,
+                SpecConfig(k_max=self.draft_len))
+        #: the draft profile tiers a round may run, by name (base first:
+        #: a tier equal to it shares its graphs)
+        self._tiers = {"base": self.draft_profile}
+        if self.spec_ctl is not None:
+            self._tiers.update(aggressive=self.spec_ctl.aggressive,
+                               conservative=self.spec_ctl.conservative)
         if (self.paged or self.spec) and self.hdp_on and hdp.calib != "none":
             # the pool's scout view is quantized at write time, and rolled
             # back speculative writes leave garbage past the frontier, so
@@ -366,6 +425,26 @@ class Engine:
                 f"decode_horizon must be >= 1, got {decode_horizon}")
         self.horizon = int(decode_horizon)
         self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        self.policy = effective_policy(self.attn_spec)
+        self.tuner = None
+        if tuner is not None:
+            from repro_torch.autotune import set_default_tuner
+            set_default_tuner(tuner)
+        if self.policy == "cost":
+            from repro_torch.autotune import default_tuner
+            from repro_torch.roofline.hardware import detect_profile
+            self.tuner = default_tuner(self.device)
+            want = detect_profile(self.device)
+            if self.tuner.hw.name != want.name:
+                raise ValueError(
+                    f"the process-default tuner prices with "
+                    f"{self.tuner.hw.name!r}, but this engine runs on "
+                    f"{self.device} ({want.name!r}): pass tuner= or call "
+                    "repro_torch.autotune.reset_default_tuner() first")
+        #: bumped when a flushed probe flips a tuner decision: the bump
+        #: drops every captured graph, so the next step re-captures and
+        #: re-consults the tuner
+        self._attn_epoch = 0
         for phase in ("prefill", "decode"):
             try:
                 self.resolved_backend(phase)
@@ -455,14 +534,15 @@ class Engine:
             dtype=torch.float32, device=dev) \
             if self.collect_stats and self._stat_names else None
         #: the captured graphs, keyed "decode" (the decode step) or by a
-        #: speculative round's width k, each with the launches of each
-        #: decode kernel recorded into it
+        #: speculative round's (k, tier) (``_round_key``), each with the
+        #: launches of each decode kernel recorded into it
         self._graphs: Dict[object, Tuple[torch.cuda.CUDAGraph,
                                          Dict[str, int]]] = {}
-        #: per round width k, the decode-kernel launches of the round's
+        #: per round (k, tier), the decode-kernel launches of the round's
         #: draft steps and of its verify (wrapper counts over the capture,
         #: or over the last eager round)
-        self.round_launches: Dict[int, Dict[str, Dict[str, int]]] = {}
+        self.round_launches: Dict[Tuple[int, Optional[str]],
+                                  Dict[str, Dict[str, int]]] = {}
 
     # --------------------------------------------------------------- public
     @property
@@ -609,9 +689,8 @@ class Engine:
         slots: up to ``decode_horizon`` steps (never past the longest
         remaining budget), or with ``spec_decode`` one speculative
         round, with one host sync. Returns the number of active slots
-        stepped. (The reference also flushes pending cost-policy probes
-        at the top of a step, ``_maybe_retune``; the port has no cost
-        policy until ROADMAP.md section 1, item 7.)"""
+        stepped. Under the cost policy the tuner's pending probes run
+        first, after the deadlines (``_maybe_retune``)."""
         try:
             return self._step_inner(self._cur_step)
         finally:
@@ -623,6 +702,7 @@ class Engine:
         if self.faults is not None:
             self.faults.sleep(step_no)
         self._enforce_deadlines()
+        self._maybe_retune()
         if self.sched is not None:
             t0 = time.perf_counter()
             ticked = self.sched.tick()
@@ -640,14 +720,26 @@ class Engine:
         rem_max = max(st["req"].max_new_tokens - len(st["generated"])
                       for st in self._active.values())
         if self.spec:
-            # never draft past the longest remaining budget: no slot
-            # could commit those proposals (at most draft_len widths)
-            self._spec_step(min(self.draft_len, rem_max), step_no)
+            self._spec_step(rem_max, step_no)
         else:
             self._decode_horizon(min(self.horizon, rem_max), step_no)
         if self.sched is not None:
             self.sched.watchdog(True)      # decode progressed
         return n_stepped
+
+    def _maybe_retune(self) -> None:
+        """Flush pending tuner probes (host side, between device steps).
+
+        A measured winner that flips a standing cost decision bumps the
+        attention epoch and drops every captured graph (each holds the
+        kernels of the old decision), so the next decode re-captures and
+        re-consults the tuner; the eager prefill re-consults on every
+        call. Called at the top of every step and by the stream scheduler
+        when a recycled slot re-enters the batch, never inside a graph
+        capture. No-op under the static policy."""
+        if self.tuner is not None and self.tuner.flush_probes():
+            self._attn_epoch += 1
+            self._graphs.clear()
 
     # ------------------------------------------------------------ admission
     def _bucket_for(self, n: int) -> int:
@@ -1289,13 +1381,28 @@ class Engine:
                 self._emit(slot, int(toks[t, slot]), t_sync)
 
     # ---------------------------------------------------- speculative round
+    def _round_key(self, k: int, profile: DraftProfile):
+        """The graph and ``round_launches`` key of a round: (k, the name
+        of the profile's tier), or (1, None) at k = 1, which runs no
+        draft step. A tier's thresholds are constants of its captured
+        draft calls, so no tier may replay another's graph."""
+        if k == 1:
+            return (1, None)
+        for name, tier in self._tiers.items():
+            if tier == profile:
+                return (k, name)
+        raise ValueError(f"draft profile {profile} is none of the engine's "
+                         f"tiers {self._tiers}")
+
     @torch.no_grad()
-    def _spec_body(self, k: int) -> None:
+    def _spec_body(self, k: int,
+                   profile: Optional[DraftProfile] = None) -> None:
         """One self-speculative round of width ``k`` on the device state
         alone (the reference's ``_spec_round``); nothing is read back to
         the host, so a CUDA graph can hold it.
 
-        Draft: ``k - 1`` decode steps under the draft profile propose
+        Draft: ``k - 1`` decode steps under the draft profile ``profile``
+        (None: the engine's ``draft_profile``) propose
         d_1..d_{k-1} (their staged K/V writes go through the normal,
         floor-fenced write path). Verify: one ``k``-wide multi-query
         decode over [last committed, d_1..d_{k-1}] re-scores every
@@ -1312,6 +1419,7 @@ class Engine:
         parts run under the profiler ranges "spec_draft" and
         "spec_verify" (``launch/profile_decode.py`` splits a round's
         device time by them)."""
+        profile = self.draft_profile if profile is None else profile
         act, tok, pos = self._act, self._tok, self._pos
         table, floor = self._step_table()
         c0 = _launch_counts()
@@ -1322,7 +1430,7 @@ class Engine:
                 logits, _, _ = registry.apply_decode(
                     self.cfg, self.params, tok_i, self._store.cache,
                     pos_i[:, None], page_table=table, write_floor=floor,
-                    draft=self.draft_profile, attn=self.attn_spec)
+                    draft=profile, attn=self.attn_spec)
                 tok_i = torch.argmax(logits[:, -1], dim=-1)[:, None]
                 pos_i = pos_i + 1
                 drafts.append(tok_i)
@@ -1335,7 +1443,7 @@ class Engine:
                 pos[:, None] + steps[None], collect_stats=self.collect_stats,
                 page_table=table, write_floor=floor, attn=self.attn_spec)
         c2 = _launch_counts()
-        self.round_launches[k] = {
+        self.round_launches[self._round_key(k, profile)] = {
             "draft": {m: c1[m] - c0[m] for m in c0},
             "verify": {m: c2[m] - c1[m] for m in c0}}
         logits = self._poison(logits)
@@ -1407,18 +1515,28 @@ class Engine:
         kc[:, b, stale] = torch.where(reject[None, :, :, None, None],
                                       torch.full_like(cur, float("nan")), cur)
 
-    def _spec_step(self, k: int, step_no: int) -> None:
-        """One speculative round of width ``k``, one read of its
-        history, then the host walk (the reference's ``_spec_step``):
-        emit each slot's commits in order, finish slots at EOS or budget,
-        abort faulted slots after the drain."""
+    def _spec_step(self, rem_max: int, step_no: int) -> None:
+        """One speculative round, one read of its history, then the host
+        walk (the reference's ``_spec_step``): emit each slot's commits
+        in order, finish slots at EOS or budget, abort faulted slots
+        after the drain. The round's width k is ``draft_len``, or the
+        adaptive controller's plan (with its draft profile tier), never
+        past ``rem_max``, the longest remaining budget: no slot could
+        commit those proposals. The controller then folds the round's
+        acceptance in."""
+        if self.spec_ctl is not None:
+            k_plan, profile = self.spec_ctl.plan()
+            k = min(k_plan, rem_max)
+        else:
+            k, profile = min(self.draft_len, rem_max), self.draft_profile
+        key = self._round_key(k, profile)
         t0 = time.perf_counter()
         bufs = [self._hist[:k]]
         if self._hist_stats is not None:
             bufs.append(self._hist_stats[0])
 
         def run():
-            self._run(k, lambda: self._spec_body(k), k)
+            self._run(key, lambda: self._spec_body(k, profile), k)
             return self._read(bufs)
 
         out = self._fault_bracket(step_no, run)
@@ -1431,9 +1549,11 @@ class Engine:
         self.metrics["draft_tokens"] += (k - 1) * n_act
         # each active slot that did not fault commits >= 1 exact token;
         # the commits beyond it are accepted draft proposals
-        self.metrics["accepted_tokens"] += \
-            int(com.sum()) - (n_act - int(fault.sum()))
+        accepted = int(com.sum()) - (n_act - int(fault.sum()))
+        self.metrics["accepted_tokens"] += accepted
         self.metrics["decode_steps"] += int(com.any(axis=1).sum())
+        if self.spec_ctl is not None:
+            self.spec_ctl.update(accepted, (k - 1) * n_act)
         if len(out) > 1 and com.any():
             # one verify sample per round, over the slots that decoded
             self._record_stats(dict(zip(self._stat_names, out[1])),
@@ -1651,20 +1771,32 @@ class Engine:
         if stats is None:
             return
         m = self.metrics
+        means = {}
         for name in _STAT_NAMES:
             if name in stats:
                 x = stats[name]
                 if isinstance(x, torch.Tensor):
                     x = x.cpu().numpy()
-                m[name] += self._masked_mean(x, mask)
+                means[name] = self._masked_mean(x, mask)
+                m[name] += means[name]
         m["page_samples"] += "page_sparsity" in stats
         m["stat_samples"] += 1
+        if self.tuner is not None and "page_sparsity" in means:
+            # sharpen the cost model's sparse terms with measured decode
+            # sparsity (prefill samples carry no page field and would
+            # skew the decode-centric EMA)
+            self.tuner.observe_sparsity(means["block_sparsity"],
+                                        means["head_sparsity"],
+                                        means["page_sparsity"])
 
     def resolved_backend(self, phase: str) -> str:
         """Name of the backend the registry resolves for a serving phase
         ("prefill" | "decode" | "draft" | "verify", the last two the
         speculative round's), from the same call constructor as
-        ``attn_apply``, so the report cannot drift from the dispatch."""
+        ``attn_apply``, so the report cannot drift from the dispatch.
+        Under the cost policy the tuner's standing decision for the
+        phase (what the dispatch ran) takes precedence; before any
+        dispatch the static resolution is reported."""
         if phase not in ("prefill", "decode", "draft", "verify"):
             raise ValueError(f"phase must be prefill, decode, draft or "
                              f"verify, got {phase!r}")
@@ -1675,6 +1807,10 @@ class Engine:
             collect_stats=self.collect_stats,
             draft=self.draft_profile if phase == "draft" else None,
             verify=phase == "verify", kv_scale=self.kv_scale)
+        if self.tuner is not None:
+            dec = self.tuner.decision_for(call)
+            if dec is not None:
+                return dec
         return resolve_backend(call, self.attn_spec).name
 
     def _stage3(self, backend: str) -> str:
@@ -1727,6 +1863,27 @@ class Engine:
         m["attn_backend_prefill"] = self.resolved_backend("prefill")
         m["attn_backend_decode"] = decode = self.resolved_backend("decode")
         m["attn_decode_stage3"] = self._stage3(decode)
+        m["attn_policy"] = self.policy
+        if m["decode_steps"]:
+            m["meas_decode_step_s"] = m["decode_s"] / m["decode_steps"]
+        if self.tuner is not None:
+            ts = self.tuner.stats()
+            m["tuner_hits"] = ts["hits"]
+            m["tuner_misses"] = ts["misses"]
+            m["tuner_probes"] = ts["probes"]
+            m["tuner_cached"] = ts["measured"]
+            # under spec decode the per-round hot path is the multi-query
+            # verify call, not a plain decode step: predict what ran
+            est = self.tuner.estimate_for(build_attn_call(
+                self.cfg, mode="decode", paged=self.paged, per_slot=True,
+                collect_stats=self.collect_stats, verify=self.spec,
+                kv_scale=self.kv_scale))
+            if est is not None:
+                from repro_torch.autotune import predict_engine_step
+                m["pred_decode_step_s"] = predict_engine_step(
+                    registry.param_count(self.cfg, active_only=True),
+                    self.max_batch, self.cfg.n_layers, est[1],
+                    self.tuner.hw)
         if self.faults is not None:
             m["fault_plan"] = self.faults.plan.spec
             m["faults_fired"] = len(self.faults.fired)
@@ -1741,7 +1898,14 @@ class Engine:
             m["attn_draft_stage3"] = self._stage3(draft)
             m["attn_verify_stage3"] = self._stage3(verify)
             m["spec_graphs"] = sum(k != "decode" for k in self._graphs)
-            m["round_launches"] = dict(self.round_launches)
+            m["round_launches"] = {_key_name(k): v for k, v in
+                                   self.round_launches.items()}
+            m["adaptive_spec"] = self.spec_ctl is not None
+            if self.spec_ctl is not None:
+                sc = self.spec_ctl.summary()
+                m["acceptance_ema"] = sc["acceptance_ema"]
+                m["draft_len_mean"] = sc["draft_len_mean"]
+                m["spec_plans"] = sc["rounds"]
         m["layout"] = "paged" if self.paged else "dense"
         m["kv_dtype"] = self.kv_dtype
         m["kv_scale"] = self.kv_scale

@@ -409,10 +409,12 @@ class StreamScheduler:
             # decode already ran: this admission filled a slot vacated
             # mid-run — the continuous-batching recycle the bench pins
             m["sched_recycled"] += 1
-            # the reference flushes pending cost-policy probes here
-            # (``Engine._maybe_retune``, a no-op under the static policy);
-            # the port has no cost policy until ROADMAP.md section 1,
-            # item 7, so nothing runs here
+            # a recycled slot changes the shape mix the engine serves;
+            # give pending cost-policy probes a chance to settle before
+            # the refilled batch decodes (no-op under the static policy;
+            # the tick runs before the step's decode, so never inside a
+            # graph capture)
+            self.eng._maybe_retune()
 
     # ---------------------------------------------- interleaved prefill
     def _advance_chunk(self) -> bool:

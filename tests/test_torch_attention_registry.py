@@ -154,15 +154,66 @@ def test_env_var_forces_every_auto_resolution(monkeypatch, on_tpu):
     assert resolve_backend(tcall, AttnSpec(backend="xla")).name == "xla_hdp"
 
 
-def test_cost_policy_not_ported(monkeypatch, on_tpu):
-    with pytest.raises(NotImplementedError, match="section 1, item 7"):
-        AttnSpec(policy="cost")
-    # the port reads no policy env var: auto resolves by the static order
-    monkeypatch.setenv("REPRO_ATTN_POLICY", "cost")
-    _, tcall = _calls(mode="prefill", self_aligned=True)
-    assert resolve_backend(tcall).name == "pallas_flash"
-    assert resolve_backend(tcall, AttnSpec(backend="xla")).name == \
-        "xla_dense"
+def test_cost_policy_resolves_like_jax(monkeypatch, on_tpu):
+    """``AttnSpec(policy="cost")`` constructs, and under the cost policy
+    (explicit, or policy "auto" with ``REPRO_ATTN_POLICY=cost``) the
+    port and JAX resolve the same calls alike through a ``HOST_CPU``
+    tuner of each package; ``REPRO_ATTN_BACKEND`` still wins over it,
+    and without a signature the static order decides."""
+    from repro.autotune import Tuner as JTuner
+    from repro.autotune import call_signature as jsig
+    from repro.roofline.hardware import HOST_CPU as J_CPU
+    from repro_torch.attention import POLICY_ENV, effective_policy
+    from repro_torch.autotune import Tuner, call_signature
+    from repro_torch.roofline.hardware import HOST_CPU
+
+    assert AttnSpec(policy="cost").policy == "cost"
+    monkeypatch.setenv(POLICY_ENV, "cost")
+    assert effective_policy(AttnSpec()) == \
+        jregistry.effective_policy(JSpec()) == "cost"
+    assert effective_policy(AttnSpec(policy="static")) == "static"
+    cells = [dict(mode="decode", layout="paged", per_slot=True,
+                  hdp={**HDP_KW, "causal": True}),
+             dict(mode="decode", layout="paged", per_slot=True, verify=True,
+                  hdp={**HDP_KW, "causal": True}),
+             dict(mode="decode", layout="dense", per_slot=True,
+                  hdp={**HDP_KW, "causal": True}),
+             dict(mode="decode", layout="dense"),
+             dict(mode="prefill", hdp={**HDP_KW, "causal": True}),
+             dict(mode="prefill", self_aligned=True)]
+    jt, tt = JTuner(hw=J_CPU), Tuner(hw=HOST_CPU)
+    for cell in cells:
+        jcall, tcall = _calls(**cell)
+        sq = 1 if cell["mode"] == "decode" else SQ
+        q = np.zeros((B, N, G, sq, HD), np.float32)
+        k = np.zeros((B, SK, N, HD), np.float32)
+        kw = {}
+        if cell.get("layout") == "paged":
+            kw = dict(cache={"k_pages": np.zeros((5, 4, N, HD), np.int8)},
+                      page_table=np.zeros((B, 4), np.int32))
+        jkw = {n: _to(v, jnp.asarray) for n, v in kw.items()}
+        tkw = {n: _to(v, torch.from_numpy) for n, v in kw.items()}
+        js = jsig(jcall, jnp.asarray(q), k=jnp.asarray(k), **jkw)
+        ts = call_signature(tcall, torch.from_numpy(q),
+                            k=torch.from_numpy(k), **tkw)
+        assert ts.key() == js.key()
+        for spec_kw in ({}, {"policy": "cost"}):
+            want = jregistry.resolve_backend(jcall, JSpec(**spec_kw),
+                                             sig=js, tuner=jt).name
+            got = resolve_backend(tcall, AttnSpec(**spec_kw), sig=ts,
+                                  tuner=tt).name
+            assert got == want, (cell, spec_kw)
+            # without a signature the static (TPU-rank) order decides
+            assert resolve_backend(tcall, AttnSpec(**spec_kw)).name == \
+                jregistry.resolve_backend(jcall, JSpec(**spec_kw)).name
+        monkeypatch.setenv("REPRO_ATTN_BACKEND", "reference")
+        assert resolve_backend(tcall, AttnSpec(policy="cost"), sig=ts,
+                               tuner=tt).name == "reference" == \
+            jregistry.resolve_backend(jcall, JSpec(policy="cost"), sig=js,
+                                      tuner=jt).name
+        monkeypatch.delenv("REPRO_ATTN_BACKEND")
+    assert tt.decision == jt.decision and set(tt.pending) == set(jt.pending)
+    assert (tt.hits, tt.misses) == (jt.hits, jt.misses)
 
 
 def test_call_validation():

@@ -581,7 +581,8 @@ def test_verify_is_the_rounds_only_kernel_call(weights, base, monkeypatch):
         assert rl["verify"]["fum_kernel_launches"] == n_layers
     s = eng.summary()
     assert s["fum_kernel_launches"] == n_layers * s["spec_rounds"]
-    assert set(calls) == set(eng.round_launches)
+    # round_launches is keyed by (k, draft profile tier)
+    assert set(calls) == {k for k, _ in eng.round_launches}
 
 
 class _EagerGraph:
@@ -613,6 +614,9 @@ def test_one_graph_per_round_width(weights, base):
     assert {u: r.tokens for u, r in eng.run().items()} == base
     s = eng.summary()
     assert widths and len(widths) == len(set(widths)) <= 4
-    assert set(eng._graphs) == set(widths) and s["spec_graphs"] == \
-        len(widths)
+    # keyed (k, tier): a fixed draft profile is the "base" tier, and
+    # k = 1 drafts nothing, so has no tier
+    assert set(eng._graphs) == {(w, "base") if w > 1 else (1, None)
+                                for w in widths}
+    assert s["spec_graphs"] == len(widths)
     assert s["fum_kernel_launches"] == n_layers * s["spec_rounds"]

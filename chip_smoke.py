@@ -148,6 +148,25 @@ never JAX nor the JAX package. Phases:
    reference test's forced plan (tokens equal phase 5's horizon-1
    tokens, each (k, tier) captured once, its FUM runs 28 x (rounds + 1
    warm-up)), beside fixed draft_len 4 and horizon 1. ``[tune]`` lines;
+5i. the recurrent and encoder-decoder families (ROADMAP item 10), each
+   at full width and depth with seeded bf16 weights built on the card
+   and freed before the next: rwkv6-3b (32 layers, d 2560) and zamba2-7b
+   (81 layers: 13 groups of 6 Mamba2 layers and the shared attention
+   block, plus 3; HDP on) serve 8 prompts of distinct lengths in 64-512
+   (two multiples of 128, zamba2's chunked SSD; six not, its per-step
+   scan), 32 new tokens each, batch 8, on the dense layout, eagerly and
+   graphed at horizon 4 (identical tokens, one capture, one exact-length
+   prefill call per prompt, no decode kernel: rwkv6 decodes on "none",
+   zamba2 on ``xla_hdp``), tok/s, ``prefill_s`` and ``graph_capture_s``
+   printed; zamba2's aligned prefill (B 1, S 4096, 32 heads at hd 112)
+   through the scout on its dp4a path and the block kernel on its tile
+   path (HDP on) and flash on its tile path (HDP off), 13 launches each,
+   each held against its plain version at the path's own inputs;
+   whisper-large-v3 (32 + 32 layers) at model level: 2 x 1500 seeded
+   frames, a 16-token prompt, ``registry.apply_prefill`` and 32 greedy
+   ``apply_decode`` steps, every logit finite; the reduced rwkv6 and
+   zamba2 graphed and reduced whisper's greedy tokens on the card equal
+   the CPU's. ``[families]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -157,7 +176,9 @@ never JAX nor the JAX package. Phases:
    designs) at the same inputs as their successors; the FUM decode at
    the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
    and bf16 pool variants at the int8 timing case's values; the FUM
-   decode at olmoe-1b-7b's decode shape.
+   decode at olmoe-1b-7b's decode shape; the scout (dp4a), block (tile)
+   and flash (tile) kernels at zamba2-7b's aligned prefill (hd 112),
+   flash beside bf16 ``scaled_dot_product_attention``.
 
 Each phase's wall seconds are printed as it ends and together before
 the kernels line.
@@ -549,6 +570,7 @@ def check_scout(torch, label, iq, ik, path=None, force=None, **kw):
     log(f"[kernels] {label} [{ran}]: theta, keep and theta_head bit-equal "
         f"to the plain version")
     note_err("hdp_scout", ran, err)
+    return err
 
 
 def check_scout_bad_input(torch, path):
@@ -870,10 +892,12 @@ def _resolved(cfg, **kw):
     return resolve_backend(build_attn_call(cfg, **kw)).name
 
 
-def aligned_prefill(torch, cfg, params, toks, label):
+def aligned_prefill(torch, cfg, params, toks, label, n_calls=None,
+                    paths=None):
     """``registry.apply_prefill(..., None)`` on ``toks``, HDP on (the
-    scout and block kernels) and off (flash), each launched once per
-    layer on its tensor-core path, each kernel's inputs recorded (the
+    scout and block kernels) and off (flash), each launched ``n_calls``
+    times (default once per layer) on its path in ``paths`` (default the
+    tensor-core path of each), each kernel's inputs recorded (the
     scout's and flash's last call, the block call that kept the most
     blocks). Returns (launches per kernel, recorded calls)."""
     import repro_torch.kernels.ops as ops
@@ -882,6 +906,8 @@ def aligned_prefill(torch, cfg, params, toks, label):
     from repro_torch.kernels.hdp_scout import hdp_scout
     from repro_torch.models import registry
     B, S = toks.shape
+    paths = paths or dict.fromkeys(("hdp_scout", "hdp_block_sparse_attention",
+                                    "flash_attention"), "tensor_core")
     out = {}
     rec = {"scout": Recorder(hdp_scout),
            "block": Recorder(hdp_block_sparse_attention,
@@ -912,28 +938,31 @@ def aligned_prefill(torch, cfg, params, toks, label):
                   (B, 1, cfg.vocab_size)
                   and bool(torch.isfinite(logits).all()),
                   f"{label} aligned prefill (HDP {hdp_on}): bad logits")
-            L = cfg.n_layers
+            L = n_calls or cfg.n_layers
             want = ({"hdp_scout": L, "hdp_block_sparse_attention": L,
                      "flash_attention": 0} if hdp_on else
                     {"hdp_scout": 0, "hdp_block_sparse_attention": 0,
                      "flash_attention": L})
             check(n == want, f"{label} aligned prefill (HDP {hdp_on}) "
                   f"launches {n}, expected {want}")
-            tc = {k: f.launches_by_path["tensor_core"] for k, f in (
+            tc = {k: f.launches_by_path[paths[k]] for k, f in (
                 ("hdp_scout", hdp_scout),
                 ("hdp_block_sparse_attention", hdp_block_sparse_attention),
                 ("flash_attention", flash_attention))}
             check(all(tc[k] == want[k] for k in tc),
-                  f"{label} aligned prefill (HDP {hdp_on}): tensor-core "
-                  f"launches {tc}, expected every launch of {want}")
+                  f"{label} aligned prefill (HDP {hdp_on}): launches on "
+                  f"the paths {paths}: {tc}, expected every launch of "
+                  f"{want}")
             msg = ""
             if hdp_on:
                 msg = (f", block/head sparsity "
                        f"{st['block_sparsity'].mean().item():.4f}/"
                        f"{st['head_sparsity'].mean().item():.4f}")
+            where = ("the tensor-core path" if set(paths.values()) ==
+                     {"tensor_core"} else f"the paths {paths}")
             log(f"[prefill] {label} B{B} S{S} HDP "
                 f"{'on' if hdp_on else 'off'} -> {backend}: {wall:.3f} s, "
-                f"launches {n}, on the tensor-core path {tc}{msg}")
+                f"launches {n}, on {where} {tc}{msg}")
             out.update({k: v for k, v in n.items() if v})
     finally:
         ops.hdp_scout = hdp_scout
@@ -942,22 +971,29 @@ def aligned_prefill(torch, cfg, params, toks, label):
     return out, {k: r.best for k, r in rec.items()}
 
 
-def check_prefill_calls(torch, calls, label):
+def check_prefill_calls(torch, calls, label, paths=None):
     """The scout, block and flash kernels against their plain versions at
-    the aligned prefill's own recorded inputs, on the tensor-core path."""
+    the aligned prefill's own recorded inputs, each on its path in
+    ``paths`` (default the tensor-core path). Returns the max |kernel -
+    plain| of each (the scout's is 0: bit-equal)."""
+    paths = paths or {}
     (iq, ik), kw = calls["scout"]
-    check_scout(torch, f"hdp_scout at {label}'s last call", iq, ik,
-                path="tensor_core", **kw)
+    errs = {"hdp_scout": check_scout(
+        torch, f"hdp_scout at {label}'s last call", iq, ik,
+        path=paths.get("hdp_scout", "tensor_core"), **kw)}
     args, kw = calls["block"]
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **{"kv_len": None, "score_scale": None, **kw})
-    check_block(
+    errs["hdp_block_sparse_attention"] = check_block(
         torch, f"hdp_block_sparse_attention at {label}'s call that kept "
-        f"the most blocks ({live_blocks(args)})", c, path="tensor_core")
+        f"the most blocks ({live_blocks(args)})", c,
+        path=paths.get("hdp_block_sparse_attention", "tensor_core"))
     (q, k, v), kw = calls["flash"]
-    check_flash(
+    errs["flash_attention"] = check_flash(
         torch, f"flash_attention at {label}'s last call", q, k, v,
-        kw["causal"], kw["block_q"], kw["block_k"], path="tensor_core")
+        kw["causal"], kw["block_q"], kw["block_k"],
+        path=paths.get("flash_attention", "tensor_core"))
+    return errs
 
 
 def phase_aligned_prefill(torch, cfg, params):
@@ -3064,8 +3100,9 @@ def _shape(cfg):
             cfg.n_shared_experts)
 
 
-def _weights(torch, cfg, label):
-    """Seeded bf16 weights of ``cfg`` built on the card, their size logged."""
+def _weights(torch, cfg, label, tag="moe"):
+    """Seeded bf16 weights of ``cfg`` built on the card, their size logged
+    on a ``[tag]`` line."""
     from repro_torch.models import registry
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3074,7 +3111,7 @@ def _weights(torch, cfg, label):
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size()
                  for t in _leaves(params))
-    log(f"[moe] {label}: bf16 weights {cfg.param_count() / 1e9:.3f} B "
+    log(f"[{tag}] {label}: bf16 weights {cfg.param_count() / 1e9:.3f} B "
         f"params ({registry.param_count(cfg, active_only=True) / 1e9:.3f} B "
         "active), "
         f"{nbytes / 1e9:.2f} GB on the card, built in "
@@ -3338,6 +3375,272 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# ------------- phase 5i: the recurrent and encoder-decoder families
+#: rwkv6-3b's and zamba2-7b's serving traffic: 8 prompts of distinct
+#: lengths in 64-512; zamba2's Mamba2 layers take the chunked SSD at the
+#: two multiples of 128 and the per-step scan at the six others
+FAMILY_PLENS = (128, 256, 140, 199, 263, 331, 402, 487)
+FAMILY_KW = dict(max_batch=8, max_len=512 + 32, prefill_buckets=(512,))
+#: zamba2-7b's shared attention block at its aligned prefill (B 1, S 4096):
+#: 32 heads at hd 112 (not a multiple of 32, not in the tensor-core
+#: kernels' head sizes), invoked once per group of 6 Mamba2 layers
+ZAMBA_GROUPS, ZAMBA_PATHS = 13, {"hdp_scout": "dp4a",
+                                 "hdp_block_sparse_attention": "tile",
+                                 "flash_attention": "tile"}
+#: whisper-large-v3: frames (B, S_enc), the prompt and the greedy steps
+WHISPER_B, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 2, 1500, 16, 32
+
+
+def serve_family(torch, cfg, params, prompts, label):
+    """``prompts`` served eagerly and on the decode graph at horizon 4:
+    identical tokens, one capture, the dense layout, one exact-length
+    prefill call per prompt length, and no decode kernel launched (the
+    recurrent families decode on ``none`` or ``xla_hdp``). Returns
+    {graphed: (tokens, summary, wall s)}."""
+    from repro_torch.serving import Engine
+    out = {}
+    for graphed in (False, True):
+        eng = Engine(cfg, params, device="cuda", cuda_graph=graphed,
+                     decode_horizon=4 if graphed else 1, **FAMILY_KW)
+        tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        del eng
+        lbl = f"{label} " + ("graphed, horizon 4" if graphed else "eager")
+        log_served(lbl, s, wall)
+        check(s["layout"] == "dense" and s["prefill_calls"] == len(prompts)
+              and s["prefill_tokens"] == sum(map(len, prompts)),
+              f"{lbl}: layout {s['layout']}, {s['prefill_calls']} prefill "
+              f"calls of {s['prefill_tokens']} tokens, expected the dense "
+              f"layout and {len(prompts)} exact-length calls of "
+              f"{sum(map(len, prompts))} tokens")
+        check(not any(v for d in launches.values() for v in d.values())
+              and runs == {"fum": 0, "block": 0},
+              f"{lbl}: decode kernels launched {launches}, ran {runs}")
+        if graphed:
+            check(s["graph_captures"] == 1, f"{lbl}: "
+                  f"{s['graph_captures']} graph captures, expected 1")
+        out[graphed] = (tok, s, wall)
+    check(out[True][0] == out[False][0], f"{label}: graphed tokens differ "
+          f"from eager: {first_divergence(out[True][0], out[False][0])}")
+    s = out[True][1]
+    log(f"[families] {label}: graphed horizon-4 tokens == eager; "
+        f"decode_tok_s eager {out[False][1]['decode_tok_s']:.1f}, graphed "
+        f"{s['decode_tok_s']:.1f} (steady {s['decode_tok_s_steady']:.1f}); "
+        f"prefill_s {out[False][1]['prefill_s']:.3f} / {s['prefill_s']:.3f}; "
+        f"graph_capture_s {s['graph_capture_s']:.3f}; attn_backend_prefill/"
+        f"decode {s['attn_backend_prefill']}/{s['attn_backend_decode']}; "
+        f"cache_bytes {s['cache_bytes']}")
+    return out
+
+
+def reduced_card_vs_cpu(torch, name):
+    """The reduced config graphed on the card (horizon 4) and on the CPU
+    serve the same prompts to the same tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import Engine, Request
+    kw = dict(max_batch=2, max_len=64, prefill_buckets=(16, 32))
+    rng = np.random.default_rng(31)
+    sp = [rng.integers(1, 250, size=int(rng.integers(4, 24))).tolist()
+          for _ in range(3)] + [rng.integers(1, 250, size=40).tolist()]
+    small = reduced(get_config(name))
+    gpu = Engine(small, device="cuda", seed=4, decode_horizon=4, **kw)
+    cpu = Engine(small, _tree_to(gpu.params, "cpu"), device="cpu", **kw)
+    toks = []
+    for e in (gpu, cpu):
+        for uid, p in enumerate(sp):
+            e.submit(Request(uid, p, max_new_tokens=8))
+        toks.append({u: r.tokens for u, r in e.run().items()})
+    check(gpu.metrics["graph_captures"] == 1 and toks[0] == toks[1],
+          f"reduced {name}: card tokens {toks[0]} != CPU tokens {toks[1]} "
+          f"(captures {gpu.metrics['graph_captures']})")
+    log(f"[families] reduced {name} (a 40-token prompt prefilled at exact "
+        "length): card tokens (graphed, horizon 4) == CPU tokens")
+
+
+def whisper_greedy(torch, cfg, params, frames, prompt, steps):
+    """``registry.apply_prefill`` (encode the frames, prefill the prompt,
+    fill the self and cross caches), then ``steps`` greedy
+    ``apply_decode`` steps, eagerly; every logit finite. Returns (tokens
+    [B, steps], prefill s, decode s)."""
+    from repro_torch.models import registry
+    dev = frames.device
+    B, plen = prompt.shape
+    cache = registry.init_cache(cfg, B, plen + steps, device=dev,
+                                enc_len=frames.shape[1])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache, _ = registry.apply_prefill(
+        cfg, params, {"tokens": prompt, "frames": frames}, cache)
+    sync()
+    t1 = time.perf_counter()
+    toks = []
+    for i in range(steps):
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: non-finite logits at step {i}")
+        tok = logits[:, -1].argmax(-1)
+        toks.append(tok)
+        pos = torch.full((B, 1), plen + i, dtype=torch.long, device=dev)
+        logits, cache, _ = registry.apply_decode(cfg, params, tok[:, None],
+                                                 cache, pos)
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: non-finite logits after the last step")
+    sync()
+    return torch.stack(toks, 1).cpu(), t1 - t0, time.perf_counter() - t1
+
+
+def phase_families(torch):
+    """rwkv6-3b (32 layers, d 2560) and zamba2-7b (81 layers: 13 groups of
+    6 Mamba2 layers and the shared attention block, plus 3; HDP on) at
+    full width and depth: 8 prompts of distinct lengths in 64-512, 32
+    new tokens each, batch 8, the dense layout, eagerly and graphed at
+    horizon 4 (identical tokens, one capture, exact-length prefill, no
+    decode kernel); zamba2's aligned prefill (B 1, S 4096) through the
+    scout (dp4a) and block (tile) kernels with HDP on and flash (tile)
+    with HDP off, 13 launches each at hd 112, each held against its plain
+    version at the path's own inputs; whisper-large-v3 (32 + 32 layers)
+    encoding 2 x 1500 seeded frames, a 16-token prompt and 32 greedy
+    decode steps; the reduced configs card vs CPU. Each model's weights
+    are freed before the next. Returns zamba2's prefill launches, its
+    recorded calls and the kernels' errors."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    out = {}
+    rng = np.random.default_rng(30)
+
+    # ---- rwkv6-3b
+    cfg = get_config("rwkv6-3b")
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.hdp) ==
+          ("rwkv6", 32, 2560, None), f"unexpected rwkv6-3b config {cfg}")
+    params, _ = _weights(torch, cfg, "rwkv6-3b (32 layers)", "families")
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in FAMILY_PLENS]
+    runs = serve_family(torch, cfg, params, prompts, "rwkv6-3b")
+    check(runs[True][1]["attn_backend_decode"] == "none",
+          "rwkv6-3b resolved an attention backend")
+    out["rwkv6"] = {k: runs[True][1][k] for k in (
+        "decode_tok_s", "decode_tok_s_steady", "prefill_s",
+        "graph_capture_s")}
+    out["rwkv6"]["eager_decode_tok_s"] = runs[False][1]["decode_tok_s"]
+    del params, runs
+    torch.cuda.empty_cache()
+
+    # ---- zamba2-7b: serving, then the aligned prefill
+    cfg = get_config("zamba2-7b")
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd,
+           cfg.attn_every, registry.attn_layers(cfg)) ==
+          ("zamba2", 81, 3584, 32, 112, 6, ZAMBA_GROUPS)
+          and cfg.hdp is not None and cfg.hdp.enabled,
+          f"unexpected zamba2-7b config {cfg}")
+    params, _ = _weights(torch, cfg, "zamba2-7b (81 layers)", "families")
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in FAMILY_PLENS]
+    runs = serve_family(torch, cfg, params, prompts, "zamba2-7b")
+    s = runs[True][1]
+    check((s["attn_backend_prefill"], s["attn_backend_decode"]) ==
+          ("xla_hdp", "xla_hdp"),
+          f"zamba2-7b resolved {s['attn_backend_prefill']}/"
+          f"{s['attn_backend_decode']}, expected xla_hdp for both")
+    out["zamba2"] = {k: s[k] for k in (
+        "decode_tok_s", "decode_tok_s_steady", "prefill_s",
+        "graph_capture_s")}
+    out["zamba2"]["eager_decode_tok_s"] = runs[False][1]["decode_tok_s"]
+    del runs
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, PREFILL_S))).cuda()
+    out["prefill"], calls = aligned_prefill(
+        torch, cfg, params, toks, "zamba2-7b", n_calls=ZAMBA_GROUPS,
+        paths=ZAMBA_PATHS)
+    out["errs"] = check_prefill_calls(torch, calls, "zamba2-7b's aligned "
+                                      "prefill (hd 112)", ZAMBA_PATHS)
+    out["calls"] = calls
+    del params, toks
+    torch.cuda.empty_cache()
+
+    # ---- whisper-large-v3 at model level (the engine refuses enc-dec)
+    cfg = get_config("whisper-large-v3")
+    check((cfg.family, cfg.encoder_layers, cfg.decoder_layers, cfg.d_model)
+          == ("whisper", 32, 32, 1280), f"unexpected whisper config {cfg}")
+    params, _ = _weights(torch, cfg, "whisper-large-v3 (32 + 32 layers)",
+                         "families")
+    g = torch.Generator(device="cuda").manual_seed(32)
+    frames = torch.randn(WHISPER_B, WHISPER_FRAMES, cfg.d_model, device="cuda",
+                         generator=g).to(torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT))).cuda()
+    wt, pre_s, dec_s = whisper_greedy(torch, cfg, params, frames, prompt,
+                                      WHISPER_STEPS)
+    log(f"[families] whisper-large-v3: frames {tuple(frames.shape)}, prompt "
+        f"{WHISPER_PROMPT} tokens: prefill (encode + prompt) {pre_s:.3f} s, "
+        f"{WHISPER_STEPS} greedy decode steps {dec_s:.3f} s "
+        f"({dec_s / WHISPER_STEPS * 1e3:.2f} ms a step, eager), logits "
+        f"finite; tokens {wt.tolist()}")
+    out["whisper"] = {"prefill_s": pre_s, "decode_s": dec_s}
+    del params, frames
+    torch.cuda.empty_cache()
+
+    # ---- the reduced configs: card vs CPU
+    for name in ("rwkv6-3b", "zamba2-7b"):
+        reduced_card_vs_cpu(torch, name)
+    small = reduced(get_config("whisper-large-v3"))
+    sp = registry.init_params(small, 4, "cuda")
+    sf = torch.randn(2, 24, small.d_model, device="cuda", generator=g)
+    pr = torch.from_numpy(rng.integers(1, 250, (2, 6))).cuda()
+    card = whisper_greedy(torch, small, sp, sf, pr, 8)[0]
+    host = whisper_greedy(torch, small, _tree_to(sp, "cpu"), sf.cpu(),
+                          pr.cpu(), 8)[0]
+    check(torch.equal(card, host), f"reduced whisper-large-v3: card tokens "
+          f"{card.tolist()} != CPU tokens {host.tolist()}")
+    log("[families] reduced whisper-large-v3: 8 greedy tokens on the card "
+        "== CPU tokens")
+    return out
+
+
+def phase_timing_zamba2(torch, calls):
+    """The scout (dp4a), block (tile) and flash (tile) kernels at
+    zamba2-7b's aligned prefill's own inputs (B 1, 32 heads, S 4096, hd
+    112, bf16 V): kernel, plain version, bound, and flash beside bf16
+    ``scaled_dot_product_attention`` at the same inputs. Returns {kernel:
+    (kernel ms, plain ms, bound ms, bound by, bytes, ops, library ms)}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         hdp_block_sparse_attention_plain,
+                                         hdp_scout_plain)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    (iq, ik), kw = calls["scout"]
+    res = {"hdp_scout": (
+        time_ms(torch, lambda: hdp_scout(iq, ik, **kw), 20, flush),
+        time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3, flush),
+        *scout_bound(torch, iq, ik, kw), None)}
+    args, kw = calls["block"]
+    res["hdp_block_sparse_attention"] = (
+        time_ms(torch, lambda: hdp_block_sparse_attention(*args, **kw), 10,
+                flush),
+        time_ms(torch, lambda: hdp_block_sparse_attention_plain(
+            *args, **kw), 3, flush),
+        *block_bound(torch, args, kw), None)
+    (q, k, v), kw = calls["flash"]
+    res["flash_attention"] = (
+        time_ms(torch, lambda: flash_attention(q, k, v, **kw), 10, flush),
+        time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 3,
+                flush),
+        *flash_bound(torch, q, k, v, kw["causal"]),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kw["causal"]), 20, flush))
+    for name, (k_ms, p_ms, bound, by, nbytes, ops, lib) in res.items():
+        log(f"[timing] {name} [{ZAMBA_PATHS[name]}] at zamba2-7b's aligned "
+            f"prefill (B1 H32 S{PREFILL_S} hd112): kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
+            f"{ops:.4g} ops)"
+            + (f", scaled_dot_product_attention (bf16) {lib:.4f} ms"
+               if lib is not None else ""))
+    return res
 
 
 # ------------------------------------------------------------ phase 6
@@ -3684,11 +3987,16 @@ def main() -> int:
                                         torch)
             timed("5c window", phase_window, torch)
             moe = timed("5e moe, vlm", phase_moe, torch)
+            families = timed("5i rwkv6, zamba2, whisper", phase_families,
+                             torch)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
                               olmoe_case)
             prefill_timed = timed("6 prefill kernels timing",
                                   phase_timing_prefill, torch, calls,
                                   block_tile_call)
+            zamba_timed = timed("6 zamba2 prefill kernels timing",
+                                phase_timing_zamba2, torch,
+                                families.pop("calls"))
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3810,6 +4118,29 @@ def main() -> int:
             kernels[-1]["launches_by_run"] = {
                 "qwen2-1.5b aligned prefill": n,
                 "olmoe-1b-7b aligned prefill": moe["prefill"][ename]}
+    for base, src in (("hdp_scout", "hdp_scout.cu"),
+                      ("hdp_block_sparse_attention", "hdp_block_attn.cu"),
+                      ("flash_attention", "flash_attention.cu")):
+        k_ms, p_ms, bound, bound_by, _, _, lib_ms = zamba_timed[base]
+        tpu = {"hdp_scout": "hdp_scout.py:75",
+               "hdp_block_sparse_attention": "hdp_block_attn.py:91",
+               "flash_attention": "flash_attention.py:69"}[base]
+        kernels.append({
+            "name": f"{base}[{ZAMBA_PATHS[base]}, zamba2-7b hd112]",
+            "path": ZAMBA_PATHS[base], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": families["prefill"][base],
+            "max_abs_err": families["errs"][base],
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "note": "zamba2-7b's aligned prefill (B 1, 32 heads, S 4096, "
+                    "hd 112, bf16): 13 launches, one per shared-block "
+                    "invocation; hd 112 takes this path",
+        })
+        if base in NO_LIBRARY_CALL:
+            kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
+    log(f"[families] phase 5i {json.dumps({k: v for k, v in families.items() if k not in ('prefill', 'errs')})}")
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
     log(f"[sched] phase 5f {json.dumps({k: v for k, v in stream.items() if k != 'fum_runs'})}")

@@ -7,6 +7,9 @@ from repro_torch.configs import (  # noqa: F401
     nemotron_4_15b,
     olmoe_1b_7b,
     qwen2_1_5b,
+    rwkv6_3b,
+    whisper_large_v3,
+    zamba2_7b,
 )
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,

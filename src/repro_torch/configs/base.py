@@ -72,6 +72,15 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.family == "whisper"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Sub-quadratic sequence mixing (recurrent state or a window)."""
+        return self.family in ("rwkv6", "zamba2") or self.sliding_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -4,7 +4,10 @@
 (``jax.tree.map(np.asarray, params)``; this module imports no JAX) and
 returns the port's parameter dict. The layouts are identical, stacked
 layers included, so the conversion is a copy; shapes are checked against
-a freshly laid-out port tree so a mismatched config fails loudly.
+a freshly laid-out port tree so a mismatched config fails loudly, and
+each leaf takes that tree's dtype: the model dtype for most, fp32 for
+the leaves a model keeps in fp32 whatever its dtype (mamba2's
+``A_log``).
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ def _expected_shapes(cfg) -> Dict:
 
 def params_from_jax(cfg, tree, device, dtype: Optional[torch.dtype] = None):
     """JAX parameter tree (numpy leaves) -> port parameter dict on
-    ``device`` in ``dtype`` (default: the config's dtype)."""
-    dt = L.torch_dtype(dtype or cfg.dtype)
+    ``device``, each leaf in the dtype the port lays it out in for a
+    model in ``dtype`` (default: the config's dtype)."""
+    if dtype is not None:
+        cfg = cfg.replace(dtype=L.torch_dtype(dtype))
     want = _expected_shapes(cfg)
 
     def conv(node, ref, path):
@@ -46,7 +51,7 @@ def params_from_jax(cfg, tree, device, dtype: Optional[torch.dtype] = None):
                 raise ValueError(f"{path or 'params'}: keys {got} != "
                                  f"{sorted(ref)}")
             return {k: conv(node[k], ref[k], f"{path}/{k}") for k in ref}
-        t = _to_tensor(node, device, dt)
+        t = _to_tensor(node, device, ref.dtype)
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{path}: shape {tuple(t.shape)} != "
                              f"{tuple(ref.shape)}")

@@ -260,7 +260,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     cfg = get_config(args.arch)
     params = registry.init_params(cfg, args.seed, "cuda")
-    if args.no_hdp:
+    if args.no_hdp and cfg.hdp is not None:
         cfg = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
     with torch.inference_mode():
         for horizon in ([1] if args.spec_decode else args.horizon):

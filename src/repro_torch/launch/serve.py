@@ -54,6 +54,12 @@ from [bucket/4, max_len - max_new] with the largest prefill bucket
         --fault-plan "nan@2:uid=3;kill@4:replica=0"
     python -m repro_torch.launch.serve --policy cost --tuner-cache t.json
     python -m repro_torch.launch.serve --spec-decode --adaptive-spec
+    python -m repro_torch.launch.serve --arch zamba2-7b --decode-horizon 4
+
+``--arch rwkv6-3b`` and ``--arch zamba2-7b`` serve the recurrent
+families from the dense layout, each prompt prefilled at its exact
+length; ``--arch whisper-large-v3`` raises NotImplementedError, as the
+engine refuses encoder-decoder configs.
 """
 from __future__ import annotations
 
@@ -240,7 +246,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.no_hdp:
+    if args.no_hdp and cfg.hdp is not None:
         cfg = cfg.replace(hdp=cfg.hdp.replace(enabled=False))
     buckets = (16, 32) if args.reduced else (256, 512, 1024)
     max_len = args.max_len or buckets[-1] + args.max_new

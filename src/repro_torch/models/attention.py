@@ -755,27 +755,34 @@ def hdp_paged_decode_attention(q, k_pool, v_pool, ik_pool, table, *, q_pos,
 # --------------------------------------------------------------- full layer
 def build_attn_call(cfg, *, mode: str, paged: bool = False,
                     per_slot: bool = False, self_aligned: bool = False,
-                    causal: bool = True, collect_stats: bool = False,
-                    draft=None, verify: bool = False,
+                    cross: bool = False, causal: bool = True,
+                    collect_stats: bool = False, draft=None,
+                    verify: bool = False,
                     kv_scale: str = "grid") -> AttnCall:
     """The AttnCall ``attn_apply`` dispatches on. The serving engine uses
     the same function to report the resolved backend per phase, so the
-    report cannot drift from the dispatch. ``draft`` (a DraftProfile)
-    marks a speculative draft step, its threshold overrides folded into
-    the call's HDP config; ``verify`` a multi-query verify call."""
+    report cannot drift from the dispatch. ``mode`` "train" marks a
+    trainable call (whisper's encoder runs so), which takes HDP only
+    with ``hdp.apply_in_training``; ``cross`` a cross-attention call,
+    never causal and never windowed. ``draft`` (a DraftProfile) marks a
+    speculative draft step, its threshold overrides folded into the
+    call's HDP config; ``verify`` a multi-query verify call."""
     hdp = cfg.hdp
-    use_hdp = hdp is not None and hdp.enabled
-    hdp_eff = hdp.replace(causal=causal) if use_hdp else None
+    use_hdp = (hdp is not None and hdp.enabled
+               and (mode != "train" or hdp.apply_in_training))
+    eff_causal = causal and not cross
+    hdp_eff = hdp.replace(causal=eff_causal) if use_hdp else None
     if draft is not None and hdp_eff is not None:
         hdp_eff = draft.overlay(hdp_eff)
     return AttnCall(
         mode="decode" if mode == "decode" else "prefill",
         layout="paged" if paged else "dense",
-        causal=causal,
-        window=cfg.sliding_window,
+        causal=eff_causal,
+        window=0 if cross else cfg.sliding_window,
         hdp=hdp_eff,
         per_slot=per_slot,
         self_aligned=self_aligned,
+        trainable=mode == "train",
         chunk=cfg.attn_chunk,
         needs_stats=collect_stats,
         draft=draft if use_hdp else None,
@@ -784,13 +791,17 @@ def build_attn_call(cfg, *, mode: str, paged: bool = False,
     )
 
 
-def _spec_pool(attn: Optional[AttnSpec]) -> Tuple[str, str]:
+def _spec_pool(cfg, attn: Optional[AttnSpec]) -> Tuple[str, str]:
     """(kv_dtype, kv_scale) of the pool an ``attn`` spec serves from; no
-    spec, or kv_dtype "auto", means the default int8 pool."""
-    if attn is None:
-        return "int8", "grid"
-    return ("int8" if attn.kv_dtype == "auto" else attn.kv_dtype,
-            attn.kv_scale)
+    spec, or kv_dtype "auto", means the default int8 pool of a family
+    with KV pages, and no pool ("fp32") for the others, whose caches
+    hold the projections as they are (as the reference's with no
+    spec)."""
+    if attn is None or attn.kv_dtype == "auto":
+        pooled = cfg.family in ("dense", "moe", "vlm")
+        return ("int8" if pooled else "fp32",
+                "grid" if attn is None else attn.kv_scale)
+    return attn.kv_dtype, attn.kv_scale
 
 
 def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str,
@@ -838,29 +849,38 @@ def _paged_write(cfg, cache, k, v, pidx, off, kv_scale: str,
 
 
 def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
+               enc_out=None, causal: bool = True,
+               static_cache: bool = False,
                collect_stats: bool = False, page_table=None,
                write_floor=None, draft=None,
                attn: Optional[AttnSpec] = None) -> Tuple:
     """Full MHA layer: project (with qk-norm where the config has it),
-    rope, attend through the registry, output-project.
+    rope (a rope config's self-attention only), attend through the
+    registry, output-project.
 
-    mode "prefill": positions [S]; without ``cache`` this is aligned
-    self-attention over the whole sequence (the full-sequence kernels'
-    call); ``cache`` is this layer's dense request cache {"k","v"}
-    [B,Smax,N,hd], written in place at positions[0]. A quantized-pool
-    engine on the static grid (``attn.kv_dtype`` "int8" or "fp8_v", or
-    no spec: the default int8 pool) first snaps K to the pool grid and V
-    to the grid or through fp8, so prefill attention and the pool insert
-    see one set of values; absmax pools and the unquantized pool skip it.
+    mode "train": positions [S], no cache (whisper's encoder, with
+    ``causal=False``). mode "prefill": positions [S]; without ``cache``
+    this is aligned self-attention over the whole sequence (the
+    full-sequence kernels' call); ``cache`` is this layer's dense request
+    cache {"k","v"} [B,Smax,N,hd], written in place at positions[0]. A
+    quantized-pool engine on the static grid (``attn.kv_dtype`` "int8"
+    or "fp8_v", or no spec on a family with KV pages: the default int8
+    pool) first snaps K to the pool grid and V to the grid or through
+    fp8, so prefill attention and the pool insert see one set of values;
+    absmax pools, the unquantized pool and cross-attention skip it.
+    ``enc_out`` [B,Se,D] makes it cross-attention: K/V are projected from
+    it (and written at 0 of ``cache``, the cross cache, at prefill).
     mode "decode": positions [B,S] per slot; ``cache`` is this layer's
     paged pool {"k_pages","v_pages", "k_scale","v_scale" | "k_scout"}
     or its dense slot cache {"k","v"} [B,Smax,N,hd], written in place
-    (the K/V scatter) before attention reads it; ``write_floor`` [B]
-    (page columns) fences shared prefix pages: writes below it land in
-    the scratch page. Decode with S > 1 is a multi-query verify call
-    (consecutive positions per slot); ``draft`` (a DraftProfile) marks a
-    speculative draft step. ``attn`` selects the backend (None: the
-    default spec, which honors REPRO_ATTN_BACKEND).
+    (the K/V scatter) before attention reads it; ``static_cache`` attends
+    to ``cache`` as it is without writing (whisper's cross-attention at
+    decode). ``write_floor`` [B] (page columns) fences shared prefix
+    pages: writes below it land in the scratch page. Decode with S > 1
+    is a multi-query verify call (consecutive positions per slot);
+    ``draft`` (a DraftProfile) marks a speculative draft step. ``attn``
+    selects the backend (None: the default spec, which honors
+    REPRO_ATTN_BACKEND).
     Returns (y, cache, stats|None); y is in x's dtype. An fp32
     attention output (the block-sparse kernel's) meets a bf16 ``wo`` in
     fp32, as the reference promotes it, and the product is rounded once
@@ -869,79 +889,104 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
     B, S, _ = x.shape
     H, N, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // N
+    rope = cfg.pos_emb == "rope" and enc_out is None and not static_cache
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     if cfg.qk_norm:
         # before rope and before any pool snap: the pool codes, the scout
         # view and the prefix cache's pages all hold the normed K
         q = L.rms_norm(q, p["q_norm"])
-        k = L.rms_norm(k, p["k_norm"])
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
 
-    kv_dtype, kv_scale = _spec_pool(attn)
     paged = cache is not None and "k_pages" in cache
-    if (mode == "prefill" and cache is not None and not paged
-            and kv_dtype != "fp32" and kv_scale != "absmax"):
-        ib = pool_int_bits(cfg.hdp)
-        k = roundtrip_pool(k, ib).to(k.dtype)
-        v = (to_fp8_e4m3(v) if kv_dtype == "fp8_v"
-             else roundtrip_pool(v, ib)).to(v.dtype)
-
-    if paged:
-        if mode != "decode" or positions.dim() != 2:
-            raise ValueError("the paged pool is a decode-time serving layout")
-        ps = cache["k_pages"].shape[1]
-        nP = page_table.shape[1]
-        pidx = resolve_write_pages(positions, page_table, ps, write_floor)
-        # in place: the per-layer pool views alias the engine's pool
-        _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale,
-                     draft=draft)
-        ar = torch.arange(nP * ps, device=x.device)
-        k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
-        k_pos = k_pos[:, None, None, :]                  # [B,1,1,nP*ps]
-        k_full = v_full = None                           # read via the table
-    elif cache is not None and positions.dim() == 2:
-        if mode != "decode":
-            raise ValueError("per-slot positions are a decode-time shape")
-        # per-slot decode into the dense slot cache: each row writes at
-        # its own offset (clamped into the cache, as a dynamic update
-        # slice is)
-        smax = cache["k"].shape[1]
-        p0 = torch.clamp(positions[:, :1], 0, smax - S)
-        cols = p0 + torch.arange(S, device=x.device)
-        rows = torch.arange(B, device=x.device)[:, None]
-        cache["k"][rows, cols] = k.to(cache["k"].dtype)
-        cache["v"][rows, cols] = v.to(cache["v"].dtype)
-        k_full, v_full = cache["k"], cache["v"]
-        ar = torch.arange(smax, device=x.device)
-        k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
-        k_pos = k_pos[:, None, None, :]                  # [B,1,1,Smax]
-    elif cache is not None:
-        if mode != "prefill" or positions.dim() != 1:
-            raise ValueError("a request cache is filled by prefill with "
-                             "shared positions")
-        pos0 = int(positions[0])
-        cache["k"][:, pos0:pos0 + S] = k.to(cache["k"].dtype)
-        cache["v"][:, pos0:pos0 + S] = v.to(cache["v"].dtype)
+    kv_dtype, kv_scale = _spec_pool(cfg, attn)
+    if static_cache:
+        # cross-attention at decode: the keys were cached at prefill
         k_full, v_full = cache["k"], cache["v"]
         k_pos = torch.arange(k_full.shape[1], device=x.device)
-        k_pos = torch.where(k_pos <= positions[-1], k_pos, -1)
     else:
-        k_full, v_full, k_pos = k, v, positions
+        kv_src = x if enc_out is None else enc_out
+        k = torch.einsum("bsd,dnk->bsnk", kv_src, p["wk"])
+        v = torch.einsum("bsd,dnk->bsnk", kv_src, p["wv"])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        if cfg.qk_norm:
+            k = L.rms_norm(k, p["k_norm"])
+        if rope:
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+
+        if (mode == "prefill" and cache is not None and not paged
+                and enc_out is None and kv_dtype != "fp32"
+                and kv_scale != "absmax"):
+            ib = pool_int_bits(cfg.hdp)
+            k = roundtrip_pool(k, ib).to(k.dtype)
+            v = (to_fp8_e4m3(v) if kv_dtype == "fp8_v"
+                 else roundtrip_pool(v, ib)).to(v.dtype)
+
+        if paged:
+            if mode != "decode" or positions.dim() != 2:
+                raise ValueError("the paged pool is a decode-time serving "
+                                 "layout")
+            ps = cache["k_pages"].shape[1]
+            nP = page_table.shape[1]
+            pidx = resolve_write_pages(positions, page_table, ps,
+                                       write_floor)
+            # in place: the per-layer pool views alias the engine's pool
+            _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale,
+                         draft=draft)
+            ar = torch.arange(nP * ps, device=x.device)
+            k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
+            k_pos = k_pos[:, None, None, :]              # [B,1,1,nP*ps]
+            k_full = v_full = None                       # read via the table
+        elif cache is not None and positions.dim() == 2 and enc_out is None:
+            if mode != "decode":
+                raise ValueError("per-slot positions are a decode-time "
+                                 "shape")
+            # per-slot decode into the dense slot cache: each row writes
+            # at its own offset (clamped into the cache, as a dynamic
+            # update slice is)
+            smax = cache["k"].shape[1]
+            p0 = torch.clamp(positions[:, :1], 0, smax - S)
+            cols = p0 + torch.arange(S, device=x.device)
+            rows = torch.arange(B, device=x.device)[:, None]
+            cache["k"][rows, cols] = k.to(cache["k"].dtype)
+            cache["v"][rows, cols] = v.to(cache["v"].dtype)
+            k_full, v_full = cache["k"], cache["v"]
+            ar = torch.arange(smax, device=x.device)
+            k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
+            k_pos = k_pos[:, None, None, :]              # [B,1,1,Smax]
+        elif cache is not None:
+            if mode != "prefill" or positions.dim() != 1:
+                raise ValueError("a request cache is filled by prefill "
+                                 "with shared positions")
+            # the cross cache takes the encoder's K/V at 0
+            pos0 = int(positions[0]) if enc_out is None else 0
+            Sk = k.shape[1]
+            cache["k"][:, pos0:pos0 + Sk] = k.to(cache["k"].dtype)
+            cache["v"][:, pos0:pos0 + Sk] = v.to(cache["v"].dtype)
+            k_full, v_full = cache["k"], cache["v"]
+            k_pos = torch.arange(k_full.shape[1], device=x.device)
+            if enc_out is None:
+                k_pos = torch.where(k_pos <= positions[-1], k_pos, -1)
+        else:
+            k_full, v_full = k, v
+            k_pos = (positions if enc_out is None
+                     else torch.arange(k.shape[1], device=x.device))
 
     qg = q.reshape(B, S, N, G, hd).permute(0, 2, 3, 1, 4)   # [B,N,G,S,hd]
     q_pos = positions[:, None, None, :] if positions.dim() == 2 else positions
+    is_cross = enc_out is not None or static_cache
     call = build_attn_call(
         cfg, mode=mode, paged=paged, per_slot=positions.dim() == 2,
-        self_aligned=cache is None and positions.dim() == 1,
-        collect_stats=collect_stats,
+        self_aligned=(cache is None and not is_cross
+                      and positions.dim() == 1),
+        cross=is_cross, causal=causal, collect_stats=collect_stats,
         draft=draft if mode == "decode" else None,
-        verify=mode == "decode" and S > 1, kv_scale=kv_scale)
+        verify=mode == "decode" and S > 1 and not is_cross,
+        kv_scale=kv_scale)
     o, stats = attention(qg, k_full, v_full, call, spec=attn, q_pos=q_pos,
                          k_pos=k_pos, cache=cache if paged else None,
                          page_table=page_table)

@@ -1,8 +1,8 @@
 """Common building blocks over plain parameter dicts.
 
-PyTorch counterpart of ``repro.models.layers`` for the transformer
-families: RMSNorm and LayerNorm, rotary embeddings, the SiLU-GLU, GELU
-and squared-ReLU MLPs, token embedding and tied logits. Initialisers draw from an explicit ``torch.Generator``; the
+PyTorch counterpart of ``repro.models.layers``: RMSNorm, LayerNorm and
+RWKV's per-head group norm, rotary and sinusoidal position codes, the
+SiLU-GLU, GELU and squared-ReLU MLPs, token embedding and tied logits. Initialisers draw from an explicit ``torch.Generator``; the
 numbers differ from ``jax.random`` for the same seed, so the tests move
 weights between the packages with ``repro_torch.convert`` instead.
 """
@@ -39,6 +39,47 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_index(tree, i: int):
+    """Row ``i`` of every leaf (a layer's view of stacked parameters or
+    caches)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stacked(n: int, make):
+    """``n`` trees drawn by ``make()`` stacked into [n, ...] leaves, each
+    copied into its row as it is drawn, so the weights are never held
+    twice (a 14 GB model is built on the card once)."""
+    out = None
+    for i in range(n):
+        one = make()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+        _copy_row(out, one, i)
+    return out
+
+
+def _copy_row(dst, src, i: int) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_row(dst[k], src[k], i)
+    else:
+        dst[i].copy_(src)
+
+
+def make_generator(seed: int, device: torch.device) -> torch.Generator:
+    """The initialisers' generator, on the card for a CUDA device."""
+    gen = torch.Generator(device="cuda" if device.type == "cuda" else "cpu")
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                device, in_axis: int = 0, scale: float = 1.0) -> torch.Tensor:
     """Truncated normal in [-2, 2] times scale/sqrt(fan_in), with fan_in
@@ -69,6 +110,19 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w.float() + b.float()).to(dt)
 
 
+def group_norm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     eps: float = 1e-5):
+    """Per-head group norm for RWKV: x [..., H, hd]. The means are sums
+    times 1/hd, as XLA compiles the reference's division by the count."""
+    dt = x.dtype
+    x = x.float()
+    inv = 1.0 / x.shape[-1]
+    mu = x.sum(-1, keepdim=True) * inv
+    var = ((x - mu) ** 2).sum(-1, keepdim=True) * inv
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
     # theta filled in on the device (not copied from the host): CUDA
@@ -89,6 +143,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], -1).to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """[seq, d] fp32 sinusoid table from position ``offset`` (an int or a
+    one-element tensor): sin on the even columns, cos on the odd ones.
+    The cos columns take the first ``d - d // 2`` angles, as the
+    reference's slice does, so an odd ``d`` (one cos column fewer than
+    angles) raises ValueError there as here."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device if device is None else device
+        offset = offset.reshape(-1)[:1].float()
+    pos = (torch.arange(seq, dtype=torch.float32, device=device)
+           + offset)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.full((), 10_000.0, device=device), dim / d)
+    out = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    cos = torch.cos(ang[:, : (d - d // 2)])
+    if cos.shape[1] != d // 2:
+        raise ValueError(f"Incompatible shapes for broadcasting: "
+                         f"{tuple(cos.shape)} and requested shape "
+                         f"({seq}, {d // 2})")
+    out[:, 1::2] = cos
+    return out
 
 
 def norm_init(cfg, dtype, device) -> Params:

@@ -1,47 +1,54 @@
-"""Family dispatch: one API over the architectures the port serves.
+"""Family dispatch: one API over every architecture.
 
   init_params(cfg, seed, device)  -> params dict
-  init_cache(cfg, B, max_len)     -> dense request cache
+  init_cache(cfg, B, max_len)     -> request cache tree
+  cache_specs(cfg)                -> logical axis names of every cache leaf
   apply_prefill / apply_decode    -> serving steps
 
-The dense, moe and vlm families are the transformer; any other family
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The dense, moe and vlm families are the transformer; rwkv6, zamba2 and
+whisper have modules of their own, as in the reference.
 """
 from __future__ import annotations
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, whisper, zamba2
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer}
-
-#: ROADMAP.md item that ports each family not served yet
-_PENDING = {
-    "rwkv6": "section 1, item 10 (remaining families)",
-    "zamba2": "section 1, item 10 (remaining families)",
-    "whisper": "section 1, item 10 (remaining families)",
+_FAMILIES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "rwkv6": rwkv6,
+    "zamba2": zamba2,
+    "whisper": whisper,
 }
 
 
 def module_for(cfg):
-    mod = _FAMILIES.get(cfg.family)
-    if mod is None:
-        item = _PENDING.get(cfg.family, "section 1")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md {item})")
-    if cfg.pos_emb != "rope":
-        # the sinusoidal table is whisper's, which comes with its family
-        raise NotImplementedError(
-            f"{cfg.name}: pos_emb {cfg.pos_emb!r} is not ported yet "
-            "(ROADMAP.md section 1, item 10 (remaining families))")
-    return mod
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise KeyError(f"unknown family {cfg.family!r}") from None
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
     return module_for(cfg).init_params(cfg, seed, device)
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
+               **kw):
     return module_for(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
-                                      device=device)
+                                      device=device, **kw)
+
+
+def cache_specs(cfg):
+    """The cache tree with each leaf's logical axis names (a "batch" axis
+    on every leaf; "kv_seq" on the leaves indexed by position)."""
+    return module_for(cfg).cache_specs(cfg)
+
+
+def attn_layers(cfg) -> int:
+    """Attention calls per forward: the layer dim of the HDP stats."""
+    m = module_for(cfg)
+    return m.attn_layers(cfg) if hasattr(m, "attn_layers") else cfg.n_layers
 
 
 def apply_prefill(cfg, params, batch, cache, **kw):
@@ -54,6 +61,6 @@ def apply_decode(cfg, params, token, cache, pos, **kw):
 
 def param_count(cfg, active_only: bool = False) -> int:
     m = module_for(cfg)
-    if active_only:
+    if active_only and hasattr(m, "active_param_count"):
         return m.active_param_count(cfg)
     return m.param_count(cfg)

@@ -32,45 +32,17 @@ def _layer_init(cfg, gen, dtype, device) -> Dict:
             "ffn": ffn}
 
 
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     """Random weights in ``cfg.dtype`` on ``device``, drawn from a
     ``torch.Generator`` seeded with ``seed`` (on the card for CUDA)."""
     device = L.resolve_device(device)
-    gen = torch.Generator(device="cuda" if device.type == "cuda" else "cpu")
-    gen.manual_seed(seed)
+    gen = L.make_generator(seed, device)
     dtype = L.torch_dtype(cfg.dtype)
     emb = L.embed_init(cfg, gen, dtype, device)
-    # each layer is drawn and copied into its row of the stacked [L, ...]
-    # leaves at once, so the weights are never held twice
-    layers = None
-    for li in range(cfg.n_layers):
-        one = _layer_init(cfg, gen, dtype, device)
-        if layers is None:
-            layers = _map(lambda t: t.new_empty((cfg.n_layers, *t.shape)),
-                          one)
-        _map2(lambda dst, src: dst[li].copy_(src), layers, one)
+    layers = L.stacked(cfg.n_layers,
+                       lambda: _layer_init(cfg, gen, dtype, device))
     return {"embed": emb, "layers": layers,
             "final_norm": L.norm_init(cfg, dtype, device)}
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _map2(fn, a, b):
-    if isinstance(a, dict):
-        for k in a:
-            _map2(fn, a[k], b[k])
-    else:
-        fn(a, b)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None,
@@ -82,6 +54,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def cache_specs(cfg) -> Dict:
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
+
+
 def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
            page_table=None, write_floor=None, draft=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
@@ -91,7 +68,7 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
     experts; serving ignores it)."""
     stats, aux = [], []
     for li in range(cfg.n_layers):
-        lp = _index(params["layers"], li)
+        lp = L.tree_index(params["layers"], li)
         lc = None if cache is None else {k: v[li] for k, v in cache.items()}
         h = L.apply_norm(cfg, lp["ln1"], x)
         a, _, st = attn_apply(cfg, lp["attn"], h, mode=mode,

@@ -1,11 +1,14 @@
 """Batched serving engine with HDP over a block-paged or dense KV cache.
 
 PyTorch counterpart of the greedy core of ``repro.serving.Engine`` for
-the transformer families (``PAGEABLE_FAMILIES``: dense, moe, vlm). The
-KV cache is the block-paged pool (``PagedKVCache``: int8, int8 K + fp8
-V, or unquantized pages in the model's dtype, on the static grid or
-with absmax page scales; the default for those families) or the dense
-per-slot layout
+the decoder-only families: the transformer's (``PAGEABLE_FAMILIES``:
+dense, moe, vlm) and the recurrent ones (``RECURRENT_FAMILIES``: rwkv6,
+zamba2), which serve from the dense layout, prefill at exact length and
+neither chunk nor speculate; an encoder-decoder config raises, as in the
+reference. The KV cache is the block-paged pool (``PagedKVCache``:
+int8, int8 K + fp8 V, or unquantized pages in the model's dtype, on the
+static grid or with absmax page scales; the default for the
+transformer) or the dense per-slot layout over any family's cache tree
 (``SlotCache``), with HDP on or off:
 
 * **batched bucketed prefill** — queued requests are grouped by pad
@@ -108,6 +111,7 @@ Not ported yet (ROADMAP.md section 1): tensor parallelism (item 8).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import math
@@ -158,6 +162,9 @@ MESH_DP_ENV = "REPRO_MESH_DP"
 #: families with a seq-indexed KV cache: the paged layout, chunked
 #: prefill, the prefix cache and speculative verify serve them
 PAGEABLE_FAMILIES = ("dense", "moe", "vlm")
+#: families that carry recurrent state: exact-length prefill, and the
+#: decode graph's warm-up saves and restores their state whole
+RECURRENT_FAMILIES = ("rwkv6", "zamba2")
 
 #: decode backend -> its stage-3 implementation (on the card, on the CPU)
 _STAGE3_IMPL = {
@@ -256,7 +263,8 @@ class Engine:
 
     Parameters
     ----------
-    cfg: ModelConfig (a family of ``PAGEABLE_FAMILIES``, HDP on or off).
+    cfg: ModelConfig of a decoder-only family (HDP on or off); an
+        encoder-decoder config raises NotImplementedError.
     params: model parameter dict; drawn from ``seed`` when None.
     device: "cuda" (default) or "cpu"; CUDA raises when absent.
     max_batch: decode slot count.
@@ -342,6 +350,12 @@ class Engine:
                  stream_sched: Optional[bool] = None,
                  sched: Optional[SchedulerConfig] = None,
                  faults: Union[FaultInjector, FaultPlan, str, None] = None):
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only families; an "
+                "encoder-decoder model is served at model level "
+                "(registry.apply_prefill / apply_decode), as in the "
+                "reference")
         if isinstance(attn, str):
             attn = AttnSpec(backend=attn)
         spec = attn if attn is not None else default_spec()
@@ -530,7 +544,7 @@ class Engine:
         self._t = torch.zeros(1, dtype=i64, device=dev)
         self._hist = torch.zeros((H, 3, B), dtype=i64, device=dev)
         self._hist_stats = torch.zeros(
-            (H, len(self._stat_names), self.cfg.n_layers, B),
+            (H, len(self._stat_names), registry.attn_layers(self.cfg), B),
             dtype=torch.float32, device=dev) \
             if self.collect_stats and self._stat_names else None
         #: the captured graphs, keyed "decode" (the decode step) or by a
@@ -574,7 +588,8 @@ class Engine:
         if plen + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"request {req.uid}: prompt+generation exceeds max_len")
-        if plen > self.buckets[-1] and not self._can_chunk:
+        if plen > self.buckets[-1] and not self._can_chunk \
+                and not self._exact_prefill:
             raise ValueError(
                 f"request {req.uid}: prompt of {plen} tokens exceeds the "
                 f"largest prefill bucket ({self.buckets[-1]}), and chunked "
@@ -742,7 +757,15 @@ class Engine:
             self._graphs.clear()
 
     # ------------------------------------------------------------ admission
+    @property
+    def _exact_prefill(self) -> bool:
+        """Recurrent state: prefilling pad tokens would corrupt it, so
+        these families prefill at exact length (one call per length)."""
+        return self.cfg.family in RECURRENT_FAMILIES
+
     def _bucket_for(self, n: int) -> int:
+        if self._exact_prefill:
+            return n
         return next(b for b in self.buckets if n <= b)   # n fits a bucket
 
     def _admit(self) -> None:
@@ -754,7 +777,7 @@ class Engine:
         long_reqs: List[Request] = []
         hits: List = []
         for req in take:
-            if len(req.prompt) > self.buckets[-1]:   # submit checked chunking
+            if self._can_chunk and len(req.prompt) > self.buckets[-1]:
                 # long prompts prefill one at a time: their match waits,
                 # so they can hit pages this wave's earlier ones register
                 long_reqs.append(req)
@@ -908,7 +931,7 @@ class Engine:
 
     def _serve_cold(self, req: Request) -> None:
         """Prefill a request from scratch (no page sharing)."""
-        if len(req.prompt) > self.buckets[-1]:
+        if self._can_chunk and len(req.prompt) > self.buckets[-1]:
             try:
                 self._prefill_long(req)
             except BaseException:
@@ -1181,11 +1204,10 @@ class Engine:
         history row ``_t``. Nothing is read back to the host, so a CUDA
         graph can hold it."""
         act = self._act
-        table, floor = self._step_table()
         logits, _, stats = registry.apply_decode(
             self.cfg, self.params, self._tok, self._store.cache,
             self._pos[:, None], collect_stats=self.collect_stats,
-            page_table=table, write_floor=floor, attn=self.attn_spec)
+            attn=self.attn_spec, **self._table_kw())
         last = self._poison(logits)[:, -1]
         nxt = torch.argmax(last, dim=-1)
         # per-slot tripwire: a non-finite logit row means this request's
@@ -1210,6 +1232,14 @@ class Engine:
         ([B, S, V]) whose slot ``_inject`` marks become NaN, so the
         tripwire fires as it would for organic NaNs."""
         return torch.where(self._inject[:, None, None], float("nan"), logits)
+
+    def _table_kw(self) -> Dict[str, Any]:
+        """The decode's paged-layout arguments (none in the dense
+        layout, whose families' steps take no table)."""
+        if not self.paged:
+            return {}
+        table, floor = self._step_table()
+        return {"page_table": table, "write_floor": floor}
 
     def _step_table(self):
         """The decode's page table (parked slots' rows zeroed, so their
@@ -1247,23 +1277,17 @@ class Engine:
         writes ``width`` positions a slot) into a CUDA graph. Every slot
         is parked for the warm-up (an eager run on a side stream, which
         builds and loads the kernels, creates the cuBLAS handles and
-        loads lazy modules before capture) so its pool writes land in the
-        scratch page, or, in the dense layout, at positions
-        ``0..width-1`` of every slot, which are saved beside the state;
-        then both are restored. Returns the graph and the wrappers'
+        loads lazy modules before capture), so its pool writes land in
+        the scratch page; in the dense layout ``_parked`` saves and
+        restores what the warm-up rewrites, at the first capture and at
+        a re-capture mid-serve alike. Returns the graph and the wrappers'
         counts taken over the capture: what each replay launches. The
         garbage collector is off during the capture: a dead engine left
         in a reference cycle (a caller's closure over one of its methods,
         say) still holds its graphs, and freeing one of them then would
         invalidate the capture."""
         t0 = time.perf_counter()
-        state = (self._tok, self._pos, self._act, self._rem, self._t)
-        if not self.paged:
-            state += tuple(c[:, :, :width] for c in self.slots.cache.values())
-        saved = [x.clone() for x in state]
-        for x in state[:4]:
-            x.zero_()
-        try:
+        with self._parked(width):
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -1289,13 +1313,30 @@ class Engine:
                 torch.cuda.memory_allocated(self.device) - alloc0
             self.metrics["graph_reserved_bytes"] += \
                 torch.cuda.memory_reserved(self.device) - res0
-        finally:
-            for x, s in zip(state, saved):
-                x.copy_(s)
         torch.cuda.synchronize(self.device)
         self.metrics["graph_captures"] += 1
         self.metrics["graph_capture_s"] += time.perf_counter() - t0
         return graph, launches
+
+    @contextlib.contextmanager
+    def _parked(self, width: int):
+        """Every slot parked for a capture's warm-up step, and the state
+        that step rewrites restored after it: the decode state, and in
+        the dense layout positions ``0..width-1`` of each slot's
+        position-indexed leaves and the whole of each recurrent state
+        leaf (``SlotCache.leaves``)."""
+        state = (self._tok, self._pos, self._act, self._rem, self._t)
+        if not self.paged:
+            state += tuple(t if seq is None else t.narrow(seq, 0, width)
+                           for t, _, seq in self.slots.leaves())
+        saved = [x.clone() for x in state]
+        for x in state[:4]:
+            x.zero_()
+        try:
+            yield
+        finally:
+            for x, s in zip(state, saved):
+                x.copy_(s)
 
     def _read(self, bufs: List[torch.Tensor]) -> List[np.ndarray]:
         """The one host sync of a horizon or round: ``bufs`` as numpy."""
@@ -1800,6 +1841,8 @@ class Engine:
         if phase not in ("prefill", "decode", "draft", "verify"):
             raise ValueError(f"phase must be prefill, decode, draft or "
                              f"verify, got {phase!r}")
+        if self.cfg.family == "rwkv6":
+            return "none"            # no attention layer to dispatch
         decode = phase != "prefill"
         call = build_attn_call(
             self.cfg, mode="decode" if decode else "prefill",
@@ -1873,11 +1916,13 @@ class Engine:
             m["tuner_probes"] = ts["probes"]
             m["tuner_cached"] = ts["measured"]
             # under spec decode the per-round hot path is the multi-query
-            # verify call, not a plain decode step: predict what ran
-            est = self.tuner.estimate_for(build_attn_call(
-                self.cfg, mode="decode", paged=self.paged, per_slot=True,
-                collect_stats=self.collect_stats, verify=self.spec,
-                kv_scale=self.kv_scale))
+            # verify call, not a plain decode step: predict what ran (a
+            # family without attention has no call to price)
+            est = None if self.cfg.family == "rwkv6" else \
+                self.tuner.estimate_for(build_attn_call(
+                    self.cfg, mode="decode", paged=self.paged,
+                    per_slot=True, collect_stats=self.collect_stats,
+                    verify=self.spec, kv_scale=self.kv_scale))
             if est is not None:
                 from repro_torch.autotune import predict_engine_step
                 m["pred_decode_step_s"] = predict_engine_step(

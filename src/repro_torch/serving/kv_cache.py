@@ -2,10 +2,13 @@
 
 PyTorch counterpart of ``repro.serving.kv_cache``:
 
-* ``SlotCache`` — the dense per-slot layout: one contiguous
-  [L, batch, max_len, N, hd] K and V in the model's dtype; ``insert``
-  copies a row of a freshly prefilled request cache into a slot (zero
-  past its length), ``clear`` zeroes a slot when its request finishes;
+* ``SlotCache`` — the dense per-slot layout over any family's cache
+  tree (the transformer's [L, batch, max_len, N, hd] K and V, a
+  recurrent family's state, zamba2's tree of both), each leaf's batch
+  axis named by ``registry.cache_specs``; ``insert`` copies a row of a
+  freshly prefilled request cache into a slot (zero past a shorter
+  request cache's extent), ``clear`` zeroes a slot when its request
+  finishes;
 * ``PagedKVCache`` — one shared page pool plus per-slot page tables.
   With HDP on the page size is HDP's ``block_k``, so cache pages
   coincide with the scout's pruning blocks (16 positions with HDP off).
@@ -43,38 +46,65 @@ KV_DTYPES = ("fp32", "int8", "fp8_v")
 KV_SCALES = ("grid", "absmax")
 
 
-def cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
-    return sum(t.numel() * t.element_size() for t in cache.values())
+def cache_bytes(cache) -> int:
+    """Bytes of every leaf of a cache tree."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(v) for v in cache.values())
+    return cache.numel() * cache.element_size()
+
+
+def cache_leaves(cache, specs):
+    """(leaf, its logical axis names) over a cache tree and its
+    ``registry.cache_specs`` tree."""
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            yield from cache_leaves(v, specs[k])
+    else:
+        yield cache, tuple(specs)
 
 
 class SlotCache:
-    """Dense per-slot layout: ``cache`` holds ``k``/``v``
-    [L, batch, max_len, N, hd] in the model's dtype, one fixed buffer for
-    the cache's lifetime (a captured decode graph reads it at a fixed
-    address)."""
+    """Dense per-slot layout: ``cache`` is the family's request cache
+    tree at ``batch`` slots and ``max_len`` positions, each leaf one
+    fixed buffer for the cache's lifetime (a captured decode graph reads
+    it at a fixed address), its batch axis where ``registry.cache_specs``
+    names it (the reference's ``_batch_axes``)."""
 
     def __init__(self, cfg, batch: int, max_len: int, device="cuda"):
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
         self.cache = registry.init_cache(cfg, batch, max_len, device=device)
+        self.specs = registry.cache_specs(cfg)
 
-    def insert(self, one_cache: Dict[str, torch.Tensor], slot: int,
-               row: int = 0) -> None:
-        """Copy row ``row`` of a request cache ({"k","v"} [L,B,S,N,hd],
-        S <= max_len) into ``slot``, zeroing the slot past S."""
-        for name, big in self.cache.items():
-            small = one_cache[name][:, row]
-            S = small.shape[1]
-            if S > self.max_len:
-                raise ValueError(f"request cache of {S} positions exceeds "
-                                 f"the serving cache ({self.max_len})")
-            big[:, slot, :S].copy_(small)
-            big[:, slot, S:].zero_()
+    def leaves(self, cache=None):
+        """(leaf, its batch axis, its position axis or None) over
+        ``cache`` (default the serving cache)."""
+        for t, ax in cache_leaves(self.cache if cache is None else cache,
+                                  self.specs):
+            yield (t, ax.index("batch"),
+                   ax.index("kv_seq") if "kv_seq" in ax else None)
+
+    def insert(self, one_cache, slot: int, row: int = 0) -> None:
+        """Copy row ``row`` of a request cache (the same tree, batch on
+        the same axes, every other dim at most the serving cache's) into
+        ``slot``, zero-padding each dim the request cache is shorter in
+        (the positions past a bucketed prefill)."""
+        for (big, ax, _), (small, _, _) in zip(self.leaves(),
+                                               self.leaves(one_cache)):
+            src, dst = small.select(ax, row), big.select(ax, slot)
+            if any(s > d for s, d in zip(src.shape, dst.shape)):
+                raise ValueError(f"request cache {tuple(small.shape)} "
+                                 f"exceeds the serving cache "
+                                 f"{tuple(big.shape)}")
+            if src.shape != dst.shape:
+                dst.zero_()
+                dst = dst[tuple(slice(0, n) for n in src.shape)]
+            dst.copy_(src)
 
     def clear(self, slot: int) -> None:
-        for big in self.cache.values():
-            big[:, slot].zero_()
+        for big, ax, _ in self.leaves():
+            big.select(ax, slot).zero_()
 
     def bytes_per_token(self) -> float:
         """Resident bytes per cache position of one slot."""

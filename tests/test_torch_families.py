@@ -74,11 +74,20 @@ def test_config_matches_jax_field_for_field(arch):
 
 
 def test_every_transformer_family_config_is_served():
+    """The transformer serves every registered config of the dense, moe
+    and vlm families; the recurrent and encoder-decoder configs have
+    modules of their own (``test_torch_rwkv6.py``, ``_zamba2.py``,
+    ``_whisper.py``)."""
     from repro_torch.configs.base import _REGISTRY
     fams = {get_config(n).family for n in _REGISTRY}
-    assert fams == {"dense", "moe", "vlm"}
+    assert fams == {"dense", "moe", "vlm", "rwkv6", "zamba2", "whisper"}
     for name in _REGISTRY:
-        assert registry.module_for(get_config(name)) is transformer, name
+        cfg = get_config(name)
+        if cfg.family in ("dense", "moe", "vlm"):
+            assert registry.module_for(cfg) is transformer, name
+        else:
+            assert registry.module_for(cfg).__name__ == \
+                f"repro_torch.models.{cfg.family}", name
 
 
 def test_engine_keeps_pages_for_pageable_families():

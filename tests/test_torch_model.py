@@ -308,12 +308,20 @@ def test_bf16_block_kernel_prefill_keeps_model_dtype(weights):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("family", ["rwkv6", "zamba2", "whisper"])
-def test_unported_family_cites_its_roadmap_item(family):
-    """The remaining families are ROADMAP.md section 1 item 10; the
-    registry's message names that item."""
+@pytest.mark.parametrize("family", ["dense", "moe", "vlm", "rwkv6", "zamba2",
+                                    "whisper", "not-a-family"])
+def test_family_resolves_like_jax(family):
+    """Every family the reference serves resolves to the port's module of
+    the same name (the transformer for dense, moe and vlm); an unknown
+    family raises KeyError in both packages."""
     cfg = reduced(get_config("qwen2-1.5b")).replace(family=family)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md section 1, item 10 \(remaining "
-                             r"families\)"):
-        registry.module_for(cfg)
+    jcfg = jax_reduced(jax_get_config("qwen2-1.5b")).replace(family=family)
+    if family == "not-a-family":
+        with pytest.raises(KeyError, match="unknown family"):
+            jregistry.module_for(jcfg)
+        with pytest.raises(KeyError, match="unknown family"):
+            registry.module_for(cfg)
+        return
+    want = jregistry.module_for(jcfg).__name__.rsplit(".", 1)[1]
+    got = registry.module_for(cfg).__name__
+    assert got == f"repro_torch.models.{want}"

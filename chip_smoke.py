@@ -167,6 +167,24 @@ never JAX nor the JAX package. Phases:
    ``apply_decode`` steps, every logit finite; the reduced rwkv6 and
    zamba2 graphed and reduced whisper's greedy tokens on the card equal
    the CPU's. ``[families]`` lines;
+5j. training (ROADMAP item 11a) through ``launch.train.run``, outside
+   inference mode, budget ~120 s: (a) qwen2-1.5b at full width and
+   depth (28 layers, bf16 weights seeded on the card, remat on), S 4096,
+   global batch 8 in 8 microbatches of 1 x 4096, 4 steps of synthetic
+   data: every loss and grad norm finite, each step's seconds (first and
+   steady), tokens/s, the model FLOP/s (6 N tokens a step) over the bf16
+   peak, the peak memory, beside the card's name and power limit; (b)
+   the same width cut to 2 layers (S 2048, B 2): 4 steps uninterrupted,
+   then 2 steps with a step-2 checkpoint (~4.6 GB: bf16 params, fp32
+   master, m, v) whose restore is bit-equal to the saved state, and a
+   fresh run resuming from it for 2 more, every loss within rtol 1e-4 of
+   the uninterrupted run's; (c) one step each with bf16 gradient
+   compression and with 2 microbatches; (d) one train step of the
+   reduced qwen2-1.5b, olmoe-1b-7b, rwkv6-3b, zamba2-7b and
+   whisper-large-v3 (with frames), fp32 weights made on the CPU, card
+   == CPU at the CPU tests' tolerances. No kernel wrapper launches in
+   any of them: a trainable attention call declines every kernel (none
+   has a gradient), as in the reference. ``[train]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -190,6 +208,7 @@ without that last line.
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -3599,6 +3618,281 @@ def phase_families(torch):
     return out
 
 
+# ------------------------------------------------ phase 5j: training
+#: (a) qwen2-1.5b trained at full width and depth: the reference's
+#: train_4k shape (S 4096) cut to global batch 8, so micro_batches gives
+#: 8 microbatches of 1 x 4096; (b), (c) the same width cut to 2 layers
+TRAIN_STEPS, TRAIN_S, TRAIN_B = 4, 4096, 8
+CUT_ARCH, CUT_S, CUT_B = "qwen2-1.5b-2l", 2048, 2
+#: resumed losses against the uninterrupted run's: a rerun on the card
+#: need not sum every gradient in one order (an indexed backward may
+#: accumulate with atomics), so the updates may part in the last bits
+TRAIN_RESUME_RTOL = 1e-4
+#: (d) card vs CPU, one train step on the reduced configs (fp32, TF32
+#: off): the CPU tests' tolerances against JAX (atol 1e-5 / rtol 1e-4;
+#: master at 0.1 x the peak lr, zamba2 at the peak lr with its grad norm
+#: at 1e-3: a Mamba2 layer amplifies fp32 rounding, ROADMAP section 3)
+TRAIN_REDUCED = ("qwen2-1.5b", "olmoe-1b-7b", "rwkv6-3b", "zamba2-7b",
+                 "whisper-large-v3")
+
+
+def all_kernel_launches(torch):
+    """Every kernel wrapper's launches since ``zero_launches`` and the
+    FUM and block tile kernels' runs on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    torch.cuda.synchronize()
+    out = {fn.__name__: fn.launches for fn in (
+        hdp_paged_fum_decode, hdp_scout, hdp_block_sparse_attention,
+        flash_attention)}
+    out["fum runs"] = hdp_paged_fum_decode.runs.read()
+    out["block runs"] = hdp_block_sparse_attention.runs.read()
+    return out
+
+
+class _StepLog(logging.Handler):
+    """Collects (step, loss, grad_norm, seconds) from the launcher's
+    per-step log lines (``--log-every 1``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = []
+
+    def emit(self, record):
+        if record.msg.startswith("step "):
+            self.steps.append(record.args)
+
+
+def train_run(torch, *argv):
+    """``launch.train.run`` on the card with ``argv``: (its result, the
+    per-step (step, loss, grad_norm, s) tuples, the peak memory in
+    bytes). No kernel wrapper may launch: a trainable attention call
+    takes the plain backends (none of the kernels has a gradient)."""
+    import math
+    from repro_torch.launch import train
+    lg = logging.getLogger("repro_torch.train")
+    sl = _StepLog()
+    lg.addHandler(sl)
+    lg.setLevel(logging.INFO)
+    with torch.inference_mode():   # the counters are inference tensors
+        zero_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = train.run(train.build_parser().parse_args(
+            [*argv, "--device", "cuda", "--log-every", "1"]))
+    finally:
+        lg.removeHandler(sl)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = all_kernel_launches(torch)
+    check(not any(launched.values()), f"training {argv}: kernels launched "
+          f"{launched}, expected none (trainable calls decline them)")
+    check(len(sl.steps) == out["steps"] and all(
+        math.isfinite(loss) and math.isfinite(gn)
+        for _, loss, gn, _ in sl.steps),
+          f"training {argv}: non-finite loss or grad norm {sl.steps}")
+    return out, sl.steps, peak
+
+
+def _bits_equal(torch, a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def train_card_vs_cpu(torch, name):
+    """One train step of the reduced config (fp32 weights made on the
+    CPU, copied to the card) on the card and on the CPU: loss, grad norm
+    and every updated master leaf agree (``TRAIN_REDUCED``'s note)."""
+    import numpy as np
+    from repro_torch.common import tree
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    cfg = reduced(get_config(name))
+    rng = np.random.default_rng(51)
+    spec = registry.input_specs(cfg, ShapeConfig(
+        "t", 64 if cfg.is_encoder_decoder else 24, 4, "train"))["batch"]
+    batch = {k: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, sd.shape).astype(np.int32)
+        if k == "tokens" else
+        rng.standard_normal(sd.shape).astype(np.float32))
+        for k, sd in spec.items()}
+    params = registry.init_params(cfg, 4, "cpu")
+    ocfg = opt.OptConfig(warmup_steps=1, decay_steps=10)
+    step = make_train_step(cfg, ocfg, num_microbatches=2)
+    res = {}
+    with torch.inference_mode():   # the counters are inference tensors
+        zero_launches()
+    for dev in ("cuda", "cpu"):
+        p = tree.tree_map(lambda t: t.to(dev), params)
+        res[dev] = step(p, opt.init_opt_state(p),
+                        tree.tree_map(lambda t: t.to(dev), batch))
+    launched = all_kernel_launches(torch)
+    check(not any(launched.values()),
+          f"reduced {name} train step launched kernels {launched}")
+    (_, card_o, card_m), (_, host_o, host_m) = res["cuda"], res["cpu"]
+    zamba = cfg.family == "zamba2"
+    norm_rtol = 1e-3 if zamba else RTOL
+    p_atol = ocfg.peak_lr * (1.0 if zamba else 0.1)
+    worst = 0.0
+    for k, rtol in (("loss", RTOL), ("grad_norm", norm_rtol), ("lr", 1e-6)):
+        a, b = float(card_m[k]), float(host_m[k])
+        check(abs(a - b) <= 1e-5 + rtol * abs(b),
+              f"reduced {name} train step: {k} card {a} != CPU {b}")
+    for a, path, b in zip(*tree.flatten_with_paths(card_o["master"]),
+                          tree.leaves(host_o["master"])):
+        d = (a.cpu() - b).abs()
+        worst = max(worst, float(d.max()))
+        check(bool((d <= p_atol + RTOL * b.abs()).all()),
+              f"reduced {name} train step: master{path} card vs CPU max "
+              f"|diff| {float(d.max()):.3e} > {p_atol:.1e} + {RTOL} |x|")
+    check(int(card_o["step"]) == int(host_o["step"]) == 1,
+          f"reduced {name}: step {int(card_o['step'])}")
+    log(f"[train] reduced {name} (2 microbatches, warmup 1): card == CPU, "
+        f"loss {float(card_m['loss']):.6f} / {float(host_m['loss']):.6f}, "
+        f"grad_norm {float(card_m['grad_norm']):.6f} / "
+        f"{float(host_m['grad_norm']):.6f}, master max |diff| {worst:.3e}")
+    return worst
+
+
+def phase_train(torch, smi_line):
+    """Training (ROADMAP item 11a) through ``launch.train.run``: (a)
+    qwen2-1.5b at full width and depth (28 layers, bf16, remat on), S
+    4096, global batch 8 in 8 microbatches, 4 steps of synthetic data;
+    step seconds, tokens/s, the share of the bf16 peak (6 N tokens per
+    step) and the peak memory; (b) the width cut to 2 layers: 4 steps
+    uninterrupted, then 2 steps with a checkpoint and a fresh run that
+    resumes from it for 2 more (restored state bit-equal to the saved
+    state, resumed losses against the uninterrupted run's); (c) one step
+    each with bf16 gradient compression and with 2 microbatches; (d) the
+    reduced configs card vs CPU. No kernel launches in any of them."""
+    import shutil
+    import tempfile
+    from repro_torch.common import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import register
+    from repro_torch.models import registry
+    from repro_torch.training import checkpoint as ckpt
+    out = {}
+
+    # ---- (a) full width and depth
+    cfg = get_config("qwen2-1.5b")
+    check(cfg.n_layers == N_LAYERS_QWEN and cfg.remat and
+          cfg.dtype == "bfloat16", f"unexpected qwen2-1.5b config {cfg}")
+    n_params = registry.param_count(cfg)
+    res, steps, peak = train_run(
+        torch, "--arch", "qwen2-1.5b", "--seq-len", str(TRAIN_S),
+        "--global-batch", str(TRAIN_B), "--steps", str(TRAIN_STEPS))
+    secs = [s for *_, s in steps]
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = TRAIN_S * TRAIN_B
+    flops = 6 * n_params * tokens
+    out["full"] = {
+        "losses": [loss for _, loss, _, _ in steps],
+        "grad_norms": [gn for _, _, gn, _ in steps],
+        "step_s": secs, "first_step_s": secs[0], "steady_step_s": steady,
+        "tokens_per_s": tokens / steady,
+        "model_flops_per_s": flops / steady,
+        "bf16_peak_share": flops / steady / BF16_FLOP_S,
+        "peak_mem_gb": peak / 1e9, "wall_s": res["wall_s"],
+        "params": n_params}
+    log(f"[train] qwen2-1.5b full width and depth (28 layers, bf16, remat, "
+        f"{n_params / 1e9:.3f} B params), S {TRAIN_S}, global batch "
+        f"{TRAIN_B} in 8 microbatches, {TRAIN_STEPS} steps: losses "
+        f"{out['full']['losses']}, grad norms {out['full']['grad_norms']}; "
+        f"step s {[round(x, 3) for x in secs]} (first {secs[0]:.3f}, "
+        f"steady {steady:.3f}); {tokens / steady:.1f} tokens/s; model "
+        f"FLOP/s {flops / steady:.4e} = {flops / steady / BF16_FLOP_S:.4f} "
+        f"of the bf16 peak ({BF16_FLOP_S:.3e}); peak memory "
+        f"{peak / 1e9:.2f} GB; no kernel launched; {smi_line}")
+
+    # ---- (b) checkpoint and resume at full width cut to 2 layers
+    register(lambda: get_config("qwen2-1.5b").replace(name=CUT_ARCH,
+                                                      n_layers=2))
+    base = ["--arch", CUT_ARCH, "--seq-len", str(CUT_S),
+            "--global-batch", str(CUT_B)]
+    tmp = tempfile.mkdtemp(prefix="train_5j_")
+    saved = {}
+    save = ckpt.save_checkpoint
+
+    def spy(directory, step, state, **kw):
+        saved[step] = tree.tree_map(lambda t: t.detach().clone(), state)
+        return save(directory, step, state, **kw)
+
+    try:
+        _, full, _ = train_run(torch, *base, "--steps", "4")
+        ckpt.save_checkpoint = spy
+        t0 = time.perf_counter()
+        _, first, _ = train_run(torch, *base, "--steps", "2",
+                                "--checkpoint-dir", tmp,
+                                "--checkpoint-interval", "2")
+        t_first = time.perf_counter() - t0
+        ckpt.save_checkpoint = save
+        check(ckpt.latest_step(tmp) == 2, f"no step-2 checkpoint in {tmp}")
+        cut = registry.init_params(get_config(CUT_ARCH), device="meta")
+        from repro_torch.training import optimizer as opt
+        like = {"params": cut, "opt": opt.init_opt_state(cut)}
+        t0 = time.perf_counter()
+        restored, step, _ = ckpt.load_checkpoint(tmp, like, device="cuda")
+        t_load = time.perf_counter() - t0
+        pairs = list(zip(*tree.flatten_with_paths(restored),
+                         tree.leaves(saved[2])))
+        bad = [p for a, p, b in pairs if not _bits_equal(torch, a, b)]
+        check(step == 2 and not bad, f"restored checkpoint differs from the "
+              f"saved state at {bad[:4]} (step {step})")
+        n_bf16 = sum(a.dtype == torch.bfloat16 for a, _, _ in pairs)
+        ck_bytes = sum(a.numel() * a.element_size() for a, _, _ in pairs)
+        del restored, saved[2], pairs
+        _, rest, _ = train_run(torch, *base, "--steps", "2",
+                               "--checkpoint-dir", tmp)
+        check([s for s, *_ in rest] == [2, 3],
+              f"resumed run logged steps {[s for s, *_ in rest]}")
+        for (_, a, _, _), (_, b, _, _) in zip(first + rest, full):
+            check(abs(a - b) <= TRAIN_RESUME_RTOL * abs(b),
+                  f"loss {a} of the run with a checkpoint and its resume "
+                  f"!= the uninterrupted run's {b} (rtol "
+                  f"{TRAIN_RESUME_RTOL})")
+    finally:
+        ckpt.save_checkpoint = save
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["resume"] = {
+        "uninterrupted": [x[1] for x in full], "first": [x[1] for x in first],
+        "resumed": [x[1] for x in rest], "ckpt_bytes": ck_bytes,
+        "ckpt_bf16_leaves": n_bf16, "run_with_saves_s": t_first,
+        "load_s": t_load,
+        "resumed_max_abs_diff": max(abs(a[1] - b[1])
+                                    for a, b in zip(rest, full[2:]))}
+    log(f"[train] {CUT_ARCH} (2 layers, S {CUT_S}, B {CUT_B}): 4 steps "
+        f"uninterrupted {out['resume']['uninterrupted']}; 2 steps with a "
+        f"step-2 checkpoint ({ck_bytes / 1e9:.2f} GB, {n_bf16} bf16 leaves; "
+        f"the run with its saves {t_first:.2f} s, the load {t_load:.2f} s), "
+        f"the restored params and opt state bit-equal to the saved ones; "
+        f"resumed for 2: {out['resume']['resumed']} (max |diff| "
+        f"{out['resume']['resumed_max_abs_diff']:.3e}, rtol "
+        f"{TRAIN_RESUME_RTOL})")
+
+    # ---- (c) variants, one step each
+    for flag in (("--grad-compression", "bf16"), ("--microbatches", "2")):
+        _, st, pk = train_run(torch, *base, "--steps", "1", *flag)
+        out["variant " + " ".join(flag)] = st[0][1]
+        log(f"[train] {CUT_ARCH} {' '.join(flag)}: loss {st[0][1]:.6f}, "
+            f"grad_norm {st[0][2]:.6f}, {st[0][3]:.3f} s, peak "
+            f"{pk / 1e9:.2f} GB")
+
+    # ---- (d) the reduced configs, card vs CPU
+    out["reduced_master_max_abs_diff"] = {
+        name: train_card_vs_cpu(torch, name) for name in TRAIN_REDUCED}
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing_zamba2(torch, calls):
     """The scout (dp4a), block (tile) and flash (tile) kernels at
     zamba2-7b's aligned prefill's own inputs (B 1, 32 heads, S 4096, hd
@@ -3989,6 +4283,8 @@ def main() -> int:
             moe = timed("5e moe, vlm", phase_moe, torch)
             families = timed("5i rwkv6, zamba2, whisper", phase_families,
                              torch)
+            with torch.inference_mode(False):
+                trained = timed("5j training", phase_train, torch, smi_line)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
                               olmoe_case)
             prefill_timed = timed("6 prefill kernels timing",
@@ -4140,6 +4436,7 @@ def main() -> int:
         })
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
+    log(f"[train] phase 5j {json.dumps(trained)}")
     log(f"[families] phase 5i {json.dumps({k: v for k, v in families.items() if k not in ('prefill', 'errs')})}")
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")

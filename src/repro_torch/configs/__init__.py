@@ -12,7 +12,10 @@ from repro_torch.configs import (  # noqa: F401
     zamba2_7b,
 )
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
+    ShapeConfig,
+    cell_applicable,
     get_config,
     reduced,
 )

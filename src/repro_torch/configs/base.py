@@ -1,4 +1,5 @@
-"""Model configuration: ``ModelConfig``, the registry and ``reduced``.
+"""Model configuration: ``ModelConfig``, the registry and ``reduced``,
+and the cell shapes ``ShapeConfig``/``SHAPES`` with ``cell_applicable``.
 
 A field-for-field copy of ``repro.configs.base.ModelConfig`` (the port
 keeps its own copy so that it imports nothing of the JAX package). The
@@ -8,7 +9,7 @@ port serves the architectures registered here through
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.config import HDPConfig
 
@@ -89,6 +90,21 @@ class ModelConfig:
         return registry.param_count(self)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -103,6 +119,14 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is (arch x shape) runnable? Returns (ok, reason-if-skipped)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: long_500k requires sub-quadratic "
+                       "sequence mixing (DESIGN.md §Arch-applicability)")
+    return True, ""
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -7,7 +7,8 @@ layers included, so the conversion is a copy; shapes are checked against
 a freshly laid-out port tree so a mismatched config fails loudly, and
 each leaf takes that tree's dtype: the model dtype for most, fp32 for
 the leaves a model keeps in fp32 whatever its dtype (mamba2's
-``A_log``).
+``A_log``). ``opt_state_from_jax`` moves the optimizer's state the same
+way (m, v and master in fp32, the step a 0-d int32 tensor).
 """
 from __future__ import annotations
 
@@ -58,3 +59,18 @@ def params_from_jax(cfg, tree, device, dtype: Optional[torch.dtype] = None):
         return t
 
     return conv(tree, want, "")
+
+
+def opt_state_from_jax(cfg, opt_state, device) -> Dict:
+    """JAX optimizer state ({"step", "m", "v", "master"}, numpy leaves) ->
+    the port's (``training.optimizer.init_opt_state``'s tree) on
+    ``device``: m, v and master through ``params_from_jax``'s tree check
+    in fp32, the step a 0-d int32 tensor."""
+    out = {k: params_from_jax(cfg, opt_state[k], device, torch.float32)
+           for k in ("m", "v", "master")}
+    step = np.asarray(opt_state["step"])
+    if step.shape != () or not np.issubdtype(step.dtype, np.integer):
+        raise ValueError(f"step: expected a 0-d integer array, got "
+                         f"{step.dtype}{list(step.shape)}")
+    out["step"] = torch.tensor(int(step), dtype=torch.int32, device=device)
+    return {k: out[k] for k in ("step", "m", "v", "master")}

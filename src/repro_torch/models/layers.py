@@ -12,6 +12,7 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
 
@@ -50,6 +51,17 @@ def tree_index(tree, i: int):
     """Row ``i`` of every leaf (a layer's view of stacked parameters or
     caches)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def maybe_remat(cfg, train: bool, fn, *args):
+    """``fn(*args)``, rematerialized in the backward pass when the config
+    asks for it on a training call (the reference's ``jax.checkpoint``
+    around a scan body): only ``fn``'s inputs are kept, and its
+    activations are recomputed when the gradient reaches it."""
+    if cfg.remat and train:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def stacked(n: int, make):

@@ -1,15 +1,23 @@
 """Family dispatch: one API over every architecture.
 
   init_params(cfg, seed, device)  -> params dict
+  apply_train(cfg, p, batch)      -> (logits, {"aux_loss", "hdp"})
   init_cache(cfg, B, max_len)     -> request cache tree
   cache_specs(cfg)                -> logical axis names of every cache leaf
   apply_prefill / apply_decode    -> serving steps
+  input_specs(cfg, shape)         -> ShapeDtype stand-ins of every input
 
 The dense, moe and vlm families are the transformer; rwkv6, zamba2 and
 whisper have modules of their own, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
 
 _FAMILIES = {
@@ -31,6 +39,10 @@ def module_for(cfg):
 
 def init_params(cfg, seed: int = 0, device="cuda"):
     return module_for(cfg).init_params(cfg, seed, device)
+
+
+def apply_train(cfg, params, batch, **kw):
+    return module_for(cfg).apply_train(cfg, params, batch, **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
@@ -64,3 +76,46 @@ def param_count(cfg, active_only: bool = False) -> int:
     if active_only and hasattr(m, "active_param_count"):
         return m.active_param_count(cfg)
     return m.param_count(cfg)
+
+
+# ------------------------------------------------------------- input specs
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """Shape and dtype of an input (the reference's ShapeDtypeStruct): a
+    leaf of a tree, as a tensor is."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg, shape) -> Dict[str, Any]:
+    """ShapeDtype stand-ins for every model input of this cell.
+
+    train:   {"batch": {"tokens" [B,S]} (+frames for audio)}
+    prefill: {"batch": {...}}
+    decode:  {"token" [B,1], "pos" scalar}"""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def tok(*s):
+        return ShapeDtype(tuple(s), i32)
+
+    def act(*s):
+        return ShapeDtype(tuple(s), L.torch_dtype(cfg.dtype))
+
+    if cfg.is_encoder_decoder:
+        dec_len = max(S // 8, 8)
+        if shape.kind in ("train", "prefill"):
+            return {"batch": {"frames": act(B, S, cfg.d_model),
+                              "tokens": tok(B, dec_len)}}
+        return {"token": tok(B, 1), "pos": ShapeDtype((), i32)}
+
+    if shape.kind in ("train", "prefill"):
+        return {"batch": {"tokens": tok(B, S)}}
+    return {"token": tok(B, 1), "pos": ShapeDtype((), i32)}
+
+
+def decode_cache_len(cfg, shape) -> int:
+    """KV length the decode cell must hold (ring-buffered for SWA)."""
+    if cfg.sliding_window:
+        return min(shape.seq_len, max(cfg.sliding_window * 2, 16))
+    return shape.seq_len

@@ -129,24 +129,48 @@ def _channel_mix(p, x, x_prev):
     return torch.sigmoid(xr @ p["Wr"]) * (k @ p["Wv"]), x[:, -1]
 
 
+def _block_fn(cfg, lp, x, state, tm_x, cm_x):
+    """One layer from its recurrent state: (x', state', tm_x', cm_x')."""
+    hx = L.apply_norm(cfg, lp["ln1"], x)
+    a, tm_x, state = _time_mix(cfg, lp["tm"], hx, tm_x, state)
+    x = x + a
+    hx = L.apply_norm(cfg, lp["ln2"], x)
+    m, cm_x = _channel_mix(lp["cm"], hx, cm_x)
+    return x + m, state, tm_x, cm_x
+
+
 def _block(cfg, lp, x, lc):
     """One layer; its cache view lc {"state","tm_x","cm_x"} is updated in
     place."""
-    hx = L.apply_norm(cfg, lp["ln1"], x)
-    a, tm_x, state = _time_mix(cfg, lp["tm"], hx, lc["tm_x"], lc["state"])
-    x = x + a
-    hx = L.apply_norm(cfg, lp["ln2"], x)
-    m, cm_x = _channel_mix(lp["cm"], hx, lc["cm_x"])
+    x, state, tm_x, cm_x = _block_fn(cfg, lp, x, lc["state"], lc["tm_x"],
+                                     lc["cm_x"])
     lc["state"].copy_(state)
     lc["tm_x"].copy_(tm_x)
     lc["cm_x"].copy_(cm_x)
-    return x + m
+    return x
 
 
 def _stack(cfg, params, x, cache):
     for li in range(cfg.n_layers):
         x = _block(cfg, L.tree_index(params["layers"], li), x,
                    L.tree_index(cache, li))
+    return x
+
+
+def _train_stack(cfg, params, x):
+    """Every layer from a zero state (no cache, nothing written in place:
+    autograd runs through it), rematerialized when ``cfg.remat`` is set."""
+    h, hd = _heads(cfg)
+    B, D = x.shape[0], cfg.d_model
+
+    def layer(x, li):
+        state = torch.zeros((B, h, hd, hd), dtype=F32, device=x.device)
+        shift = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        return _block_fn(cfg, L.tree_index(params["layers"], li), x, state,
+                         shift, shift)[0]
+
+    for li in range(cfg.n_layers):
+        x = L.maybe_remat(cfg, True, layer, x, li)
     return x
 
 
@@ -171,6 +195,17 @@ def cache_specs(cfg) -> Dict:
     return {"state": ("layers", "batch", "heads", None, None),
             "tm_x": ("layers", "batch", "embed_act"),
             "cm_x": ("layers", "batch", "embed_act")}
+
+
+def apply_train(cfg, params, batch, *, collect_stats: bool = False):
+    """Full-sequence forward for training: (logits [B,S,V] fp32,
+    {"aux_loss": a 0-d fp32 zero, "hdp": None})."""
+    del collect_stats
+    x = L.embed_tokens(params["embed"], batch["tokens"])
+    x = _train_stack(cfg, params, x)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": None}
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,

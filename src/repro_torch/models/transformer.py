@@ -62,12 +62,13 @@ def cache_specs(cfg) -> Dict:
 def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
            page_table=None, write_floor=None, draft=None, attn=None):
     """Loop over layers; each layer's cache view is updated in place.
-    Without a cache every layer is an aligned self-attention prefill.
+    Without a cache every layer is an aligned self-attention prefill (or,
+    in mode "train", a trainable call, each layer rematerialized when
+    ``cfg.remat`` is set, as the reference checkpoints its scan body).
     Returns (x, stats, aux) with stats leaves stacked over layers and aux
     the MoE load-balancing loss summed over layers (None without
-    experts; serving ignores it)."""
-    stats, aux = [], []
-    for li in range(cfg.n_layers):
+    experts)."""
+    def layer(x, li):
         lp = L.tree_index(params["layers"], li)
         lc = None if cache is None else {k: v[li] for k, v in cache.items()}
         h = L.apply_norm(cfg, lp["ln1"], x)
@@ -79,15 +80,38 @@ def _stack(cfg, params, x, *, mode, positions, cache, collect_stats,
                               attn=attn)
         x = x + a
         h = L.apply_norm(cfg, lp["ln2"], x)
+        la = None
         if cfg.n_experts:
             m, la = M.moe_apply(cfg, lp["ffn"], h)
-            aux.append(la)
         else:
             m = L.mlp_apply(cfg, lp["ffn"], h)
-        x = x + m
+        return x + m, st, la
+
+    stats, aux = [], []
+    for li in range(cfg.n_layers):
+        x, st, la = L.maybe_remat(cfg, mode == "train", layer, x, li)
         stats.append(st)
+        if la is not None:
+            aux.append(la)
     return (x, stack_stats(stats) if collect_stats else None,
             torch.stack(aux).sum() if aux else None)
+
+
+def apply_train(cfg, params, batch, *, collect_stats: bool = False):
+    """Full-sequence forward for training: (logits [B,S,V] fp32,
+    {"aux_loss": the MoE losses summed over layers (a 0-d fp32 zero
+    without experts), "hdp": stats}). Attention runs as a trainable call,
+    which no kernel backend takes (none has a gradient), as in the
+    reference."""
+    tokens = batch["tokens"]
+    x = L.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, stats, aux = _stack(cfg, params, x, mode="train", positions=positions,
+                           cache=None, collect_stats=collect_stats)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,

@@ -60,15 +60,17 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     }
 
 
-def encode(cfg, params, frames, *, collect_stats: bool = False):
+def encode(cfg, params, frames, *, collect_stats: bool = False,
+           train: bool = False):
     """frames [B,S,D] (stub embeddings) -> (encoder states [B,S,D], the
-    self-attention stats stacked over layers or None)."""
+    self-attention stats stacked over layers or None). A training call
+    rematerializes each layer when ``cfg.remat`` is set."""
     x = frames @ params["frontend"]["w"]
     x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
                              device=x.device).to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    stats = []
-    for li in range(cfg.encoder_layers):
+
+    def layer(x, li):
         lp = L.tree_index(params["enc"], li)
         h = L.apply_norm(cfg, lp["ln1"], x)
         a, _, st = attn_apply(cfg, lp["attn"], h, mode="train",
@@ -76,7 +78,11 @@ def encode(cfg, params, frames, *, collect_stats: bool = False):
                               collect_stats=collect_stats)
         x = x + a
         h = L.apply_norm(cfg, lp["ln2"], x)
-        x = x + L.mlp_apply(cfg, lp["mlp"], h)
+        return x + L.mlp_apply(cfg, lp["mlp"], h), st
+
+    stats = []
+    for li in range(cfg.encoder_layers):
+        x, st = L.maybe_remat(cfg, train, layer, x, li)
         stats.append(st)
     return (L.apply_norm(cfg, params["ln_enc"], x),
             stack_stats(stats) if collect_stats else None)
@@ -85,12 +91,14 @@ def encode(cfg, params, frames, *, collect_stats: bool = False):
 def _decoder(cfg, params, tokens, enc_out, cache, positions, mode,
              collect_stats=False, attn=None):
     """The decoder over its self and cross caches (updated in place; the
-    cross cache only at prefill: at decode it is read as it is)."""
+    cross cache only at prefill: at decode it is read as it is). Mode
+    "train" runs without caches, each layer rematerialized when
+    ``cfg.remat`` is set."""
     x = L.embed_tokens(params["embed"], tokens)
     x = x + L.sinusoidal_pos(tokens.shape[1], cfg.d_model,
                              offset=positions[0]).to(x.dtype)
-    stats = []
-    for li in range(cfg.decoder_layers):
+
+    def layer(x, li):
         lp = L.tree_index(params["dec"], li)
         lc = None if cache is None else L.tree_index(cache, li)
         h = L.apply_norm(cfg, lp["ln1"], x)
@@ -111,7 +119,11 @@ def _decoder(cfg, params, tokens, enc_out, cache, positions, mode,
                                  enc_out=enc_out, attn=attn)
         x = x + c
         h = L.apply_norm(cfg, lp["ln3"], x)
-        x = x + L.mlp_apply(cfg, lp["mlp"], h)
+        return x + L.mlp_apply(cfg, lp["mlp"], h), st
+
+    stats = []
+    for li in range(cfg.decoder_layers):
+        x, st = L.maybe_remat(cfg, mode == "train", layer, x, li)
         stats.append(st)
     return (L.apply_norm(cfg, params["ln_dec"], x),
             stack_stats(stats) if collect_stats else None)
@@ -135,6 +147,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
 def cache_specs(cfg) -> Dict:
     ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     return {"self": {"k": ax, "v": ax}, "cross": {"k": ax, "v": ax}}
+
+
+def apply_train(cfg, params, batch, *, collect_stats: bool = False):
+    """Encode ``batch["frames"]`` and run the decoder over
+    ``batch["tokens"]`` without caches: (logits [B,S,V] fp32,
+    {"aux_loss": a 0-d fp32 zero, "hdp": decoder self-attention
+    stats})."""
+    enc_out, _ = encode(cfg, params, batch["frames"],
+                        collect_stats=collect_stats, train=True)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, stats = _decoder(cfg, params, tokens, enc_out, None, positions,
+                        "train", collect_stats)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,

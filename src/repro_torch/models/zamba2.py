@@ -81,11 +81,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     return params
 
 
-def _mamba_stack(cfg, layers, x, cache):
+def _mamba_stack(cfg, layers, x, cache, train: bool = False):
     """The Mamba2 layers of one group (or the tail), each a residual
     around its norm; ``cache`` (stacked views, or None) is written in
-    place."""
-    for li in range(layers["m"]["A_log"].shape[0]):
+    place. A training call rematerializes each layer when ``cfg.remat``
+    is set."""
+    def layer(x, li):
         lp = L.tree_index(layers, li)
         lc = None if cache is None else L.tree_index(cache, li)
         y, nc = mamba2.layer_apply(cfg, lp["m"], L.apply_norm(cfg, lp["ln"],
@@ -93,7 +94,10 @@ def _mamba_stack(cfg, layers, x, cache):
         if lc is not None:
             lc["S"].copy_(nc["S"])
             lc["conv"].copy_(nc["conv"])
-        x = x + y
+        return x + y
+
+    for li in range(layers["m"]["A_log"].shape[0]):
+        x = L.maybe_remat(cfg, train, layer, x, li)
     return x
 
 
@@ -123,19 +127,28 @@ def _run(cfg, params, tokens, *, mode, positions, cache, collect_stats,
     x = L.embed_tokens(params["embed"], tokens)
     emb0 = x
     sh = params["shared"]
+    train = mode == "train"
+
+    def group(x, gi):
+        mc = None if cache is None else L.tree_index(cache["mamba"], gi)
+        x = _mamba_stack(cfg, L.tree_index(params["grouped"], gi), x, mc,
+                         train)
+        ac = None if cache is None else L.tree_index(cache["attn"], gi)
+        return _apply_shared(cfg, sh, x, emb0, sh["lora_A"][gi],
+                             sh["lora_B"][gi], mode=mode,
+                             positions=positions, cache=ac,
+                             collect_stats=collect_stats, attn=attn)
+
     stats = []
     for gi in range(_n_groups(cfg)):
-        mc = None if cache is None else L.tree_index(cache["mamba"], gi)
-        x = _mamba_stack(cfg, L.tree_index(params["grouped"], gi), x, mc)
-        ac = None if cache is None else L.tree_index(cache["attn"], gi)
-        x, st = _apply_shared(cfg, sh, x, emb0, sh["lora_A"][gi],
-                              sh["lora_B"][gi], mode=mode,
-                              positions=positions, cache=ac,
-                              collect_stats=collect_stats, attn=attn)
+        # a training call also rematerializes the whole group, as the
+        # reference does (its backward would otherwise keep every group's
+        # intermediates)
+        x, st = L.maybe_remat(cfg, train, group, x, gi)
         stats.append(st)
     if _n_tail(cfg):
         x = _mamba_stack(cfg, params["tail"], x,
-                         None if cache is None else cache["tail"])
+                         None if cache is None else cache["tail"], train)
     return x, stack_stats(stats) if collect_stats else None
 
 
@@ -167,6 +180,18 @@ def cache_specs(cfg) -> Dict:
     if _n_tail(cfg):
         out["tail"] = {k: ("layers",) + v for k, v in mspec.items()}
     return out
+
+
+def apply_train(cfg, params, batch, *, collect_stats: bool = False):
+    """Full-sequence forward for training: (logits [B,S,V] fp32,
+    {"aux_loss": a 0-d fp32 zero, "hdp": the shared block's stats})."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, stats = _run(cfg, params, tokens, mode="train", positions=positions,
+                    cache=None, collect_stats=collect_stats)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,

@@ -17,7 +17,8 @@ never JAX nor the JAX package. Phases:
    shape; 48 rows split over two row blocks), split across blocks and in
    one pass, each with its poison checks; on the int8 pool also at
    olmoe-1b-7b's decode and verify shapes (MHA: G 1, one pass by
-   ``fum_splits``) and at G 5 and G 8 (llama4-scout, chameleon-34b), and
+   ``fum_splits``), at G 5 and G 8 (llama4-scout, chameleon-34b) and at
+   one rank's shard of qwen2-1.5b at tp 2 (phase 5k: N 1), and
    at olmoe's shape on uniform +-127 codes against the plain version
    evaluated in float64 (the reference's kernel tolerance, 2e-3: fp32
    sum order alone parts kernel and fp32 plain version there);
@@ -148,6 +149,19 @@ never JAX nor the JAX package. Phases:
    reference test's forced plan (tokens equal phase 5's horizon-1
    tokens, each (k, tier) captured once, its FUM runs 28 x (rounds + 1
    warm-up)), beside fixed draft_len 4 and horizon 1. ``[tune]`` lines;
+5k. tensor parallelism (ROADMAP item 8): two ranks on the one card in a
+   gloo world (NCCL takes one rank per device), each a subprocess of
+   this script (``--tp-rank``) that rebuilds phase 5's weights from its
+   seed (weight checksum equal to phase 5's) and serves phase 5's
+   traffic through ``Engine(tp=2)`` with half the pool's KV heads,
+   eagerly at horizons 1 and 4: each rank's tokens equal phase 5's, the
+   FUM kernel runs 28 times a decode step on each rank (its own count on
+   the card) at one KV head of two, each rank's pool is half of phase
+   5's, the head gather goes by broadcasts (gloo on CUDA tensors), and
+   ``Engine(tp=2)`` with CUDA graphs raises; each rank's wall seconds,
+   tok/s and ``collective_bytes_per_layer`` printed (``[tp]`` lines).
+   The ranks are joined with a deadline, their results read from files;
+   one that fails, times out or exits non-zero fails the phase;
 5i. the recurrent and encoder-decoder families (ROADMAP item 10), each
    at full width and depth with seeded bf16 weights built on the card
    and freed before the next: rwkv6-3b (32 layers, d 2560) and zamba2-7b
@@ -194,7 +208,8 @@ never JAX nor the JAX package. Phases:
    designs) at the same inputs as their successors; the FUM decode at
    the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
    and bf16 pool variants at the int8 timing case's values; the FUM
-   decode at olmoe-1b-7b's decode shape; the scout (dp4a), block (tile)
+   decode at olmoe-1b-7b's decode shape and at phase 5k's shard (N 1);
+   the scout (dp4a), block (tile)
    and flash (tile) kernels at zamba2-7b's aligned prefill (hd 112),
    flash beside bf16 ``scaled_dot_product_attention``.
 
@@ -316,6 +331,11 @@ FUM_TOL = {"int8": ATOL, "fp32": ATOL, "fp8_v": ATOL, "bf16": TOL_BF16}
 OLMOE_FUM = dict(B=8, N=16, G=1, hd=128, ps=128, nP=16, fmt="int8", live=0.5,
                  unit=True)
 OLMOE_FUM_LABEL = "olmoe B8N16G1"
+#: the FUM kernel's case at one rank's shard of qwen2-1.5b's decode at
+#: tp 2 (phase 5k): one of the two KV heads
+TP_FUM = dict(B=8, N=1, G=6, Sq=1, hd=128, ps=128, nP=16, fmt="int8",
+              live=0.5)
+TP_FUM_LABEL = "qwen2 tp2 shard B8N1G6Sq1hd128ps128 int8"
 
 
 def make_case(torch, *, B, N, G, Sq, hd, ps, nP, fmt, live, seed,
@@ -417,7 +437,7 @@ def phase_kernels(torch):
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
-    cases = []
+    cases, tp_case = [], None
     for fmt in FUM_FORMATS:
         for Sq in (1, 3):
             cases.append((f"test B2N2G2Sq{Sq}hd8ps4 {fmt}",
@@ -442,6 +462,8 @@ def phase_kernels(torch):
         cases.append((f"{name} B8N8G{G}Sq1hd128ps128 int8",
                       dict(B=8, N=8, G=G, Sq=1, hd=128, ps=128, nP=16,
                            fmt="int8", live=0.5, seed=40 + G)))
+    # one rank's shard of qwen2-1.5b's decode at tp 2 (phase 5k): N 1
+    cases.append((TP_FUM_LABEL, dict(TP_FUM, seed=50)))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, main_case, olmoe_case = {"split": 0.0, "single": 0.0}, None, None
     worst.update({f: 0.0 for f in FUM_FORMATS})
@@ -497,6 +519,10 @@ def phase_kernels(torch):
             log(f"[kernels] {tag}: max |kernel - plain| {err:.3e}, "
                 f"pages kept {int(c['counts'].sum())}/{c['table'].numel()}, "
                 "poison checks ok")
+            if label == TP_FUM_LABEL:
+                # its own kernels-line entry
+                worst["tp2"] = max(worst.get("tp2", 0.0), err)
+                continue
             if kw["fmt"] in ("int8", "fp32"):
                 worst[mode] = max(worst[mode], err)
             if mode == "split":
@@ -507,6 +533,8 @@ def phase_kernels(torch):
             main_case = c
         if label.startswith(f"{OLMOE_FUM_LABEL}Sq1"):
             olmoe_case = c
+        if label == TP_FUM_LABEL:
+            tp_case = c
     # olmoe's shape with the uniform codes above: kernel and plain fp32
     # version part by fp32 sum order alone (see OLMOE_FUM), so the kernel
     # is held against the plain version evaluated in float64, in every
@@ -531,7 +559,7 @@ def phase_kernels(torch):
         log(f"[kernels] {label} [{mode}, S={splits or auto}]: max |kernel - "
             f"plain in float64| {err:.3e} (tol {TOL_KERNEL_F64})")
         worst["olmoe_f64"] = max(worst.get("olmoe_f64", 0.0), err)
-    return worst, main_case, olmoe_case
+    return worst, main_case, olmoe_case, tp_case
 
 
 def fp32_sum_order(torch, label, args, kws, ref):
@@ -1248,8 +1276,7 @@ def phase_serving(torch, cfg, params):
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     from repro_torch.serving import Engine, Request
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.integers(200, 1001, size=8)]
+    prompts = serving_prompts(cfg, rng)
     log(f"[serve] prompt lengths {[len(p) for p in prompts]}")
     out = {}
 
@@ -1309,6 +1336,7 @@ def phase_serving(torch, cfg, params):
               f"run's: {tok} vs {eager_tok}")
         if horizon == 1:
             out["h1_tokens"] = tok
+            out["cache_bytes_pool"] = s["cache_bytes_pool"]
         check(s["graph_captures"] == 1, f"{label}: {s['graph_captures']} "
               "graph captures, expected 1")
         check_decode_launches(s, launches, "fum", label, runs)
@@ -2904,6 +2932,217 @@ def phase_autotune(torch, cfg, params, h1_tokens):
 
 
 # ------------------------------------------- phase 5b: granite-8b serving
+# ------------------------------------------------- phase 5k: tensor parallel
+#: ranks of phase 5k's gloo world, both on the one card
+TP_RANKS = 2
+#: seconds phase 5k waits for its ranks, and each collective's timeout
+TP_DEADLINE_S = 300
+TP_COLLECTIVE_TIMEOUT_S = 120
+
+
+def serving_prompts(cfg, rng):
+    """Phase 5's 8 prompts of 200-1,000 tokens from ``rng``."""
+    return [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(200, 1001, size=8)]
+
+
+def weight_checksum(torch, params):
+    """Exact checksum of a params tree: the sum of every leaf's bits read
+    as integers."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return sum(int(t.contiguous().view(ints[t.element_size()])
+                   .to(torch.int64).sum()) for t in _leaves(params))
+
+
+def tp_rank_serve(torch, rank):
+    """One rank of phase 5k: qwen2-1.5b at full width from phase 5's seed,
+    ``Engine(tp=2)`` refused with graphs, then phase 5's traffic eagerly
+    at horizons 1 and 4 with half the pool's KV heads, the FUM kernel's
+    calls and its runs on the card counted. Returns what the parent
+    checks, as JSON-ready values."""
+    import numpy as np
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.tp import gather_route
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.models import registry
+    from repro_torch.serving import Engine
+    cfg = get_config("qwen2-1.5b")
+    params = registry.init_params(cfg, 0, "cuda")
+    out = {"rank": rank, "checksum": weight_checksum(torch, params)}
+    prompts = serving_prompts(cfg, np.random.default_rng(0))
+    try:
+        Engine(cfg, params, device="cuda", tp=TP_RANKS, **SERVE_KW)
+        out["graph_error"] = None
+    except ValueError as e:
+        out["graph_error"] = str(e)
+    heads = Counter()
+
+    def counting(*args, **kw):
+        heads[int(args[0].shape[1])] += 1
+        return hdp_paged_fum_decode(*args, **kw)
+
+    for horizon in (1, 4):
+        eng = Engine(cfg, params, device="cuda", cuda_graph=False,
+                     tp=TP_RANKS, decode_horizon=horizon, **SERVE_KW)
+        heads.clear()
+        attention.hdp_paged_fum_decode = counting
+        try:
+            tok, s, wall, launches, runs = serve(torch, eng, prompts, 32)
+        finally:
+            attention.hdp_paged_fum_decode = hdp_paged_fum_decode
+        out[f"h{horizon}"] = {
+            "tokens": {str(u): t for u, t in tok.items()},
+            "wall_s": wall, "decode_tok_s": s["decode_tok_s"],
+            "decode_steps": s["decode_steps"],
+            "fum_kernel_launches": s["fum_kernel_launches"],
+            "runs": runs, "fum_calls_by_heads": dict(heads),
+            "fum_by_path": launches["fum"],
+            "summary": {k: s[k] for k in (
+                "tp", "mesh_shape", "cache_bytes_pool",
+                "cache_bytes_pool_per_shard", "collective_bytes_per_layer",
+                "cuda_graph", "attn_decode_stage3", "block_sparsity",
+                "head_sparsity", "page_sparsity", "prefill_s")},
+            "route": gather_route(eng.mesh, "cuda")}
+        del eng
+    return out
+
+
+def tp_rank_main(argv):
+    """``chip_smoke.py --tp-rank R --tp-store PATH --tp-out PATH``: one
+    rank of phase 5k, joined to the gloo world of ``TP_RANKS`` ranks
+    through the FileStore at PATH, its result written to the out PATH."""
+    import argparse
+    import datetime
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tp-rank", type=int, required=True)
+    ap.add_argument("--tp-store", required=True)
+    ap.add_argument("--tp-out", required=True)
+    a = ap.parse_args(argv)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(a.tp_store, TP_RANKS),
+        rank=a.tp_rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+    try:
+        with torch.inference_mode():
+            res = tp_rank_serve(torch, a.tp_rank)
+    finally:
+        dist.destroy_process_group()
+    tmp = a.tp_out + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(res, f)
+    Path(tmp).rename(a.tp_out)
+    return 0
+
+
+def phase_tp(torch, cfg, params, phase5, smi_line):
+    """Tensor parallelism (ROADMAP item 8): two ranks on the one card in
+    a gloo world (NCCL takes one rank per device), each a subprocess of
+    this script that rebuilds phase 5's weights from its seed and serves
+    phase 5's traffic at tp 2, eagerly at horizons 1 and 4: each rank's
+    tokens equal phase 5's, the FUM kernel runs 28 times a decode step on
+    each rank at one KV head of two, each rank's pool is half of phase
+    5's, and ``Engine(tp=2)`` with graphs raises. A rank that fails,
+    times out or exits non-zero fails the phase."""
+    import tempfile
+    want_sum = weight_checksum(torch, params)
+    tmp = Path(tempfile.mkdtemp(prefix="tp_smoke_"))
+    procs, logs = [], []
+    try:
+        for r in range(TP_RANKS):
+            logs.append(open(tmp / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--tp-rank", str(r), "--tp-store", str(tmp / "store"),
+                 "--tp-out", str(tmp / f"rank{r}.json")],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=str(ROOT)))
+        end = time.monotonic() + TP_DEADLINE_S
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, end - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+        check(code == 0, f"tp rank {r} "
+              + ("timed out" if code is None else f"exited {code}")
+              + f":\n{tail}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(TP_RANKS)]
+    want_tok = {str(u): t for u, t in phase5["h1_tokens"].items()}
+    for res in ranks:
+        r = res["rank"]
+        check(res["checksum"] == want_sum, f"tp rank {r}: weight checksum "
+              f"{res['checksum']} != phase 5's {want_sum}")
+        check(res["graph_error"] is not None
+              and "cuda_graph=False" in res["graph_error"],
+              f"tp rank {r}: Engine(tp=2) with graphs did not raise "
+              f"({res['graph_error']})")
+        for horizon in (1, 4):
+            h = res[f"h{horizon}"]
+            label = f"tp rank {r}, horizon {horizon}"
+            s = h["summary"]
+            check(h["tokens"] == want_tok, f"{label}: tokens differ from "
+                  "phase 5's")
+            steps = h["decode_steps"]
+            check(h["runs"]["fum"] == N_LAYERS_QWEN * steps
+                  == h["fum_kernel_launches"] and h["runs"]["block"] == 0,
+                  f"{label}: {h['runs']} runs on the card, "
+                  f"{h['fum_kernel_launches']} launches counted, expected "
+                  f"{N_LAYERS_QWEN} x {steps} decode steps of the FUM kernel")
+            check(h["fum_calls_by_heads"] == {
+                str(cfg.n_kv_heads // TP_RANKS): N_LAYERS_QWEN * steps},
+                f"{label}: FUM calls by local kv heads "
+                f"{h['fum_calls_by_heads']}")
+            check(s["tp"] == TP_RANKS and s["mesh_shape"] == {
+                "data": 1, "model": TP_RANKS} and not s["cuda_graph"]
+                and s["attn_decode_stage3"] == "cuda:hdp_paged_fum_decode",
+                f"{label}: summary {s}")
+            check(s["cache_bytes_pool"] == phase5["cache_bytes_pool"]
+                  and s["cache_bytes_pool_per_shard"] * TP_RANKS
+                  == phase5["cache_bytes_pool"],
+                  f"{label}: pool {s['cache_bytes_pool']} B, "
+                  f"{s['cache_bytes_pool_per_shard']} B per shard; phase 5's "
+                  f"{phase5['cache_bytes_pool']} B")
+            check(h["route"] == "broadcast", f"{label}: gather route "
+                  f"{h['route']}, expected broadcast (gloo, CUDA tensors)")
+            log(f"[tp] {label}: wall {h['wall_s']:.2f} s, decode_tok_s "
+                f"{h['decode_tok_s']:.1f}, {steps} decode steps, "
+                f"{h['runs']['fum']} runs of the fum kernel on the card = "
+                f"{N_LAYERS_QWEN} layers x {steps} steps at "
+                f"{cfg.n_kv_heads // TP_RANKS} kv head(s), tokens == phase "
+                f"5's, pool {s['cache_bytes_pool_per_shard']} B of "
+                f"{s['cache_bytes_pool']} B, collective_bytes_per_layer "
+                f"{s['collective_bytes_per_layer']}, gather route "
+                f"{h['route']}, prefill_s {s['prefill_s']:.3f}; {smi_line}")
+    return {"runs_per_rank_h1": ranks[0]["h1"]["runs"]["fum"],
+            "fum_by_path": ranks[0]["h1"]["fum_by_path"],
+            "runs_per_rank_h4": ranks[0]["h4"]["runs"]["fum"],
+            "wall_s": {f"rank{x['rank']} h{h}": x[f"h{h}"]["wall_s"]
+                       for x in ranks for h in (1, 4)},
+            "decode_tok_s": {f"rank{x['rank']} h{h}":
+                             x[f"h{h}"]["decode_tok_s"]
+                             for x in ranks for h in (1, 4)},
+            "collective_bytes_per_layer":
+                ranks[0]["h1"]["summary"]["collective_bytes_per_layer"],
+            "cache_bytes_pool_per_shard":
+                ranks[0]["h1"]["summary"]["cache_bytes_pool_per_shard"],
+            "graph_error": ranks[0]["graph_error"]}
+
+
 N_LAYERS_GRANITE = 36
 GRANITE_KW = dict(max_batch=8, max_len=4096 + 32,
                   prefill_buckets=(1024, 2048, 4096), collect_stats=True)
@@ -4009,14 +4248,15 @@ def fum_variant(torch, c, fmt):
                 k_scale=None, v_scale=None, fmt=fmt)
 
 
-def phase_timing(torch, c, olmoe_case):
+def phase_timing(torch, c, olmoe_case, tp_case):
     """The FUM decode at the timing case, split across blocks
     (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
     version; then at the verify shape (Sq 4 and 8, the same widths and
     page density); then the fp8-V and bf16 pool variants at the timing
-    case, split; then at olmoe-1b-7b's decode shape (G 1, one pass).
-    Returns {mode, "verify<Sq>", format or "olmoe": (kernel ms, plain
-    ms, bound ms, bound by)}."""
+    case, split; then at olmoe-1b-7b's decode shape (G 1, one pass) and
+    at one rank's shard of qwen2's at tp 2 (N 1). Returns {mode,
+    "verify<Sq>", format, "olmoe" or "tp2": (kernel ms, plain ms, bound
+    ms, bound by)}."""
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
@@ -4076,6 +4316,20 @@ def phase_timing(torch, c, olmoe_case):
     log(f"[timing] hdp_paged_fum_decode [olmoe-1b-7b, single pass] at B8 "
         f"N16 G1 Sq1 hd128 ps128 (pages listed per row "
         f"{olmoe_case['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
+        f"{flops} flop)")
+    args, kws = kernel_args(tp_case)
+    bound, bound_by, nbytes, flops = fum_bound(torch, tp_case)
+    S = fum_splits(8, 1, tp_case["page_ids"].shape[1],
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+    p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
+                   flush)
+    k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
+                   flush)
+    res["tp2"] = (k_ms, p_ms, bound, bound_by)
+    log(f"[timing] hdp_paged_fum_decode [qwen2-1.5b tp 2 shard, S={S}] at "
+        f"B8 N1 G6 Sq1 hd128 ps128 (pages listed per row "
+        f"{tp_case['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
         f"{flops} flop)")
     return res
@@ -4249,8 +4503,8 @@ def main() -> int:
         with torch.inference_mode():
             name, smi_line = timed("1 env", phase_env, torch)
             timed("2 build", phase_build)
-            fum_err, main_case, olmoe_case = timed("3 FUM kernel",
-                                                   phase_kernels, torch)
+            fum_err, main_case, olmoe_case, tp_case = timed(
+                "3 FUM kernel", phase_kernels, torch)
             timed("3 scout, block, flash", phase_new_kernels, torch)
             from repro_torch.configs import get_config
             from repro_torch.models import registry
@@ -4276,6 +4530,8 @@ def main() -> int:
             tuned = timed("5h profile, cost policy, adaptive spec",
                           phase_autotune, torch, cfg, params,
                           serve_launches["h1_tokens"])
+            tp = timed("5k tensor parallel", phase_tp, torch, cfg, params,
+                       serve_launches, smi_line)
             del params
             fum_by_fmt, granite = timed("5b granite-8b", phase_granite,
                                         torch)
@@ -4286,7 +4542,7 @@ def main() -> int:
             with torch.inference_mode(False):
                 trained = timed("5j training", phase_train, torch, smi_line)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
-                              olmoe_case)
+                              olmoe_case, tp_case)
             prefill_timed = timed("6 prefill kernels timing",
                                   phase_timing_prefill, torch, calls,
                                   block_tile_call)
@@ -4378,6 +4634,29 @@ def main() -> int:
                 "graphed horizon-1 serve (16 layers x (32 decode steps + "
                 "1 warm-up))",
     })
+    k_ms, p_ms, bound, bound_by = fum_timed["tp2"]
+    kernels.append({
+        "name": "hdp_paged_fum_decode[tp 2 shard N=1]",
+        "path": "split" if tp["fum_by_path"].get("split") else "single",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
+        "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
+        "launches": tp["runs_per_rank_h1"],
+        "launches_by_run": {
+            "qwen2-1.5b tp 2, rank 0, eager, horizon 1":
+                tp["runs_per_rank_h1"],
+            "qwen2-1.5b tp 2, rank 0, eager, horizon 4":
+                tp["runs_per_rank_h4"]},
+        "max_abs_err": fum_err["tp2"],
+        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
+        "note": "one rank's shard of qwen2-1.5b's decode at tp 2 (phase "
+                "5k: two ranks on the card over gloo, eager): one KV head "
+                "of two; launches: the kernel's runs on the card on rank 0 "
+                "over phase 5's traffic, 28 a decode step; timed at B8 N1 "
+                "G6 Sq1 hd128 ps128",
+    })
     # entry: (path, source, TPU kernel, launches on the path that runs it)
     entries = {
         "hdp_scout": ("tensor_core", "hdp_scout_tc.cu", "hdp_scout.py:75",
@@ -4443,6 +4722,7 @@ def main() -> int:
     log(f"[sched] phase 5f {json.dumps({k: v for k, v in stream.items() if k != 'fum_runs'})}")
     log(f"[faults] phase 5g {json.dumps({k: v for k, v in faults.items() if k != 'fum_runs'})}")
     log(f"[tune] phase 5h {json.dumps({k: v for k, v in tuned.items() if k != 'fum_runs'})}")
+    log(f"[tp] phase 5k {json.dumps(tp)}")
     log(f"[phase] wall seconds {json.dumps(walls)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -4454,4 +4734,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tp_rank_main(sys.argv[1:]) if "--tp-rank" in sys.argv
+             else main())

@@ -212,10 +212,13 @@ def attention(q, k, v, call: AttnCall, *, spec: Optional[AttnSpec] = None,
             and eff_spec.requested_for(call.mode) == "auto"):
         # the signature reads shapes and dtypes only, so consulting the
         # tuner reads nothing back from the device (a graph capture can
-        # hold the call); tp is 1 until the port serves tensor-parallel
+        # hold the call). Under tensor-parallel serving q and the pool
+        # are already this rank's heads; tp keys the signature apart
+        # from unsharded shapes and prices the head gather
         from repro_torch.autotune.cost import call_signature
+        from repro_torch.distribution.tp import active_tp
         sig = call_signature(call, q, k=k, cache=cache,
-                             page_table=page_table, tp=1)
+                             page_table=page_table, tp=active_tp())
     backend = resolve_backend(call, eff_spec, sig=sig)
     return backend.run(q, k, v, call, q_pos=q_pos, k_pos=k_pos,
                        cache=cache, page_table=page_table)

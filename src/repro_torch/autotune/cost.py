@@ -108,8 +108,8 @@ def call_signature(call, q, k=None, cache=None, page_table=None,
 
     ``q`` is the [B,N,G,Sq,hd] query; paged calls derive the KV extent
     from the page pool + table, dense calls from ``k``. ``tp`` is the
-    tensor-parallel degree, 1 until the port serves tensor-parallel
-    (ROADMAP.md section 1, item 8): it keys the signature so probe
+    tensor-parallel degree (``distribution.tp.active_tp``; ``q`` and the
+    pool are then one rank's heads): it keys the signature so probe
     caches never mix mesh shapes, and prices the output all-gather.
     """
     B, N, G, Sq, hd = q.shape

@@ -191,6 +191,7 @@ class Tuner:
         timed run; its time is the minimum. The candidates' times land
         in ``probe_times``."""
         from repro_torch.attention.registry import get_backend
+        from repro_torch.distribution.tp import agreed_floats
 
         dev = self.device
         q, k, v, cache, table, q_pos, k_pos = _synthetic_inputs(call, sig,
@@ -216,8 +217,12 @@ class Tuner:
                 dt = time.perf_counter() - t0
                 t_min = dt if t_min is None else min(t_min, dt)
             times[name] = t_min
-            if best_t is None or t_min < best_t:
-                best_name, best_t = name, t_min
+        # under tensor-parallel serving every rank takes the first rank's
+        # times, so that all of them pick the same winner
+        times = dict(zip(times, agreed_floats(list(times.values()))))
+        for name, t in times.items():
+            if best_t is None or t < best_t:
+                best_name, best_t = name, t
         self.probe_times[sig.key()] = times
         return best_name
 

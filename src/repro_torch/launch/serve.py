@@ -56,6 +56,18 @@ from [bucket/4, max_len - max_new] with the largest prefill bucket
     python -m repro_torch.launch.serve --spec-decode --adaptive-spec
     python -m repro_torch.launch.serve --arch zamba2-7b --decode-horizon 4
 
+``--tp N`` serves tensor-parallel: run it under ``torchrun
+--nproc-per-node N`` (the ranks join one gloo process group, or NCCL
+with a card per rank), and every rank serves the same requests with
+1/N of the pool's KV heads, gathering each decode layer's attention
+output exactly, so the tokens are those of ``--tp 1``; the decode steps
+eagerly (a CUDA graph is refused at tp > 1) and rank 0 prints the
+summary, with ``tp``, ``mesh_shape``, ``cache_bytes_pool_per_shard`` and
+``collective_bytes_per_layer``:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --reduced --tp 2
+
 ``--arch rwkv6-3b`` and ``--arch zamba2-7b`` serve the recurrent
 families from the dense layout, each prompt prefilled at its exact
 length; ``--arch whisper-large-v3`` raises NotImplementedError, as the
@@ -200,7 +212,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "(prefix affinity, then least loaded), sharing "
                          "one set of weights, so the tokens do not depend "
                          "on dispatch. Default honors REPRO_MESH_DP, else 1")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel degree: shard the paged KV pool "
+                         "and the decode attention over the KV heads of "
+                         "the ranks of a torchrun launch "
+                         "(--nproc-per-node >= tp); token-identical to "
+                         "tp=1, decoded eagerly. Default honors "
+                         "REPRO_MESH_TP, else 1")
     return ap.parse_args(argv)
+
+
+def init_world(device: str) -> tuple:
+    """Join the process group of a ``torchrun`` launch (its RANK,
+    WORLD_SIZE and MASTER_ADDR/PORT environment), with a timeout: NCCL
+    when every rank has a card of its own, else gloo (NCCL refuses two
+    ranks on one card). Returns (rank, the device string of this rank);
+    outside a launch of more than one rank, (0, ``device``)."""
+    import datetime
+
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world < 2:
+        return 0, device
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import GROUP_TIMEOUT_S
+    local = int(os.environ.get("LOCAL_RANK", "0") or 0)
+    nccl = device.startswith("cuda") and torch.cuda.device_count() >= world
+    if nccl:
+        device = f"cuda:{local}"
+    dist.init_process_group(
+        "nccl" if nccl else "gloo",
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return dist.get_rank(), device
 
 
 #: the fleet-summed counters of a --dp > 1 summary (the reference's)
@@ -237,6 +280,18 @@ def fleet_summary(fleet) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    rank, device = init_world(args.device)
+    try:
+        return serve(args, rank, device)
+    finally:
+        if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def serve(args: argparse.Namespace, rank: int, device: str) -> int:
+    """Serve the seeded traffic of ``args`` on ``device`` and print the
+    summary (on rank 0 of a launch)."""
     from repro_torch.attention import AttnSpec
     from repro_torch.configs import get_config, reduced
     from repro_torch.serving import (Engine, ReplicaSet, Request,
@@ -269,14 +324,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     sched = SchedulerConfig(prefill_chunk_tokens=args.prefill_chunk,
                             watchdog_steps=args.watchdog_steps) \
         if args.stream_sched else None
-    engine_kw = dict(device=args.device, max_batch=args.max_batch,
+    engine_kw = dict(device=device, max_batch=args.max_batch,
                      max_len=max_len, prefill_buckets=buckets,
                      collect_stats=True, attn=spec, num_pages=args.num_pages,
                      prefix_cache=args.prefix_cache,
                      decode_horizon=args.decode_horizon,
                      spec_decode=args.spec_decode, draft_len=args.draft_len,
                      adaptive_spec=args.adaptive_spec, tuner=tuner,
-                     stream_sched=args.stream_sched, sched=sched)
+                     stream_sched=args.stream_sched, sched=sched,
+                     tp=args.tp)
+    if args.tp is not None and args.tp > 1:
+        # graphs are refused at tp > 1 (an engine that REPRO_MESH_TP
+        # shards on the card raises instead of decoding eagerly unasked)
+        engine_kw["cuda_graph"] = False
     dp = args.dp if args.dp is not None else \
         int(os.environ.get(MESH_DP_ENV) or 1)
     if dp < 1:
@@ -323,6 +383,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     summary["tokens_fp"] = int(np.sum([
         (uid + 1) * (i + 1) * (t + 1) for uid, r in results.items()
         for i, t in enumerate(r.tokens)]) % (2 ** 31))
+    if rank != 0:
+        # every rank served the same requests; rank 0 reports them
+        return 0
     if args.tuner_cache and eng0.tuner is not None:
         eng0.tuner.save(args.tuner_cache)   # warm-start the next run
     print(json.dumps(summary, default=str))

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``repro.launch.steps`` on one device. The
 reference's builders also choose sharding rules and jit each step over a
-mesh; the port has no mesh yet (ROADMAP.md section 1, item 8), so a
+mesh; the port's meshes serve only so far (``launch/mesh.py``; the
+train step's shardings are ROADMAP.md section 1, item 8b), so a
 built step is the eager function, its abstract arguments (meta tensors
 and ``registry.ShapeDtype``s) and its metadata. ``FSDP_THRESHOLD`` still
 picks the gradient accumulators' dtype (bf16 from 8e9 parameters), as

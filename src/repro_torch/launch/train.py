@@ -6,7 +6,8 @@
 PyTorch counterpart of ``repro.launch.train``, with the same flags and
 the same ``run(args) -> dict``, except that ``--device`` (default
 ``cuda``, as the port's serve CLI) takes the place of ``--mesh``: the
-port trains on one device (sharding is ROADMAP.md section 1, item 8).
+port trains on one device (its sharding is ROADMAP.md section 1,
+item 8b).
 Features exercised end-to-end: the train step (``steps.build_train_step``:
 grad accumulation over ``micro_batches``, bf16 gradient compression,
 AdamW with fp32 master weights), deterministic host-sharded data through

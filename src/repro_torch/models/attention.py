@@ -53,6 +53,8 @@ from repro_torch.core.quant import (FRAC_SCOUT_SCALE, POISON_CODE,
                                     quantize_fixed, roundtrip_pool,
                                     scout_frac_codes, scout_int_codes,
                                     to_fp8_e4m3)
+from repro_torch.distribution.tp import (active_serving_mesh, local_heads,
+                                         tp_paged_attention)
 from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
 from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
 from repro_torch.kernels.ref import keep_mask_to_indices
@@ -902,6 +904,10 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
         q = L.apply_rope(q, positions, cfg.rope_theta)
 
     paged = cache is not None and "k_pages" in cache
+    # tensor-parallel serving: the paged decode runs head-sharded under
+    # the ambient serving mesh (per-shard scout and fetched set; one
+    # exact gather of o before the projection below)
+    mesh = active_serving_mesh() if paged else None
     kv_dtype, kv_scale = _spec_pool(cfg, attn)
     if static_cache:
         # cross-attention at decode: the keys were cached at prefill
@@ -934,9 +940,11 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
             nP = page_table.shape[1]
             pidx = resolve_write_pages(positions, page_table, ps,
                                        write_floor)
-            # in place: the per-layer pool views alias the engine's pool
-            _paged_write(cfg, cache, k, v, pidx, positions % ps, kv_scale,
-                         draft=draft)
+            # in place: the per-layer pool views alias the engine's pool;
+            # under tensor-parallel serving it holds this rank's heads
+            _paged_write(cfg, cache, local_heads(k, 2, mesh),
+                         local_heads(v, 2, mesh), pidx, positions % ps,
+                         kv_scale, draft=draft)
             ar = torch.arange(nP * ps, device=x.device)
             k_pos = torch.where(ar[None, :] <= positions[:, -1:], ar, -1)
             k_pos = k_pos[:, None, None, :]              # [B,1,1,nP*ps]
@@ -987,9 +995,15 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
         draft=draft if mode == "decode" else None,
         verify=mode == "decode" and S > 1 and not is_cross,
         kv_scale=kv_scale)
-    o, stats = attention(qg, k_full, v_full, call, spec=attn, q_pos=q_pos,
-                         k_pos=k_pos, cache=cache if paged else None,
-                         page_table=page_table)
+    if mesh is not None:
+        o, stats = tp_paged_attention(
+            qg, call, attn, q_pos=q_pos, k_pos=k_pos, cache=cache,
+            page_table=page_table, mesh=mesh)
+    else:
+        o, stats = attention(qg, k_full, v_full, call, spec=attn,
+                             q_pos=q_pos, k_pos=k_pos,
+                             cache=cache if paged else None,
+                             page_table=page_table)
     o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
     dt = torch.promote_types(o.dtype, p["wo"].dtype)
     y = torch.einsum("bshk,hkd->bsd", o.to(dt), p["wo"].to(dt))

@@ -105,9 +105,20 @@ transformer) or the dense per-slot layout over any family's cache tree
   next step (and when the scheduler recycles a slot), never inside a
   graph capture; a probe that flips a decision bumps the attention
   epoch, which drops every captured graph, so the next step re-captures
-  under the new decision (the eager prefill re-consults on every call).
-
-Not ported yet (ROADMAP.md section 1): tensor parallelism (item 8).
+  under the new decision (the eager prefill re-consults on every call);
+* **tensor parallelism** (``tp=``, ``mesh=`` or ``REPRO_MESH_TP``;
+  ``distribution.tp``) — SPMD over ``torch.distributed``: every rank of
+  the serving mesh's ``model`` axis runs this engine on the same
+  requests, weights, prefill and dense layers replicated, and holds 1/tp
+  of the paged pool's KV heads. Each paged decode layer runs the scout,
+  keep mask and stage 3 on the rank's heads and gathers the per-head
+  output exactly before ``wo``, so the tokens are those of tp 1. Every
+  step runs under ``distribution.tp.serving_mesh``; a decision that
+  reads a clock (deadlines, the scheduler's watchdog) or a measured time
+  (the tuner's probes) is taken on the group's first rank and broadcast
+  (``_clock``). Decode steps eagerly: a CUDA graph cannot hold gloo's
+  collectives, and capturing NCCL's needs two cards to prove, so
+  ``cuda_graph=True`` on a CUDA device raises at tp > 1.
 """
 from __future__ import annotations
 
@@ -156,6 +167,11 @@ STREAM_ENV = "REPRO_STREAM_SCHED"
 #: env default of ``adaptive_spec`` (degrades silently when spec decode
 #: is off; an explicit True raises there instead)
 ADAPTIVE_ENV = "REPRO_ADAPTIVE_SPEC"
+#: env default of the tensor-parallel degree when ``tp=None`` and no mesh
+#: is passed (explicit kwargs win; the env default degrades silently to 1
+#: where it cannot apply: the dense layout, kv heads it does not divide, a
+#: world smaller than it)
+MESH_TP_ENV = "REPRO_MESH_TP"
 #: env default of the serve CLI's ``--dp``, the engine replicas behind one
 #: ``serving.replica.ReplicaSet`` (the Engine itself is one replica)
 MESH_DP_ENV = "REPRO_MESH_DP"
@@ -331,6 +347,15 @@ class Engine:
         fire once fleet-wide), a FaultPlan, or a plan spec string. None
         reads REPRO_FAULT_PLAN (default: no injection). The plan's steps
         count this engine's ``step()`` calls from construction.
+    tp: tensor-parallel degree (paged layout): shard the pool and the
+        decode attention over the KV heads of a serving mesh's ``model``
+        axis, one rank per shard (``launch.mesh.make_serving_mesh``, which
+        needs an initialized process group of at least tp ranks). It must
+        divide the kv heads; on a CUDA device it needs
+        ``cuda_graph=False``. None reads REPRO_MESH_TP, which degrades
+        silently to 1 where it cannot apply.
+    mesh: a serving mesh to shard over (its ``model`` axis gives tp; a
+        ``tp`` that disagrees raises).
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
@@ -349,7 +374,8 @@ class Engine:
                  cuda_graph: bool = True,
                  stream_sched: Optional[bool] = None,
                  sched: Optional[SchedulerConfig] = None,
-                 faults: Union[FaultInjector, FaultPlan, str, None] = None):
+                 faults: Union[FaultInjector, FaultPlan, str, None] = None,
+                 tp: Optional[int] = None, mesh=None):
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves decoder-only families; an "
@@ -385,6 +411,7 @@ class Engine:
         self.paged = layout == "paged"
         self.kv_dtype = kv_dtype
         self.kv_scale = spec.kv_scale if self.paged else "grid"
+        self.mesh, self.tp = self._resolve_mesh(cfg, layout, tp, mesh)
         hdp = cfg.hdp
         self.hdp_on = hdp is not None and hdp.enabled
         if spec_decode is None:
@@ -439,6 +466,11 @@ class Engine:
                 f"decode_horizon must be >= 1, got {decode_horizon}")
         self.horizon = int(decode_horizon)
         self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        if self.tp > 1 and self.cuda_graph:
+            raise ValueError(
+                f"tp={self.tp} on {self.device} needs cuda_graph=False: a "
+                "CUDA graph cannot capture gloo's collectives, and "
+                "capturing NCCL's needs two cards to prove")
         self.policy = effective_policy(self.attn_spec)
         self.tuner = None
         if tuner is not None:
@@ -475,7 +507,8 @@ class Engine:
                 cfg, max_batch, max_len, device=self.device,
                 kv_dtype=kv_dtype, kv_scale=self.kv_scale,
                 num_pages=num_pages,
-                draft_scout=self.spec and self.draft_profile.scores == "scout")
+                draft_scout=self.spec and self.draft_profile.scores == "scout",
+                mesh=self.mesh)
         else:
             # a round stages writes up to draft_len - 1 positions past
             # the commit frontier: the dense slots carry that margin, so
@@ -514,6 +547,64 @@ class Engine:
         self.sched = StreamScheduler(self, sched or SchedulerConfig()) \
             if stream_sched else None
         self._init_decode_state()
+
+    @staticmethod
+    def _resolve_mesh(cfg, layout: str, tp: Optional[int], mesh):
+        """(mesh, tp) as the reference resolves them: a mesh gives tp (an
+        explicit tp must agree); REPRO_MESH_TP degrades silently; an
+        explicit tp > 1 must shard the paged pool over kv heads it
+        divides, and builds the serving mesh (which raises without a
+        process group of tp ranks)."""
+        if mesh is not None:
+            m_tp = int(mesh.shape.get("model", 1))
+            if tp is not None and int(tp) != m_tp:
+                raise ValueError(f"tp={tp} disagrees with the mesh's model "
+                                 f"axis ({m_tp})")
+            tp = m_tp
+        if tp is None:
+            env = os.environ.get(MESH_TP_ENV, "")
+            try:
+                tp = int(env) if env else 1
+            except ValueError:
+                raise ValueError(f"{MESH_TP_ENV}={env!r}: not an int")
+            # the env default degrades silently, like the other REPRO_*
+            # envs, so a CI leg can run every engine under it
+            from repro_torch.launch.mesh import world_size
+            if (layout != "paged" or tp < 1 or cfg.n_kv_heads % max(tp, 1)
+                    or world_size() < tp):
+                tp = 1
+        tp = int(tp)
+        if tp <= 1:
+            return None, 1
+        if layout != "paged":
+            raise ValueError(
+                "tp > 1 shards the paged page pool along the head axis; "
+                "dense-layout families cannot serve sharded")
+        if cfg.n_kv_heads % tp != 0:
+            raise ValueError(
+                f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp}")
+        if mesh is None:
+            from repro_torch.launch.mesh import make_serving_mesh
+            mesh = make_serving_mesh(tp=tp)
+        return mesh, tp
+
+    def _mesh_ctx(self):
+        """The ambient serving mesh every step runs under: the model
+        layer routes paged-decode attention through the head-sharded
+        ``tp_paged_attention`` while it is set (a no-op context when the
+        engine is unsharded)."""
+        from repro_torch.distribution.tp import serving_mesh
+        return serving_mesh(self.mesh)
+
+    def _clock(self) -> float:
+        """``time.perf_counter()`` for a host decision; at tp > 1 the
+        group's first rank's, broadcast, so that every rank decides alike
+        (each process's counter has its own origin)."""
+        now = time.perf_counter()
+        if self.tp > 1:
+            from repro_torch.distribution.tp import agreed_floats
+            now = agreed_floats([now], self.mesh)[0]
+        return now
 
     def _init_decode_state(self) -> None:
         """Static device buffers of the decode step (a captured graph reads
@@ -605,6 +696,7 @@ class Engine:
         now = time.perf_counter()
         self._t_submit[req.uid] = now
         if req.deadline_s is not None or req.max_queue_wait_s is not None:
+            now = self._clock()          # every rank's deadlines alike
             self._deadlines[req.uid] = (
                 now + req.deadline_s if req.deadline_s is not None else None,
                 now + req.max_queue_wait_s
@@ -707,7 +799,8 @@ class Engine:
         stepped. Under the cost policy the tuner's pending probes run
         first, after the deadlines (``_maybe_retune``)."""
         try:
-            return self._step_inner(self._cur_step)
+            with self._mesh_ctx():
+                return self._step_inner(self._cur_step)
         finally:
             # one increment per call, raise or return: the fault hooks
             # key on this counter, and _reserve reads it mid-step
@@ -1724,7 +1817,7 @@ class Engine:
         device once per horizon)."""
         if not self._deadlines:
             return
-        now = time.perf_counter()
+        now = self._clock()
         active_uids = {st["req"].uid for st in self._active.values()}
         for uid, (dl, qdl) in list(self._deadlines.items()):
             if dl is not None and now >= dl:
@@ -1958,6 +2051,18 @@ class Engine:
             # resident bytes at the allocation high-water mark
             m["cache_bytes"] = self.pages.active_bytes(self.pages.peak_pages)
             m["cache_bytes_pool"] = self.pages.pool_bytes()
+            m["tp"] = self.tp
+            if self.mesh is not None:
+                m["mesh_shape"] = dict(self.mesh.shape)
+                m["cache_bytes_pool_per_shard"] = \
+                    self.pages.pool_bytes_per_shard()
+                # per decode step, per layer: each shard gathers the
+                # other shards' per-head output slices before the
+                # o-projection (the only cross-shard traffic; the
+                # reference's formula, at 4 bytes an element)
+                m["collective_bytes_per_layer"] = int(
+                    self.max_batch * self.cfg.n_heads * self.cfg.hd * 4
+                    * (self.tp - 1) / self.tp)
             m["cache_bytes_per_token"] = self.pages.bytes_per_token()
             m["pages_peak"] = self.pages.peak_pages
             m["pages_in_use"] = self.pages.pages_in_use

@@ -33,6 +33,7 @@ from repro_torch.core.quant import (POISON_CODE, absmax_page_scale,
                                     pool_int_bits, pool_scale,
                                     scout_frac_codes, scout_int_codes,
                                     to_fp8_e4m3)
+from repro_torch.distribution.tp import gather_heads, local_heads, mesh_tp
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.serving.allocator import PageAllocator
@@ -148,12 +149,21 @@ class PagedKVCache:
     code). A stale read of a freed page then turns the logits NaN.
     ``assign`` revives a quantized page's scale when it re-enters a
     table row.
+
+    ``mesh`` (a serving mesh whose ``model`` axis is tp > 1) shards the
+    pool over KV heads: every leaf holds this rank's N/tp heads
+    (``distribution.tp.pool_shardings``), ``insert`` writes only those
+    heads of a replicated request cache, and ``gather_prefix`` gathers
+    the other ranks' heads back. ``pool_bytes``, ``active_bytes`` and
+    ``bytes_per_token`` keep the global meaning (every shard's bytes);
+    ``pool_bytes_per_shard`` is this rank's.
     """
 
     def __init__(self, cfg, batch: int, max_len: int, device="cuda",
                  kv_dtype: str = "int8", kv_scale: str = "grid",
                  num_pages: Optional[int] = None,
-                 poison_freed: bool = False, draft_scout: bool = False):
+                 poison_freed: bool = False, draft_scout: bool = False,
+                 mesh=None):
         hdp = cfg.hdp
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
@@ -187,6 +197,13 @@ class PagedKVCache:
         self.poison_freed = poison_freed
         self.int_bits = pool_int_bits(hdp)
         nL, N, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        self.mesh = mesh
+        self.tp = mesh_tp(mesh)
+        if N % self.tp:
+            raise ValueError(f"n_kv_heads={N} not divisible by tp={self.tp}")
+        # the resident pool lives head-sharded: this rank holds N/tp heads
+        # of every page's codes, scales and scout views
+        N //= self.tp
         shape = (nL, self.num_pages, ps, N, hd)
         if self.quantized:
             v_dt = torch.float8_e4m3fn if kv_dtype == "fp8_v" else torch.int8
@@ -321,8 +338,8 @@ class PagedKVCache:
         to the pool grid."""
         pages = self._slot_pages[slot]
         ps = self.page_size
-        k = one_cache["k"][:, row]
-        v = one_cache["v"][:, row]
+        k = local_heads(one_cache["k"][:, row], 2, self.mesh)
+        v = local_heads(one_cache["v"][:, row], 2, self.mesh)
         nL, S, N, hd = k.shape
         npg = min(-(-S // ps), self.pages_per_slot)
         idx = np.zeros(npg, np.int64)
@@ -397,7 +414,9 @@ class PagedKVCache:
                 g = g.to(torch.float32) * \
                     self.cache[scale][:, idx][:, :, None, :, None]
             g = g.reshape(nL, self.pages_per_slot * ps, N, hd)
-            return g[:, None, :self.max_len].to(dt).contiguous()
+            g = g[:, None, :self.max_len].to(dt)
+            # every rank's heads: the request cache is replicated
+            return gather_heads(g, 3, self.mesh).contiguous()
 
         if self.quantized:
             # prefix pages are live (never freed-poisoned) and hold no
@@ -411,7 +430,8 @@ class PagedKVCache:
     # ------------------------------------------------------------ metrics
     def _page_bytes(self) -> int:
         return sum(t.element_size() * int(np.prod(t.shape[2:]))
-                   for t in self.cache.values()) * self.cfg.n_layers
+                   for t in self.cache.values()) * self.cfg.n_layers \
+            * self.tp
 
     def active_bytes(self, pages: Optional[int] = None) -> int:
         """Bytes resident for ``pages`` allocated pages (default: now)."""
@@ -424,4 +444,11 @@ class PagedKVCache:
         return self._page_bytes() / self.page_size
 
     def pool_bytes(self) -> int:
+        """Bytes of the whole pool, over every shard."""
+        return cache_bytes(self.cache) * self.tp
+
+    def pool_bytes_per_shard(self) -> int:
+        """Resident pool bytes held by this rank: every pool leaf (codes,
+        scales, scout views) is head-sharded, so each of the tp shards
+        holds exactly 1/tp of the pool."""
         return cache_bytes(self.cache)

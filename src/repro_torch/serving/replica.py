@@ -6,8 +6,9 @@ graphs, scheduler and prefix cache (all on the one card), are served
 through a single submit/step/serve surface. Replicas share one params
 dict (the same tensors, not copies), so which replica serves a request
 never changes its tokens — dispatch is a pure load/locality decision
-(tensor parallelism, which shards one engine's pool, waits for
-ROADMAP.md section 1, item 8):
+(below it, tensor parallelism shards one engine's pool over the ranks of
+a serving mesh's "model" axis: ``distribution.tp``; under it every rank
+holds every replica, each of them sharded, and dispatches alike):
 
 * **prefix affinity** first: the replica whose radix prefix cache holds
   the longest cached prefix of the prompt (a read-only ``peek``) wins —
@@ -77,6 +78,8 @@ class ReplicaSet:
         self.step_retries = step_retries
         self.health: List[str] = ["up"] * len(self.engines)
         self._strikes = [0] * len(self.engines)
+        # reported only: no dispatch or health decision reads a clock, so
+        # the ranks of tensor-parallel replicas cannot part on one
         self._last_step_s = [0.0] * len(self.engines)
         self._failed_over: Set[int] = set()     # uids moved once already
         self.failovers = 0                      # replicas declared dead
@@ -281,8 +284,7 @@ class ReplicaSet:
         subs = [e.summary() for e in self.engines]
         m: Dict[str, object] = {
             "dp": len(self.engines),
-            # every replica is one unsharded engine until item 8
-            "tp": 1,
+            "tp": self.engines[0].tp,
             "tokens_out": sum(s.get("tokens_out", 0) for s in subs),
             "decode_s": sum(s.get("decode_s", 0.0) for s in subs),
             "prefill_s": sum(s.get("prefill_s", 0.0) for s in subs),
@@ -302,9 +304,8 @@ class ReplicaSet:
         if self.faults is not None:
             m["fault_plan"] = self.faults.plan.spec
             m["faults_fired"] = len(self.faults.fired)
-        # (the reference also copies mesh_shape and the per-shard bytes of
-        # a tensor-parallel replica: item 8)
-        for key in ("kv_dtype", "kv_scale"):
+        for key in ("mesh_shape", "cache_bytes_pool_per_shard",
+                    "collective_bytes_per_layer", "kv_dtype", "kv_scale"):
             if key in subs[0]:
                 m[key] = subs[0][key]
         return m

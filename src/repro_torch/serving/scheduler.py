@@ -61,7 +61,6 @@ reimplemented.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import TYPE_CHECKING, Any, Dict, List, Optional
 
 from repro_torch.common.transient import TransientError
@@ -156,7 +155,7 @@ class StreamScheduler:
         #: state dict), at most one at a time
         self._chunk: Optional[Dict[str, Any]] = None
         self._idle_steps = 0
-        self._last_progress = time.perf_counter()
+        self._last_progress = engine._clock()
         #: watchdog trips so far (each shed one stalled request)
         self._trips = 0
         #: consecutive ticks the waiting head failed to admit — the
@@ -204,8 +203,9 @@ class StreamScheduler:
         wall seconds with requests pending — sheds the stalled queue
         head as a per-request failure and keeps serving; past
         ``watchdog_escalation`` sheds (or with escalation 0) it raises
-        `WatchdogError` instead."""
-        now = time.perf_counter()
+        `WatchdogError` instead. The wall clock is the engine's
+        ``_clock``: under tensor parallelism every rank sheds alike."""
+        now = self.eng._clock()
         if progressed or self.depth == 0:
             self._idle_steps = 0
             self._last_progress = now

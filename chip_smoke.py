@@ -199,6 +199,21 @@ never JAX nor the JAX package. Phases:
    == CPU at the CPU tests' tolerances. No kernel wrapper launches in
    any of them: a trainable attention call declines every kernel (none
    has a gradient), as in the reference. ``[train]`` lines;
+5l. sharded training (ROADMAP item 8b), outside inference mode, budget
+   ~90 s: two ranks on the one card in a gloo world at (data 2, model
+   1), each a subprocess of this script (``--shard-rank``), train
+   qwen2-1.5b at full width cut to 8 layers (bf16, remat as configured)
+   2 steps at S 4096, global batch 2 (one row a rank), from phase 5j's
+   seeds: params held by their specs, m, v and master by ZeRO-1, the
+   gradients all-reduced through gloo's CUDA route, the new params
+   gathered from the master halves by broadcasts; then this process
+   runs the unsharded step on the same batches with 2 microbatches.
+   Every loss and grad norm on both ranks, and the gathered params, m,
+   v and master, agree with it within the train-step limits of PERF.md
+   section 2; each rank's resident state is the size of its shards; no
+   kernel launches. Each rank's step seconds and peak memory, and the
+   gradient bytes all-reduced a step, beside the card's name and power
+   limit. ``[shard]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -2571,8 +2586,12 @@ FORCED_PLAN = (4, 1, 2, 4, 1, 3, 2, 1, 4, 2)
 #: timed runs per probed candidate in phase 5h (b) (the tuner's default
 #: is 3): an eager probe of a decode route times mostly the host's
 #: dispatch of the plain stages 1-2 both routes share, and the minimum
-#: of 3 runs let the block route win one of three runs of this phase
-PROBE_REPS = 20
+#: of 3 runs let the block route win one of three runs of this phase;
+#: the minimum of 20, and of 50, still let it win where the tuner timed
+#: each candidate's runs in one block and the host's speed drifted
+#: between the blocks; it now times the candidates in turn, rep by rep
+#: (``Tuner._probe``)
+PROBE_REPS = 50
 #: the profile's peaks may be exceeded by a measurement by this factor
 #: at most; a higher reading means the yardstick is wrong
 PEAK_SLACK = 1.05
@@ -2746,7 +2765,9 @@ def phase_autotune(torch, cfg, params, h1_tokens):
               and s["attn_backend_decode"] == "pallas_paged_decode"
               and s["attn_decode_stage3"] == "cuda:hdp_paged_fum_decode",
               f"{label}: decode resolved to {s['attn_backend_decode']} "
-              f"({s['attn_decode_stage3']}) under policy {s['attn_policy']}")
+              f"({s['attn_decode_stage3']}) under policy {s['attn_policy']}"
+              f"; probe times {tuner.probe_times}, tuner {tuner.stats()}, "
+              f"probed {pending_seen}")
         pending = {k: v for p in pending_seen for k, v in p.items()}
         st = tuner.stats()
         check(st["probes"] == sum(map(len, pending_seen)) == len(pending)
@@ -4132,6 +4153,295 @@ def phase_train(torch, smi_line):
     return out
 
 
+# ------------------------------------------ phase 5l: sharded training
+#: qwen2-1.5b at full width cut to 8 layers, S 4096, global batch 2 on a
+#: (data 2, model 1) mesh of two ranks on the card over gloo: each rank
+#: trains one row a step; 2 steps from phase 5j's data seed
+SHARD_LAYERS, SHARD_S, SHARD_B, SHARD_STEPS = 8, 4096, 2, 2
+SHARD_RANKS = 2
+#: seconds phase 5l waits for its ranks, and each collective's timeout
+SHARD_DEADLINE_S = 600
+SHARD_COLLECTIVE_TIMEOUT_S = 300
+#: the train-step limits of PERF.md section 2: loss, grad norm, m and v
+#: at atol 1e-5 / rtol 1e-4; params and master at 0.1 x the peak lr
+SHARD_ATOL, SHARD_RTOL = 1e-5, 1e-4
+
+
+def shard_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen2-1.5b").replace(n_layers=SHARD_LAYERS)
+
+
+def shard_batches(torch, cfg):
+    """Phase 5j's synthetic stream (seed 0) at S 4096, global batch 2."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    src = make_source(DataConfig(cfg.vocab_size, SHARD_S, SHARD_B, seed=0,
+                                 kind="synthetic"))
+    return [{"tokens": torch.from_numpy(src.batch_at(i)).to("cuda")}
+            for i in range(SHARD_STEPS)]
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def shard_rank_train(torch, rank, out_dir):
+    """One rank of phase 5l: the seeded full state sharded onto this rank
+    (params by their specs, m, v and master by ZeRO-1), 2 sharded steps,
+    then the state gathered in full; rank 0 writes it leaf by leaf under
+    ``out_dir``. Returns what the parent checks, JSON-ready."""
+    import math
+    from repro_torch.common import tree
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import gather_state, shard_state
+    cfg = shard_cfg()
+    mesh = make_training_mesh(model=1)
+    built = steps.build_train_step(cfg, ShapeConfig(
+        "t", SHARD_S, SHARD_B, "train"), mesh)
+    specs = {"params": built.in_specs[0], "opt": built.in_specs[1]}
+    params = registry.init_params(cfg, 0, "cuda")
+    state = shard_state({"params": params, "opt": opt.init_opt_state(params)},
+                        specs, mesh)
+    del params
+    p, o = state["params"], state["opt"]
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = sum(_nbytes(t) for t in tree.leaves((p, o)))
+    full_shape = {"params": built.args[0], "opt": built.args[1]}
+    want = sum(
+        math.prod(shd.local_shape(x.shape, s, mesh)) * x.element_size()
+        for x, s in zip(tree.leaves(full_shape), _spec_leaves(specs)))
+    allocated = torch.cuda.memory_allocated()
+    batches = shard_batches(torch, cfg)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mets, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = built.fn(p, o, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    launched = all_kernel_launches(torch)
+    full = gather_state({"params": p, "opt": o}, specs, mesh)
+    leaves, paths = tree.flatten_with_paths(full)
+    if rank == 0:
+        for i, t in enumerate(leaves):
+            torch.save(t.cpu(), Path(out_dir) / f"leaf{i:04d}.pt")
+    # fp32 grads (accumulator dtype) and the loss, summed over data
+    grad_bytes = 4 * sum(x.numel() for x in tree.leaves(built.args[0])) + 4
+    return {"rank": rank, "coords": dict(mesh.coords),
+            "mesh": dict(mesh.shape), "metrics": mets, "step_s": secs,
+            "peak_bytes": peak, "resident_bytes": resident,
+            "shard_bytes": want, "allocated_after_shard": allocated,
+            "launched": launched, "grad_bytes_all_reduced": grad_bytes,
+            "paths": paths, "checksum": [int(t.contiguous().view(
+                {2: torch.int16, 4: torch.int32}[t.element_size()]).sum(
+                    dtype=torch.int64)) for t in leaves],
+            "route": shd.gather_route(mesh.groups["data"], "cuda")}
+
+
+def _spec_leaves(specs):
+    """The PartitionSpecs of a spec tree in JAX's leaf order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    return [specs]
+
+
+def shard_rank_main(argv):
+    """``chip_smoke.py --shard-rank R --shard-store PATH --shard-out DIR``:
+    one rank of phase 5l, joined to the gloo world of ``SHARD_RANKS``
+    ranks through the FileStore at PATH, its result written as
+    DIR/rankR.json (rank 0 also writes the gathered state there)."""
+    import argparse
+    import datetime
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shard-rank", type=int, required=True)
+    ap.add_argument("--shard-store", required=True)
+    ap.add_argument("--shard-out", required=True)
+    a = ap.parse_args(argv)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(a.shard_store, SHARD_RANKS),
+        rank=a.shard_rank, world_size=SHARD_RANKS,
+        timeout=datetime.timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        res = shard_rank_train(torch, a.shard_rank, a.shard_out)
+    finally:
+        dist.destroy_process_group()
+    out = Path(a.shard_out) / f"rank{a.shard_rank}.json"
+    tmp = out.with_suffix(".tmp")
+    tmp.write_text(json.dumps(res))
+    tmp.rename(out)
+    return 0
+
+
+def phase_sharded_train(torch, smi_line):
+    """Sharded training (ROADMAP item 8b): two ranks on the one card in a
+    gloo world at (data 2, model 1), each a subprocess of this script,
+    train qwen2-1.5b at full width cut to 8 layers (bf16, remat as
+    configured) 2 steps at S 4096, global batch 2, one row a rank, from
+    phase 5j's seeds; then this process runs the unsharded step on the
+    same batches with 2 microbatches (one rank's row each). The loss and
+    grad norm of every step on both ranks, and the gathered params, m, v
+    and master, agree with it within PERF.md section 2's train-step
+    limits; each rank's resident state is its shards' size; no kernel is
+    launched. A rank that fails, times out or exits non-zero fails the
+    phase."""
+    import shutil
+    import tempfile
+    from repro_torch.common import tree
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    tmp = Path(tempfile.mkdtemp(prefix="shard_smoke_"))
+    procs, logs = [], []
+    t_ranks = time.perf_counter()
+    try:
+        try:
+            for r in range(SHARD_RANKS):
+                logs.append(open(tmp / f"rank{r}.log", "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--shard-rank", str(r), "--shard-store",
+                     str(tmp / "store"), "--shard-out", str(tmp)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT,
+                    cwd=str(ROOT)))
+            end = time.monotonic() + SHARD_DEADLINE_S
+            codes = []
+            for p in procs:
+                try:
+                    codes.append(p.wait(
+                        timeout=max(1.0, end - time.monotonic())))
+                except subprocess.TimeoutExpired:
+                    codes.append(None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        t_ranks = time.perf_counter() - t_ranks
+        for r, code in enumerate(codes):
+            tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+            check(code == 0, f"shard rank {r} "
+                  + ("timed out" if code is None else f"exited {code}")
+                  + f":\n{tail}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(SHARD_RANKS)]
+
+        # the unsharded step in this process, one microbatch a row
+        cfg = shard_cfg()
+        params = registry.init_params(cfg, 0, "cuda")
+        o = opt.init_opt_state(params)
+        step = make_train_step(cfg, opt.OptConfig(),
+                               num_microbatches=SHARD_B)
+        with torch.inference_mode():   # the counters are inference tensors
+            zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_s = [], []
+        for b in shard_batches(torch, cfg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, o, m = step(params, o, b)
+            torch.cuda.synchronize()
+            ref_s.append(time.perf_counter() - t0)
+            ref.append({k: float(v) for k, v in m.items()})
+        ref_peak = torch.cuda.max_memory_allocated()
+        launched = all_kernel_launches(torch)
+        check(not any(launched.values()), f"the unsharded step launched "
+              f"kernels {launched}")
+        for res in ranks:
+            r = res["rank"]
+            check(res["mesh"] == {"data": SHARD_RANKS, "model": 1}
+                  and res["coords"] == {"data": r, "model": 0},
+                  f"shard rank {r}: mesh {res['mesh']} at {res['coords']}")
+            check(not any(res["launched"].values()), f"shard rank {r} "
+                  f"launched kernels {res['launched']}")
+            check(res["resident_bytes"] == res["shard_bytes"],
+                  f"shard rank {r}: {res['resident_bytes']} B resident, its "
+                  f"shards are {res['shard_bytes']} B")
+            check(res["route"] == "broadcast", f"shard rank {r}: gather "
+                  f"route {res['route']}, expected broadcast (gloo, CUDA)")
+            for i, (got, want) in enumerate(zip(res["metrics"], ref)):
+                for k in ("loss", "grad_norm", "lr"):
+                    check(abs(got[k] - want[k])
+                          <= SHARD_ATOL + SHARD_RTOL * abs(want[k]),
+                          f"shard rank {r} step {i}: {k} {got[k]} != the "
+                          f"unsharded step's {want[k]}")
+        check(ranks[0]["checksum"] == ranks[1]["checksum"],
+              "the two ranks gathered different states")
+        full = {"params": params, "opt": o}
+        leaves, paths = tree.flatten_with_paths(full)
+        check(paths == ranks[0]["paths"], "gathered state's leaves differ "
+              "from the unsharded state's")
+        p_atol = 0.1 * opt.OptConfig().peak_lr
+        worst, n_bytes = {}, 0
+        for i, (want, path) in enumerate(zip(leaves, paths)):
+            got = torch.load(tmp / f"leaf{i:04d}.pt").to("cuda")
+            n_bytes += _nbytes(got)
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"gathered {path}: {got.dtype} {tuple(got.shape)}")
+            if got.dtype == torch.int32:
+                check(torch.equal(got, want), f"gathered {path} differs")
+                continue
+            keys = path[2:-2].split("']['")
+            part = keys[0] if keys[0] == "params" else keys[1]
+            atol = p_atol if part in ("params", "master") else SHARD_ATOL
+            d = (got.float() - want.float()).abs()
+            lim = atol + SHARD_RTOL * want.float().abs()
+            worst[part] = max(worst.get(part, 0.0), float(d.max()))
+            check(bool((d <= lim).all()), f"gathered {path}: max |diff| "
+                  f"{float(d.max()):.3e} beyond {atol:.1e} + "
+                  f"{SHARD_RTOL} |x|")
+            del got, d, lim
+        del full, leaves, params, o
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"ranks_wall_s": t_ranks, "step_s": {f"rank{x['rank']}":
+                                               x["step_s"] for x in ranks},
+           "unsharded_step_s": ref_s, "unsharded_peak_gb": ref_peak / 1e9,
+           "peak_gb": {f"rank{x['rank']}": x["peak_bytes"] / 1e9
+                       for x in ranks},
+           "resident_gb": {f"rank{x['rank']}": x["resident_bytes"] / 1e9
+                           for x in ranks},
+           "grad_bytes_all_reduced_per_step":
+               ranks[0]["grad_bytes_all_reduced"],
+           "losses": [x["loss"] for x in ranks[0]["metrics"]],
+           "grad_norms": [x["grad_norm"] for x in ranks[0]["metrics"]],
+           "unsharded_losses": [x["loss"] for x in ref],
+           "max_abs_diff": worst, "gathered_bytes": n_bytes}
+    for x in ranks:
+        log(f"[shard] rank {x['rank']} of (data 2, model 1), qwen2-1.5b "
+            f"full width cut to {SHARD_LAYERS} layers, S {SHARD_S}, one row "
+            f"a step: step s {[round(t, 3) for t in x['step_s']]}, peak "
+            f"memory {x['peak_bytes'] / 1e9:.2f} GB "
+            f"(torch.cuda.max_memory_allocated), resident state "
+            f"{x['resident_bytes'] / 1e9:.3f} GB (= its shards), gradient "
+            f"bytes all-reduced per step {x['grad_bytes_all_reduced']:,}, "
+            f"losses {[m['loss'] for m in x['metrics']]}; {smi_line}")
+    log(f"[shard] unsharded step, 2 microbatches: step s "
+        f"{[round(t, 3) for t in ref_s]}, peak {ref_peak / 1e9:.2f} GB, "
+        f"losses {out['unsharded_losses']}; gathered state == unsharded "
+        f"within the train-step limits, max |diff| {worst}; no kernel "
+        f"launched; {smi_line}")
+    return out
+
+
 def phase_timing_zamba2(torch, calls):
     """The scout (dp4a), block (tile) and flash (tile) kernels at
     zamba2-7b's aligned prefill's own inputs (B 1, 32 heads, S 4096, hd
@@ -4541,6 +4851,8 @@ def main() -> int:
                              torch)
             with torch.inference_mode(False):
                 trained = timed("5j training", phase_train, torch, smi_line)
+                sharded = timed("5l sharded training", phase_sharded_train,
+                                torch, smi_line)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
                               olmoe_case, tp_case)
             prefill_timed = timed("6 prefill kernels timing",
@@ -4716,6 +5028,7 @@ def main() -> int:
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
     log(f"[train] phase 5j {json.dumps(trained)}")
+    log(f"[shard] phase 5l {json.dumps(sharded)}")
     log(f"[families] phase 5i {json.dumps({k: v for k, v in families.items() if k not in ('prefill', 'errs')})}")
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")
@@ -4735,4 +5048,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(tp_rank_main(sys.argv[1:]) if "--tp-rank" in sys.argv
+             else shard_rank_main(sys.argv[1:]) if "--shard-rank" in sys.argv
              else main())

@@ -187,9 +187,9 @@ class Tuner:
     def _probe(self, call, sig: CallSig, names) -> str:
         """Time each candidate on synthetic inputs; fastest wins. Each
         candidate runs once untimed (on the card: builds and loads its
-        kernel), then ``probe_reps`` times, synchronized around each
-        timed run; its time is the minimum. The candidates' times land
-        in ``probe_times``."""
+        kernel), then ``probe_reps`` times, in turn with the others,
+        synchronized around each timed run; its time is the minimum. The
+        candidates' times land in ``probe_times``."""
         from repro_torch.attention.registry import get_backend
         from repro_torch.distribution.tp import agreed_floats
 
@@ -198,8 +198,7 @@ class Tuner:
                                                                 dev)
         sync = (lambda: torch.cuda.synchronize(dev)) \
             if dev.type == "cuda" else (lambda: None)
-        times: Dict[str, float] = {}
-        best_name, best_t = None, None
+        runs = {}
         for name in names:
             backend = get_backend(name)
 
@@ -209,14 +208,20 @@ class Tuner:
 
             run()                       # build + warm
             sync()
-            t_min = None
-            for _ in range(self.probe_reps):
+            runs[name] = run
+        times: Dict[str, float] = dict.fromkeys(names)
+        # the candidates take turns, rep by rep: an eager probe times
+        # mostly the host's dispatch, and a drift of the host's speed must
+        # weigh on every candidate alike
+        for _ in range(self.probe_reps):
+            for name, run in runs.items():
                 t0 = time.perf_counter()
                 run()
                 sync()
                 dt = time.perf_counter() - t0
-                t_min = dt if t_min is None else min(t_min, dt)
-            times[name] = t_min
+                times[name] = dt if times[name] is None \
+                    else min(times[name], dt)
+        best_name, best_t = None, None
         # under tensor-parallel serving every rank takes the first rank's
         # times, so that all of them pick the same winner
         times = dict(zip(times, agreed_floats(list(times.values()))))

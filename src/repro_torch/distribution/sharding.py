@@ -9,16 +9,24 @@ dim that the axis size does not divide stays unsharded, and a rule onto
 an axis the mesh lacks gives ``None``. ``zero1_spec`` adds ``data`` to an
 optimizer state's largest free dim.
 
-This module computes specs and allocates nothing: a ``Mesh`` here is an
-ordered axis shape (``launch.mesh`` builds them, a serving mesh with the
-process group of its ``model`` axis), and ``shard_activation`` returns
-its input, because the port's SPMD serving slices and gathers explicitly
-(``distribution.tp``) instead of asking a compiler to reshard.
+A ``Mesh`` here is an ordered axis shape (``launch.mesh`` builds them).
+One bound to ranks also carries this rank's coordinates and a process
+group per axis, and then a spec maps onto this rank: ``local_slice``
+cuts its shard out of a full tensor, ``gather_axis`` concatenates an
+axis group's shards of one dim (all-gather, or one broadcast per rank
+for CUDA tensors on gloo: ``gather_route``), ``reshard`` gathers the
+axes one spec names beyond another, and ``all_reduce_axes`` sums over
+axis groups. A dim split over several axes, e.g. ``("pod", "data")``,
+is split major to minor, as in JAX. ``shard_activation`` returns its
+input, because the port's SPMD ranks slice and gather explicitly
+(``distribution.tp``, ``training.train_loop``) instead of asking a
+compiler to reshard.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -35,6 +43,10 @@ class PartitionSpec(tuple):
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple(self)!r}"
 
+    def __reduce__(self):
+        # pickled as its parts (it travels between ranks)
+        return (PartitionSpec, tuple(self))
+
 
 P = PartitionSpec
 
@@ -44,16 +56,17 @@ class Mesh:
     """Named device axes in order, e.g. ``(("data", 16), ("model", 16))``.
 
     ``shape`` maps each axis to its size, in axis order. An abstract mesh
-    (``launch.mesh.make_production_mesh``) is bound to no ranks; a
-    serving mesh (``make_serving_mesh``) also carries this rank's
-    coordinates, the process group of its ``model`` axis and the global
-    ranks of that group in model order.
+    (``launch.mesh.make_production_mesh``) is bound to no ranks. A mesh
+    bound to ranks also carries this rank's ``coords`` and, for each
+    axis it made a process group for, that group (``groups``) and its
+    global ranks in axis order (``group_ranks``): a serving mesh has the
+    ``model`` axis's, a training mesh every axis's.
     """
 
     axes: Tuple[Tuple[str, int], ...]
     coords: Optional[Dict[str, int]] = None
-    model_group: Any = None
-    model_ranks: Tuple[int, ...] = ()
+    groups: Optional[Dict[str, Any]] = None
+    group_ranks: Optional[Dict[str, Tuple[int, ...]]] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -62,6 +75,18 @@ class Mesh:
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return tuple(a for a, _ in self.axes)
+
+    @property
+    def model_group(self):
+        return (self.groups or {}).get("model")
+
+    @property
+    def model_ranks(self) -> Tuple[int, ...]:
+        return (self.group_ranks or {}).get("model", ())
+
+    @property
+    def size(self) -> int:
+        return math.prod(s for _, s in self.axes)
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.axes)})"
@@ -222,3 +247,160 @@ def zero1_spec(logical: Sequence[Axis], shape: Sequence[int],
                     parts[i] = tuple(phys) + ("data",)
                     return P(*parts)
     return base
+
+
+# ------------------------------------------------- specs onto this rank
+#: the two routes of a gather over an axis group
+GATHER_ROUTES = ("all_gather", "broadcast")
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _names(part) -> Tuple[str, ...]:
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def _parts(spec: Sequence, ndim: int) -> list:
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def require_ranks(mesh: Mesh) -> Dict[str, int]:
+    """This rank's coordinates on ``mesh``; an abstract mesh raises."""
+    if mesh.coords is None:
+        raise NotImplementedError(
+            f"{mesh!r} is abstract (bound to no ranks): a step on the "
+            "production meshes is lowered, not run (the dry run, ROADMAP.md "
+            "section 1, item 11b)")
+    return mesh.coords
+
+
+def map_specs(fn, tree, *specs):
+    """``fn(leaf, spec, ...)`` over the leaves of a dict tree, each with
+    the matching entry of every tree in ``specs`` (trees of logical axes
+    or PartitionSpecs, whose tuples are leaves)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, *(s[k] for s in specs))
+                for k, v in tree.items()}
+    return fn(tree, *specs)
+
+
+def shard_index(mesh: Mesh, names: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's shard index, shard count) of a dim split over
+    ``names``, major to minor."""
+    coords, sizes = require_ranks(mesh), mesh.shape
+    idx, n = 0, 1
+    for a in names:
+        idx = idx * sizes[a] + coords[a]
+        n *= sizes[a]
+    return idx, n
+
+
+def local_shape(shape: Sequence[int], spec: Sequence,
+                mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of one shard of a ``shape`` tensor laid out by ``spec``."""
+    sizes = mesh.shape
+    out = []
+    for dim, part in zip(shape, _parts(spec, len(shape))):
+        n = 1
+        for a in _names(part):
+            n *= sizes[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+def local_slice(x, spec: Sequence, mesh: Mesh):
+    """This rank's shard of the full tensor ``x`` laid out by ``spec`` (a
+    view)."""
+    for d, part in enumerate(_parts(spec, x.ndim)):
+        names = _names(part)
+        if names:
+            i, n = shard_index(mesh, names)
+            size = x.shape[d] // n
+            x = x.narrow(d, i * size, size)
+    return x
+
+
+def gather_route(group, device) -> str:
+    """The route of a gather over ``group`` for tensors on ``device``:
+    gloo gathers only CPU tensors, so CUDA tensors on a gloo group go by
+    broadcasts."""
+    import torch
+    backend = str(_dist().get_backend(group))
+    if backend == "gloo" and torch.device(device).type == "cuda":
+        return "broadcast"
+    return "all_gather"
+
+
+def _all_gather(out, inp, group):
+    dist = _dist()
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def gather_axis(x, dim: int, mesh: Mesh, axis: str,
+                route: Optional[str] = None):
+    """Exact concatenation along ``dim`` of the shards that the ranks of
+    this rank's ``axis`` group hold, in axis order: the same tensor on
+    every rank of the group. ``route`` forces one of ``GATHER_ROUTES``
+    (default: ``gather_route``)."""
+    import torch
+    n = int(mesh.shape.get(axis, 1))
+    if n == 1:
+        return x
+    group, ranks = mesh.groups[axis], mesh.group_ranks[axis]
+    route = route or gather_route(group, x.device)
+    if route not in GATHER_ROUTES:
+        raise ValueError(f"route must be one of {GATHER_ROUTES}, got "
+                         f"{route!r}")
+    xc = x.movedim(dim, 0).contiguous()
+    if route == "all_gather":
+        # the concatenated output form (gloo takes no other)
+        full = torch.empty((n * xc.shape[0],) + tuple(xc.shape[1:]),
+                           dtype=xc.dtype, device=xc.device)
+        _all_gather(full, xc, group)
+    else:
+        dist, me = _dist(), require_ranks(mesh)[axis]
+        parts = []
+        for i, src in enumerate(ranks):
+            part = xc if i == me else torch.empty_like(xc)
+            dist.broadcast(part, src=src, group=group)
+            parts.append(part)
+        full = torch.cat(parts)
+    return full.movedim(0, dim)
+
+
+def reshard(x, src: Sequence, dst: Sequence, mesh: Mesh):
+    """This rank's shard under ``dst`` from its shard under ``src``, where
+    each dim of ``dst`` names a leading part of ``src``'s axes for that
+    dim: the axes ``src`` names beyond it are gathered, minor first, so
+    that the pieces land major to minor."""
+    ps, pd = _parts(src, x.ndim), _parts(dst, x.ndim)
+    for d in range(x.ndim):
+        have, want = _names(ps[d]), _names(pd[d])
+        if have[:len(want)] != want:
+            raise ValueError(f"dim {d}: cannot reshard {ps[d]!r} to "
+                             f"{pd[d]!r} by gathers")
+        for a in reversed(have[len(want):]):
+            x = gather_axis(x, d, mesh, a)
+    return x
+
+
+def gather_full(x, spec: Sequence, mesh: Mesh):
+    """The full tensor from this rank's shard under ``spec``."""
+    return reshard(x, spec, (), mesh)
+
+
+def all_reduce_axes(x, mesh: Mesh, axes: Sequence[str]):
+    """``x`` summed in place over this rank's group of each of ``axes``
+    (an axis the mesh lacks, or of size 1, is skipped); returns ``x``."""
+    for a in axes:
+        if mesh.shape.get(a, 1) > 1:
+            _dist().all_reduce(x, group=mesh.groups[a])
+    return x
+

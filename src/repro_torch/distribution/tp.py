@@ -41,6 +41,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.distribution import sharding
 from repro_torch.distribution.sharding import Mesh, PartitionSpec
 
 _ctx = threading.local()
@@ -52,9 +53,6 @@ POOL_HEAD_AXIS = {
     "k_pages": 3, "v_pages": 3, "k_scout": 3, "f_scout": 3,
     "k_scale": 2, "v_scale": 2,
 }
-
-#: the two routes of the head gather
-GATHER_ROUTES = ("all_gather", "broadcast")
 
 
 class HeadShard(NamedTuple):
@@ -155,48 +153,19 @@ def _dist():
 
 def gather_route(mesh: Mesh, device) -> str:
     """The head gather's route on the mesh's model group for tensors on
-    ``device``: gloo gathers only CPU tensors, so CUDA tensors on a gloo
-    group go by broadcasts."""
-    backend = str(_dist().get_backend(mesh.model_group))
-    if backend == "gloo" and torch.device(device).type == "cuda":
-        return "broadcast"
-    return "all_gather"
-
-
-def _all_gather(out, inp, group):
-    dist = _dist()
-    fn = getattr(dist, "all_gather_single", None) \
-        or dist.all_gather_into_tensor
-    fn(out, inp, group=group)
+    ``device`` (``sharding.gather_route``)."""
+    return sharding.gather_route(mesh.model_group, device)
 
 
 def gather_heads(x: torch.Tensor, dim: int, mesh: Mesh,
                  route: Optional[str] = None) -> torch.Tensor:
     """Exact concatenation over the model group of every rank's slice of
     axis ``dim`` (model order): the full-width tensor on every rank.
-    ``route`` forces one of ``GATHER_ROUTES`` (default: ``gather_route``)."""
-    tp = mesh_tp(mesh)
-    if tp == 1:
+    ``route`` forces one of ``sharding.GATHER_ROUTES`` (default:
+    ``gather_route``)."""
+    if mesh_tp(mesh) == 1:
         return x
-    route = route or gather_route(mesh, x.device)
-    if route not in GATHER_ROUTES:
-        raise ValueError(f"route must be one of {GATHER_ROUTES}, got "
-                         f"{route!r}")
-    xc = x.movedim(dim, 0).contiguous()
-    if route == "all_gather":
-        # the concatenated output form (gloo takes no other)
-        full = torch.empty((tp * xc.shape[0],) + tuple(xc.shape[1:]),
-                           dtype=xc.dtype, device=xc.device)
-        _all_gather(full, xc, mesh.model_group)
-    else:
-        dist, me = _dist(), mesh.coords["model"]
-        parts = []
-        for i, src in enumerate(mesh.model_ranks):
-            part = xc if i == me else torch.empty_like(xc)
-            dist.broadcast(part, src=src, group=mesh.model_group)
-            parts.append(part)
-        full = torch.cat(parts)
-    return full.movedim(0, dim)
+    return sharding.gather_axis(x, dim, mesh, "model", route)
 
 
 def agreed_floats(values: Sequence[float],

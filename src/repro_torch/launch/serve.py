@@ -83,6 +83,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.launch.mesh import init_world
+
 
 def poisson_arrivals(rng: np.random.Generator, rate: float,
                      n: int) -> np.ndarray:
@@ -220,30 +222,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "tp=1, decoded eagerly. Default honors "
                          "REPRO_MESH_TP, else 1")
     return ap.parse_args(argv)
-
-
-def init_world(device: str) -> tuple:
-    """Join the process group of a ``torchrun`` launch (its RANK,
-    WORLD_SIZE and MASTER_ADDR/PORT environment), with a timeout: NCCL
-    when every rank has a card of its own, else gloo (NCCL refuses two
-    ranks on one card). Returns (rank, the device string of this rank);
-    outside a launch of more than one rank, (0, ``device``)."""
-    import datetime
-
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world < 2:
-        return 0, device
-    import torch
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import GROUP_TIMEOUT_S
-    local = int(os.environ.get("LOCAL_RANK", "0") or 0)
-    nccl = device.startswith("cuda") and torch.cuda.device_count() >= world
-    if nccl:
-        device = f"cuda:{local}"
-    dist.init_process_group(
-        "nccl" if nccl else "gloo",
-        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-    return dist.get_rank(), device
 
 
 #: the fleet-summed counters of a --dp > 1 summary (the reference's)

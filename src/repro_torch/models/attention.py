@@ -84,6 +84,20 @@ def attn_init(cfg, gen: torch.Generator, dtype, device) -> Dict:
     return p
 
 
+def param_specs(cfg) -> Dict:
+    """Logical axes of ``attn_init``'s leaves (the reference's spec half)."""
+    s = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        s.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return s
+
+
 # -------------------------------------------------------------- core maths
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m

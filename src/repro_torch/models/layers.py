@@ -5,16 +5,27 @@ RWKV's per-head group norm, rotary and sinusoidal position codes, the
 SiLU-GLU, GELU and squared-ReLU MLPs, token embedding and tied logits. Initialisers draw from an explicit ``torch.Generator``; the
 numbers differ from ``jax.random`` for the same seed, so the tests move
 weights between the packages with ``repro_torch.convert`` instead.
+
+The reference's ``*_init`` return ``(params, specs)``; here the spec half
+of each is a function of its own (``norm_specs``, ``mlp_specs``,
+``embed_specs``): the logical axis names of every leaf, the tree that
+``registry.param_specs`` assembles and ``distribution.sharding`` maps
+onto a mesh.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distribution.sharding import shard_activation as shd
+
 Params = Dict[str, torch.Tensor]
+#: a params tree's logical axes: the same dicts, a tuple of axis names
+#: (or None) at each leaf
+Specs = Dict[str, Any]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -189,6 +200,21 @@ def norm_init(cfg, dtype, device) -> Params:
     return p
 
 
+def norm_specs(cfg) -> Specs:
+    s = {"w": ("embed",)}
+    if cfg.norm == "layernorm":
+        s["b"] = ("embed",)
+    return s
+
+
+def stack_specs(specs: Specs, *axes) -> Specs:
+    """``specs`` with ``axes`` put before every leaf's axes: the specs of
+    a stack of layers (``("layers",)``, zamba2's ``("groups", "layers")``)."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v, *axes) for k, v in specs.items()}
+    return tuple(axes) + tuple(specs)
+
+
 def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layer_norm(x, p["w"], p["b"])
@@ -212,6 +238,19 @@ def mlp_init(cfg, gen, dtype, device) -> Params:
     return p
 
 
+def mlp_specs(cfg) -> Specs:
+    if cfg.act == "silu_glu":
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    if cfg.act not in ("gelu", "relu2"):
+        raise ValueError(f"unknown act {cfg.act}")
+    s = {"w1": ("embed", "mlp"), "w2": ("mlp", "embed")}
+    if cfg.act == "gelu":
+        s["b1"] = ("mlp",)
+        s["b2"] = ("embed",)
+    return s
+
+
 def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "silu_glu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -233,6 +272,15 @@ def embed_init(cfg, gen, dtype, device) -> Params:
     return p
 
 
+def embed_specs(cfg) -> Specs:
+    # the vocab tables' d_model dim is `table_embed`, which no rule set
+    # shards over `data` (the reference's note at its embed_init)
+    s = {"tok": ("vocab", "table_embed")}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("table_embed", "vocab")
+    return s
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["tok"][tokens]
 
@@ -242,3 +290,12 @@ def lm_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = p["tok"].T
     return (x @ w).float()
+
+
+def lm_logits_sharded(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``lm_logits`` under the reference's name for the train and prefill
+    calls, which constrain the activations to ``embed_act`` and the
+    logits to ``vocab_act``. ``shard_activation`` returns its input in
+    the port, so the values are ``lm_logits``'."""
+    x = shd(x, "batch", None, "embed_act")
+    return shd(lm_logits(p, x), "batch", None, "vocab_act")

@@ -48,6 +48,19 @@ def layer_init(cfg, gen, dtype, device) -> Dict:
     }
 
 
+def param_specs(cfg) -> Dict:
+    """Logical axes of ``layer_init``'s leaves (the reference's spec
+    half)."""
+    return {
+        "Wz": ("embed", "mlp"), "Wx": ("embed", "mlp"),
+        "WB": ("embed", "state"), "WC": ("embed", "state"),
+        "Wdt": ("embed", "heads"), "dt_bias": ("heads",),
+        "A_log": ("heads",), "D_skip": ("heads",),
+        "conv_w": ("conv", "mlp"), "norm_w": ("mlp",),
+        "Wo": ("mlp", "embed"),
+    }
+
+
 def _causal_conv(x, w, conv_state: Optional[torch.Tensor]):
     """Depthwise causal conv by shifted adds in x's dtype, summed in
     Python's order (0 + t0 + t1 + ...) as the reference sums. x [B,T,di];

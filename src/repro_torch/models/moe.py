@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.collectives import group_mean
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -35,6 +36,18 @@ def moe_init(cfg, gen: torch.Generator, dtype, device) -> Dict:
                        "w_up": L.dense_init(gen, (d, fs), dtype, device),
                        "w_down": L.dense_init(gen, (fs, d), dtype, device)}
     return p
+
+
+def param_specs(cfg) -> Dict:
+    """Logical axes of ``moe_init``'s leaves (the reference's spec half)."""
+    s = {"router": ("embed", "experts"),
+         "w_gate": ("experts", "embed", "mlp"),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        s["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed")}
+    return s
 
 
 def group_size(cfg, S: int) -> int:
@@ -111,8 +124,9 @@ def moe_apply(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sp = p["shared"]
         y = y + (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
 
-    # GShard load-balancing aux loss: E * sum_e f_e * P_e
-    f_e = onehot_e.sum(3).mean(dim=(0, 1, 2))                  # routed share
-    p_e = probs.mean(dim=(0, 1, 2))
+    # GShard load-balancing aux loss: E * sum_e f_e * P_e, the shares over
+    # every row of the batch (a data-parallel rank holds some of them)
+    f_e = group_mean(onehot_e.sum(3).mean(dim=(0, 1, 2)))      # routed share
+    p_e = group_mean(probs.mean(dim=(0, 1, 2)))
     aux = E * torch.sum(f_e * p_e) * cfg.router_aux_weight
     return y, aux

@@ -1,6 +1,8 @@
 """Family dispatch: one API over every architecture.
 
   init_params(cfg, seed, device)  -> params dict
+  param_specs(cfg)                -> logical axis names of every leaf
+  abstract_params(cfg)            -> (meta-tensor params, param_specs)
   apply_train(cfg, p, batch)      -> (logits, {"aux_loss", "hdp"})
   init_cache(cfg, B, max_len)     -> request cache tree
   cache_specs(cfg)                -> logical axis names of every cache leaf
@@ -39,6 +41,19 @@ def module_for(cfg):
 
 def init_params(cfg, seed: int = 0, device="cuda"):
     return module_for(cfg).init_params(cfg, seed, device)
+
+
+def param_specs(cfg):
+    """The params tree with each leaf's logical axis names (the second
+    value of the reference's ``init_params``): layer-stacked leaves lead
+    with ``"layers"``."""
+    return module_for(cfg).param_specs(cfg)
+
+
+def abstract_params(cfg):
+    """(params as meta tensors, ``param_specs(cfg)``): shapes and dtypes
+    at any size, with no memory allocated."""
+    return init_params(cfg, device="meta"), param_specs(cfg)
 
 
 def apply_train(cfg, params, batch, **kw):

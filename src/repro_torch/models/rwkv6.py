@@ -74,6 +74,23 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
             "final_norm": L.norm_init(cfg, dt, device)}
 
 
+def param_specs(cfg) -> Dict:
+    """Logical axes of every leaf of ``init_params``' tree; the layer
+    stack's leaves lead with ``"layers"``."""
+    tm = {f"mu_{n}": ("embed",) for n in ("r", "k", "v", "w", "g")}
+    tm.update({f"W{n}": ("embed", "heads") for n in ("r", "k", "v", "g")})
+    tm.update(Wo=("heads", "embed"), w0=("embed",), wA=("embed", None),
+              wB=(None, "embed"), u=("heads", "head_dim"),
+              gn_w=("heads", "head_dim"), gn_b=("heads", "head_dim"))
+    cm = {"mu_k": ("embed",), "mu_r": ("embed",), "Wk": ("embed", "mlp"),
+          "Wv": ("mlp", "embed"), "Wr": ("embed", "embed")}
+    layer = {"tm": tm, "cm": cm, "ln1": L.norm_specs(cfg),
+             "ln2": L.norm_specs(cfg)}
+    return {"embed": L.embed_specs(cfg),
+            "layers": L.stack_specs(layer, "layers"),
+            "final_norm": L.norm_specs(cfg)}
+
+
 def _shift(x, x_prev):
     """Token shift: [B,S,D] -> the previous token's features; x_prev [B,D]."""
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
@@ -205,7 +222,8 @@ def apply_train(cfg, params, batch, *, collect_stats: bool = False):
     x = _train_stack(cfg, params, x)
     x = L.apply_norm(cfg, params["final_norm"], x)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": None}
+    return (L.lm_logits_sharded(params["embed"], x),
+            {"aux_loss": aux, "hdp": None})
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
@@ -222,7 +240,7 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
                            device=x.device)
     x = _stack(cfg, params, x, cache)
     x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return L.lm_logits(params["embed"], x), cache, None
+    return L.lm_logits_sharded(params["embed"], x), cache, None
 
 
 def apply_decode(cfg, params, token, cache, pos, *,

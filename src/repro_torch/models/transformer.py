@@ -20,6 +20,7 @@ import torch
 from repro_torch.attention.stats import stack_stats
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import attention as A
 from repro_torch.models.attention import attn_apply, attn_init
 
 
@@ -43,6 +44,17 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
                        lambda: _layer_init(cfg, gen, dtype, device))
     return {"embed": emb, "layers": layers,
             "final_norm": L.norm_init(cfg, dtype, device)}
+
+
+def param_specs(cfg) -> Dict:
+    """Logical axes of every leaf of ``init_params``' tree; the layer
+    stack's leaves lead with ``"layers"``."""
+    layer = {"attn": A.param_specs(cfg), "ln1": L.norm_specs(cfg),
+             "ln2": L.norm_specs(cfg),
+             "ffn": (M.param_specs if cfg.n_experts else L.mlp_specs)(cfg)}
+    return {"embed": L.embed_specs(cfg),
+            "layers": L.stack_specs(layer, "layers"),
+            "final_norm": L.norm_specs(cfg)}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None,
@@ -111,7 +123,8 @@ def apply_train(cfg, params, batch, *, collect_stats: bool = False):
     x = L.apply_norm(cfg, params["final_norm"], x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
+    return (L.lm_logits_sharded(params["embed"], x),
+            {"aux_loss": aux, "hdp": stats})
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
@@ -132,7 +145,7 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
                          positions=positions, cache=cache,
                          collect_stats=collect_stats, attn=attn)
     x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return L.lm_logits(params["embed"], x), cache, stats
+    return L.lm_logits_sharded(params["embed"], x), cache, stats
 
 
 def apply_decode(cfg, params, token, cache, pos, *,

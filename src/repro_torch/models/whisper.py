@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.attention.stats import stack_stats
 from repro_torch.models import layers as L
+from repro_torch.models import attention as A
 from repro_torch.models.attention import attn_apply, attn_init
 
 
@@ -58,6 +59,20 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
         "ln_enc": L.norm_init(cfg, dt, device),
         "ln_dec": L.norm_init(cfg, dt, device),
     }
+
+
+def param_specs(cfg) -> Dict:
+    """Logical axes of every leaf of ``init_params``' tree; the encoder's
+    and decoder's layer stacks lead with ``"layers"``."""
+    enc = {"attn": A.param_specs(cfg), "ln1": L.norm_specs(cfg),
+           "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    dec = {"self": A.param_specs(cfg), "cross": A.param_specs(cfg),
+           "mlp": L.mlp_specs(cfg), "ln1": L.norm_specs(cfg),
+           "ln2": L.norm_specs(cfg), "ln3": L.norm_specs(cfg)}
+    return {"embed": L.embed_specs(cfg), "frontend": {"w": ("embed", "embed")},
+            "enc": L.stack_specs(enc, "layers"),
+            "dec": L.stack_specs(dec, "layers"),
+            "ln_enc": L.norm_specs(cfg), "ln_dec": L.norm_specs(cfg)}
 
 
 def encode(cfg, params, frames, *, collect_stats: bool = False,
@@ -161,7 +176,8 @@ def apply_train(cfg, params, batch, *, collect_stats: bool = False):
     x, stats = _decoder(cfg, params, tokens, enc_out, None, positions,
                         "train", collect_stats)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
+    return (L.lm_logits_sharded(params["embed"], x),
+            {"aux_loss": aux, "hdp": stats})
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
@@ -176,7 +192,7 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, stats = _decoder(cfg, params, tokens, enc_out, cache, positions,
                         "prefill", collect_stats, attn=attn)
-    return L.lm_logits(params["embed"], x[:, -1:]), cache, stats
+    return L.lm_logits_sharded(params["embed"], x[:, -1:]), cache, stats
 
 
 def apply_decode(cfg, params, token, cache, pos, *,

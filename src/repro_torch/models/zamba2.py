@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.attention.stats import stack_stats
 from repro_torch.models import layers as L
+from repro_torch.models import attention as A
 from repro_torch.models import mamba2
 from repro_torch.models.attention import attn_apply, attn_init
 
@@ -79,6 +80,28 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     params["shared"] = _shared_init(cfg, gen, dt, device)
     params["final_norm"] = L.norm_init(cfg, dt, device)
     return params
+
+
+def param_specs(cfg) -> Dict:
+    """Logical axes of every leaf of ``init_params``' tree: the grouped
+    Mamba2 layers lead with ``("groups", "layers")``, the tail with
+    ``"layers"``; the shared block's LoRA stacks with ``"groups"``."""
+    one = {"m": mamba2.param_specs(cfg), "ln": L.norm_specs(cfg)}
+    specs = {"embed": L.embed_specs(cfg),
+             "grouped": L.stack_specs(one, "groups", "layers")}
+    if _n_tail(cfg):
+        specs["tail"] = L.stack_specs(one, "layers")
+    specs["shared"] = {
+        "attn": A.param_specs(_shared_cfg(cfg)),
+        "ln1": {"w": ("embed",)}, "ln2": {"w": ("embed",)},
+        "mlp": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")},
+        "proj_out": ("embed", "embed"),
+        "lora_A": ("groups", None, "embed", None),
+        "lora_B": ("groups", None, None, "heads"),
+    }
+    specs["final_norm"] = L.norm_specs(cfg)
+    return specs
 
 
 def _mamba_stack(cfg, layers, x, cache, train: bool = False):
@@ -191,7 +214,8 @@ def apply_train(cfg, params, batch, *, collect_stats: bool = False):
                     cache=None, collect_stats=collect_stats)
     x = L.apply_norm(cfg, params["final_norm"], x)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    return L.lm_logits(params["embed"], x), {"aux_loss": aux, "hdp": stats}
+    return (L.lm_logits_sharded(params["embed"], x),
+            {"aux_loss": aux, "hdp": stats})
 
 
 def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
@@ -206,7 +230,7 @@ def apply_prefill(cfg, params, batch, cache, *, collect_stats: bool = False,
     x, stats = _run(cfg, params, tokens, mode="prefill", positions=positions,
                     cache=cache, collect_stats=collect_stats, attn=attn)
     x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return L.lm_logits(params["embed"], x), cache, stats
+    return L.lm_logits_sharded(params["embed"], x), cache, stats
 
 
 def apply_decode(cfg, params, token, cache, pos, *,

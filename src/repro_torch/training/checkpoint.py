@@ -241,9 +241,13 @@ class CheckpointManager:
         return step > 0 and step % self.interval == 0 \
             and step != self._last_saved
 
-    def save(self, step: int, state, meta=None) -> str:
-        p = save_checkpoint(self.directory, step, state,
-                            keep=self.keep, meta=meta)
+    def save(self, step: int, state, meta=None, *,
+             write: bool = True) -> Optional[str]:
+        """Save ``state`` at ``step``; ``write=False`` records the step as
+        saved without writing (the ranks of a sharded run other than the
+        one that writes the gathered state)."""
+        p = save_checkpoint(self.directory, step, state, keep=self.keep,
+                            meta=meta) if write else None
         self._last_saved = step
         return p
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -81,12 +81,17 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def apply_updates(cfg: OptConfig, grads, opt_state, param_dtype
+def apply_updates(cfg: OptConfig, grads, opt_state, param_dtype, *,
+                  gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params, new_opt_state, metrics). Pure: the inputs are
-    left as they are."""
+    left as they are. The update is elementwise, so ``grads``, ``m``,
+    ``v`` and ``master`` may be matching shards of the full trees (ZeRO-1)
+    when ``gnorm``, the full gradient's global norm, is given; without it
+    the norm is ``grads``'."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     # tensor / tensor: a python scalar on the left would become
     # reciprocal(x) * c, which rounds apart from the reference's division
     scale = torch.clamp(_scalar(cfg.clip_norm, gnorm)

@@ -442,6 +442,37 @@ class TestTuner:
         assert t.device.type == "cpu"
         assert set(t.probe_times[sig.key()]) == {"paged_hdp_decode"}
 
+    def test_probe_interleaves_candidates(self, monkeypatch):
+        """After one untimed run each, the candidates take turns rep by
+        rep, so that a drift of the host's speed weighs on each alike;
+        a candidate's time is the minimum of its timed reps."""
+        from repro_torch.attention import registry as attn_registry
+        from repro_torch.autotune import tuner as tuner_mod
+        order, now = [], [0.0]
+        cost = {"a": iter([0.0, 5.0, 3.0, 4.0]),
+                "b": iter([0.0, 2.0, 6.0, 1.0])}
+
+        class Fake:
+            def __init__(self, name):
+                self.name = name
+
+            def run(self, q, *a, **kw):
+                order.append(self.name)
+                now[0] += next(cost[self.name])
+                return (q,)
+
+        monkeypatch.setattr(attn_registry, "get_backend", Fake)
+        monkeypatch.setattr(tuner_mod.time, "perf_counter", lambda: now[0])
+        call = AttnCall(mode="decode", layout="paged", hdp=HDP,
+                        per_slot=True)
+        sig = CallSig(mode="decode", layout="paged", batch=1, n_kv_heads=N,
+                      group=G, sq=1, hd=HD, kv_len=8, page_size=4,
+                      hdp=True, block_q=4, block_k=4, per_slot=True)
+        t = Tuner(hw=HOST_CPU, probe_reps=3)
+        assert t._probe(call, sig, ("a", "b")) == "b"
+        assert order == ["a", "b"] + ["a", "b"] * 3
+        assert t.probe_times[sig.key()] == {"a": 3.0, "b": 1.0}
+
     def test_real_probe_times_both_candidates(self):
         """The top-2 of a paged decode signature under the card's
         profile (the FUM kernel's backend and the block route), probed

@@ -4,7 +4,9 @@
   ``repro_torch.training``: the elastic reshard restores onto a
   ``device`` (the port has no mesh), and the straggler test drives
   ``StepTimer`` with a patched clock instead of ten 2 ms sleeps (the
-  reference's version is a timing flake, ROADMAP.md section 3);
+  reference's version is a timing flake, ROADMAP.md section 3), and the
+  watchdog test advances a patched clock instead of sleeping against a
+  0.15 s timeout (a late wake-up no longer breaks it);
 * the file format across packages: a checkpoint written by JAX's
   ``save_checkpoint`` (fp32 and bf16 leaves, an int32 step) restores in
   the port bit for bit, an fp32 one written by the port restores in
@@ -158,14 +160,22 @@ class TestFault:
         assert t.events[0].slowdown > 2.0
         assert t.summary()["stragglers"] == 1
 
-    def test_watchdog_fires_and_beats(self):
+    def test_watchdog_fires_and_beats(self, monkeypatch):
+        clock = _Clock()
+        # the fault module's clock only: the watchdog reads time.monotonic
+        monkeypatch.setattr(fault, "time", types.SimpleNamespace(
+            perf_counter=time.perf_counter, monotonic=clock,
+            sleep=time.sleep))
         fired = threading.Event()
-        with fault.Watchdog(0.15, fired.set, poll_s=0.02) as wd:
+        with fault.Watchdog(0.15, fired.set, poll_s=0.001) as wd:
             for _ in range(5):   # heartbeats keep it quiet
-                time.sleep(0.05)
+                clock.t += 0.05
+                # polls of the thread at this clock do not fire
+                assert not fired.wait(timeout=0.02)
                 wd.beat()
             assert not wd.fired
-            time.sleep(0.3)      # silence -> fire
+            clock.t += 0.3       # silence -> fire
+            assert fired.wait(timeout=30.0)
         assert fired.is_set() and wd.fired
 
     def test_retry_recovers_with_hook(self):

@@ -45,6 +45,7 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.convert, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
             "repro_torch.attention.backends, "
             "repro_torch.attention.reference; "

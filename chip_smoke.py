@@ -211,9 +211,25 @@ never JAX nor the JAX package. Phases:
    Every loss and grad norm on both ranks, and the gathered params, m,
    v and master, agree with it within the train-step limits of PERF.md
    section 2; each rank's resident state is the size of its shards; no
-   kernel launches. Each rank's step seconds and peak memory, and the
-   gradient bytes all-reduced a step, beside the card's name and power
-   limit. ``[shard]`` lines;
+   kernel launches; the all-reduce bytes each rank sent a step, counted
+   as they ran (``sharding.recording``), equal the gradient bytes. Each
+   rank's step seconds and peak memory, and the collective bytes it sent
+   a step by kind, beside the card's name and power limit. ``[shard]``
+   lines;
+5m. the dry run beside the card (ROADMAP item 11b), on the host's CPU
+   with no card memory, outside inference mode, budget ~90 s:
+   ``launch.dryrun`` traces, under ``FakeTensorMode``, phase 5j's cell
+   (qwen2-1.5b, S 4096, 8 microbatches of 1 x 4096, one device), phase
+   5l's (8 layers at (data 2, model 1), one rank) and qwen2-1.5b
+   train_4k on the 16x16 mesh at full width (one rank); each record's
+   FLOPs, bytes, collective bytes by kind, argument and peak bytes and
+   ``analyze(hw=H100_SXM)``'s three times are printed beside what 5j
+   and 5l measured in the same run. Asserted: every record ``ok``; the
+   5l cell's traced argument bytes equal the resident bytes 5l measured
+   a rank plus the global batch every rank takes; its traced all-reduce
+   bytes equal what 5l's ranks sent a step (counted as they ran,
+   ``sharding.recording``: 2,431,031,300); traced / measured peak within
+   0.5-2.0 for the 5j and 5l cells. ``[dry]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -4221,11 +4237,13 @@ def shard_rank_train(torch, rank, out_dir):
     batches = shard_batches(torch, cfg)
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
-    mets, secs = [], []
+    mets, secs, sent = [], [], []
     for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p, o, m = built.fn(p, o, b)
+        sent.append(shd.CollectiveLog())
+        with shd.recording(sent[-1]):
+            p, o, m = built.fn(p, o, b)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         mets.append({k: float(v) for k, v in m.items()})
@@ -4243,6 +4261,7 @@ def shard_rank_train(torch, rank, out_dir):
             "peak_bytes": peak, "resident_bytes": resident,
             "shard_bytes": want, "allocated_after_shard": allocated,
             "launched": launched, "grad_bytes_all_reduced": grad_bytes,
+            "sent_by_kind": [x.by_kind for x in sent],
             "paths": paths, "checksum": [int(t.contiguous().view(
                 {2: torch.int16, 4: torch.int32}[t.element_size()]).sum(
                     dtype=torch.int64)) for t in leaves],
@@ -4376,6 +4395,11 @@ def phase_sharded_train(torch, smi_line):
                   f"shards are {res['shard_bytes']} B")
             check(res["route"] == "broadcast", f"shard rank {r}: gather "
                   f"route {res['route']}, expected broadcast (gloo, CUDA)")
+            check(all(k.get("all-reduce") == res["grad_bytes_all_reduced"]
+                      for k in res["sent_by_kind"]),
+                  f"shard rank {r}: all-reduce bytes sent a step "
+                  f"{res['sent_by_kind']}, expected "
+                  f"{res['grad_bytes_all_reduced']:,}")
             for i, (got, want) in enumerate(zip(res["metrics"], ref)):
                 for k in ("loss", "grad_norm", "lr"):
                     check(abs(got[k] - want[k])
@@ -4421,6 +4445,11 @@ def phase_sharded_train(torch, smi_line):
                            for x in ranks},
            "grad_bytes_all_reduced_per_step":
                ranks[0]["grad_bytes_all_reduced"],
+           "sent_by_kind_per_step": ranks[0]["sent_by_kind"],
+           "resident_bytes": {f"rank{x['rank']}": x["resident_bytes"]
+                              for x in ranks},
+           "peak_bytes": {f"rank{x['rank']}": x["peak_bytes"]
+                          for x in ranks},
            "losses": [x["loss"] for x in ranks[0]["metrics"]],
            "grad_norms": [x["grad_norm"] for x in ranks[0]["metrics"]],
            "unsharded_losses": [x["loss"] for x in ref],
@@ -4433,6 +4462,7 @@ def phase_sharded_train(torch, smi_line):
             f"(torch.cuda.max_memory_allocated), resident state "
             f"{x['resident_bytes'] / 1e9:.3f} GB (= its shards), gradient "
             f"bytes all-reduced per step {x['grad_bytes_all_reduced']:,}, "
+            f"collective bytes sent a step by kind {x['sent_by_kind']}, "
             f"losses {[m['loss'] for m in x['metrics']]}; {smi_line}")
     log(f"[shard] unsharded step, 2 microbatches: step s "
         f"{[round(t, 3) for t in ref_s]}, peak {ref_peak / 1e9:.2f} GB, "
@@ -4440,6 +4470,102 @@ def phase_sharded_train(torch, smi_line):
         f"within the train-step limits, max |diff| {worst}; no kernel "
         f"launched; {smi_line}")
     return out
+
+
+# ------------------------------------------------- phase 5m: the dry run
+#: traced / measured peak memory the 5j and 5l cells must keep to
+DRY_PEAK_RATIO = (0.5, 2.0)
+
+
+def phase_dryrun(torch, trained, sharded, smi_line):
+    """The dry run beside the card (ROADMAP item 11b): ``launch.dryrun``
+    traces three cells on the host's CPU under ``FakeTensorMode`` (no
+    card memory, no kernel): phase 5j's (qwen2-1.5b, S 4096, 8
+    microbatches, one device), phase 5l's (8 layers, (data 2, model 1),
+    one rank) and qwen2-1.5b train_4k on the 16x16 mesh (one rank). Each
+    record is printed beside what 5j and 5l measured; the 5l cell's
+    argument bytes (its state, and the global batch every rank takes)
+    and all-reduce bytes must equal 5l's, and traced / measured peak lie
+    within ``DRY_PEAK_RATIO`` for the 5j and 5l cells."""
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.distribution.sharding import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline.hardware import H100_SXM
+    qwen = get_config("qwen2-1.5b")
+    cells = {
+        "5j": (qwen, ShapeConfig("train_5j", TRAIN_S, TRAIN_B, "train"),
+               None, 1),
+        "5l": (shard_cfg(), ShapeConfig("train_5l", SHARD_S, SHARD_B,
+                                        "train"),
+               Mesh((("data", SHARD_RANKS), ("model", 1))), SHARD_RANKS),
+        "train_4k 16x16": (qwen, SHAPES["train_4k"], make_production_mesh(),
+                           256)}
+    out = {}
+    for key, (cfg, shape, mesh, n_dev) in cells.items():
+        t0 = time.perf_counter()
+        try:
+            built, traced = dryrun.trace_cell(cfg, shape, mesh)
+            rec = dryrun.record(cfg, shape, n_dev, built, traced)
+        except Exception as e:  # noqa: BLE001 - a failed cell fails the phase
+            raise SmokeError(f"dry run of the {key} cell failed: "
+                             f"{type(e).__name__}: {e}") from e
+        rec["trace_s"] = time.perf_counter() - t0
+        r, m = rec["roofline"], rec["memory"]
+        check(r["hw"] == H100_SXM.name, f"{key}: priced on {r['hw']}")
+        out[key] = rec
+        log(f"[dry] {key} cell traced in {rec['trace_s']:.1f} s "
+            f"({built.meta['num_microbatches']} microbatches, {n_dev} "
+            f"device(s)): FLOPs {r['flops']:.4e} (FlopCounterMode "
+            f"{r['torch_flops']:.4e}), bytes {r['bytes_accessed']:.4e}, "
+            f"collective bytes by kind {r['coll_by_kind']}, argument "
+            f"{m['argument_bytes']:,} B, peak {m['peak_bytes']:,} B; "
+            f"analyze(hw=H100_SXM): compute {r['compute_t']:.4f} s, memory "
+            f"{r['memory_t']:.4f} s, collective {r['collective_t']:.4f} s, "
+            f"bottleneck {r['bottleneck']}, useful_ratio "
+            f"{r['useful_ratio']:.4f}")
+    j, sl = out["5j"], out["5l"]
+    batch = SHARD_B * SHARD_S * 4           # int32 tokens, taken whole
+    resident = sharded["resident_bytes"]["rank0"]
+    check(sl["memory"]["argument_bytes"] == resident + batch,
+          f"5l cell: traced argument bytes {sl['memory']['argument_bytes']:,}"
+          f" != 5l's resident {resident:,} + the batch {batch:,}")
+    sent = sharded["sent_by_kind_per_step"][0].get("all-reduce")
+    traced_ar = sl["roofline"]["coll_by_kind"].get("all-reduce")
+    check(traced_ar == sent == sharded["grad_bytes_all_reduced_per_step"],
+          f"5l cell: traced all-reduce bytes {traced_ar} != sent {sent}")
+    ratios = {
+        "5j": j["memory"]["peak_bytes"] / (trained["full"]["peak_mem_gb"]
+                                           * 1e9),
+        "5l": sl["memory"]["peak_bytes"] / max(sharded["peak_bytes"].values())}
+    for key, ratio in ratios.items():
+        check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
+              f"{key} cell: traced / measured peak {ratio:.3f} outside "
+              f"{DRY_PEAK_RATIO}")
+    steady = trained["full"]["steady_step_s"]
+    log(f"[dry] beside the card: 5j measured a steady step of {steady:.3f} s "
+        f"and a peak of {trained['full']['peak_mem_gb'] * 1e9:,.0f} B "
+        f"(traced / measured peak {ratios['5j']:.4f}); roofline times "
+        f"compute {j['roofline']['compute_t']:.4f} s, memory "
+        f"{j['roofline']['memory_t']:.4f} s, collective "
+        f"{j['roofline']['collective_t']:.4f} s. 5l measured {resident:,} B "
+        f"resident a rank (traced arguments {sl['memory']['argument_bytes']:,}"
+        f" B = it + the {batch:,} B batch), {sent:,} all-reduce bytes sent a "
+        f"step (traced {traced_ar:,.0f}), peak "
+        f"{max(sharded['peak_bytes'].values()):,} B (traced / measured "
+        f"{ratios['5l']:.4f}); {smi_line}")
+    return {k: {"memory": v["memory"], "trace_s": v["trace_s"],
+                "flops": v["roofline"]["flops"],
+                "torch_flops": v["roofline"]["torch_flops"],
+                "bytes": v["roofline"]["bytes_accessed"],
+                "coll_by_kind": v["roofline"]["coll_by_kind"],
+                "compute_t": v["roofline"]["compute_t"],
+                "memory_t": v["roofline"]["memory_t"],
+                "collective_t": v["roofline"]["collective_t"],
+                "useful_ratio": v["roofline"]["useful_ratio"],
+                "fits_hbm": v["fits_hbm"]} for k, v in out.items()} | {
+        "peak_ratio_traced_over_measured": ratios,
+        "measured_5j_steady_step_s": steady}
 
 
 def phase_timing_zamba2(torch, calls):
@@ -4853,6 +4979,8 @@ def main() -> int:
                 trained = timed("5j training", phase_train, torch, smi_line)
                 sharded = timed("5l sharded training", phase_sharded_train,
                                 torch, smi_line)
+                dry = timed("5m dry run", phase_dryrun, torch, trained,
+                            sharded, smi_line)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
                               olmoe_case, tp_case)
             prefill_timed = timed("6 prefill kernels timing",
@@ -5029,6 +5157,7 @@ def main() -> int:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
     log(f"[train] phase 5j {json.dumps(trained)}")
     log(f"[shard] phase 5l {json.dumps(sharded)}")
+    log(f"[dry] phase 5m {json.dumps(dry)}")
     log(f"[families] phase 5i {json.dumps({k: v for k, v in families.items() if k not in ('prefill', 'errs')})}")
     log(f"[granite] routes {json.dumps(granite)}")
     log(f"[moe] olmoe-1b-7b {json.dumps({k: v for k, v in moe.items() if k not in ('calls', 'prefill')})}")

@@ -46,7 +46,8 @@ import torch
 
 from repro_torch.autotune.cost import (CallSig, CostEstimate,
                                        SparsityEstimate, predict)
-from repro_torch.roofline.hardware import HardwareProfile, detect_profile
+from repro_torch.roofline.hardware import (HardwareProfile, detect_profile,
+                                           get_profile)
 
 #: env var naming a JSON warm-start cache for the process-default tuner.
 TUNER_CACHE_ENV = "REPRO_TUNER_CACHE"
@@ -375,3 +376,7 @@ def set_default_tuner(tuner: Optional[Tuner]) -> None:
 
 def reset_default_tuner() -> None:
     set_default_tuner(None)
+
+
+def get_profile_by_name(name: str) -> HardwareProfile:
+    return get_profile(name)

@@ -24,22 +24,24 @@ def _inner(node) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
+def _walk(node, path, leaves, paths) -> None:
+    if node is None:
+        return
+    if _inner(node):
+        for key, child in _children(node):
+            _walk(child, path + key, leaves, paths)
+    else:
+        leaves.append(node)
+        paths.append(path)
+
+
 def flatten_with_paths(tree) -> Tuple[List[Any], List[str]]:
     """(leaves, paths) in JAX's flatten order; each path is the leaf's
     ``jax.tree_util.keystr`` (e.g. ``"['params']['embed']['tok']"``)."""
     leaves, paths = [], []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if _inner(node):
-            for key, child in _children(node):
-                walk(child, path + key)
-        else:
-            leaves.append(node)
-            paths.append(path)
-
-    walk(tree, "")
+    # module-level recursion: a closure calling itself would be a
+    # reference cycle holding the leaves until the cyclic collector runs
+    _walk(tree, "", leaves, paths)
     return leaves, paths
 
 
@@ -47,22 +49,22 @@ def leaves(tree) -> List[Any]:
     return flatten_with_paths(tree)[0]
 
 
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}       # keep like's key order
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
+
+
 def unflatten(like, new_leaves) -> Any:
     """A tree with ``like``'s structure (and container types) whose
     leaves, in JAX's order, are ``new_leaves``."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}       # keep like's key order
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree holds")
     return out

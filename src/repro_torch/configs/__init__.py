@@ -17,5 +17,6 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig,
     cell_applicable,
     get_config,
+    list_configs,
     reduced,
 )

@@ -121,6 +121,12 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]()
 
 
+def list_configs() -> Tuple[str, ...]:
+    """The registered architecture names, sorted."""
+    _ensure_imported()
+    return tuple(sorted(_REGISTRY))
+
+
 def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     """Is (arch x shape) runnable? Returns (ok, reason-if-skipped)."""
     if shape.name == "long_500k" and not cfg.sub_quadratic:

@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distribution.collectives import group_max, group_mean
+
 F32 = torch.float32
 
 #: reserved int8 code marking a poisoned position (never produced by
@@ -156,7 +158,8 @@ def calib_scale(x: torch.Tensor, int_bits: int, mode: str) -> torch.Tensor:
         return torch.ones((), dtype=F32, device=x.device)
     xf = x.to(F32)
     if mode == "max":
-        m = xf.abs().max()
+        # the whole batch's maximum, where a mesh step holds some rows
+        m = group_max(xf.abs().max())
         # tensor / tensor: a python scalar on the left would become
         # reciprocal(m) * c, which rounds differently from jnp's division
         # (a device fill, not a host copy: a captured decode graph holds it)
@@ -164,7 +167,7 @@ def calib_scale(x: torch.Tensor, int_bits: int, mode: str) -> torch.Tensor:
                        device=x.device)
         return c / torch.clamp(m, min=1e-6)
     if mode == "rms":
-        r = torch.sqrt(torch.sum(xf * xf) * (1.0 / xf.numel()))
+        r = torch.sqrt(group_mean(torch.sum(xf * xf) * (1.0 / xf.numel())))
         c = torch.full((), 2.0 ** max(int_bits - 2, 0), dtype=F32,
                        device=x.device)
         return c / torch.clamp(r, min=1e-6)

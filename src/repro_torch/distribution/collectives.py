@@ -12,7 +12,11 @@ data-parallel group (``data_parallel``), differentiably: the sharded
 train step runs each rank's rows of a microbatch, and a statistic over
 the microbatch's rows (the MoE load-balancing loss's expert shares) must
 be the whole microbatch's, as in the reference, where the batch is one
-array.
+array. ``group_max`` takes the group's maximum the same way (HDP's
+per-tensor calibration scale, in the mesh train, prefill and decode
+steps), its cotangent sent to the rank that holds the maximum.
+Both go through ``sharding.all_reduce_axes``, so they record what they
+send and only record on a traced mesh.
 """
 from __future__ import annotations
 
@@ -103,3 +107,44 @@ def group_mean(x: torch.Tensor) -> torch.Tensor:
         return x
     return _GroupMean.apply(x, mesh, axes, 1.0 / n)
 
+
+class _GroupMax(torch.autograd.Function):
+    """y = the maximum of x over the group's ranks. The cotangent goes
+    where the reference's ``max`` sends it, to the maximum: each rank's
+    cotangent of x is the sum of the ranks' cotangents of y over the
+    number of ranks whose x is the maximum, on a rank that holds it, and
+    0 elsewhere (the sharded step sums the ranks' gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        from repro_torch.distribution.sharding import all_reduce_axes
+        y = all_reduce_axes(x.clone(), mesh, axes, op="max")
+        ctx.group = (mesh, axes)
+        ctx.save_for_backward((x == y).to(x.dtype))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distribution.sharding import all_reduce_axes
+        mesh, axes = ctx.group
+        held, = ctx.saved_tensors
+        # one all-reduce: the cotangents' sum and the holders' count
+        tot = all_reduce_axes(torch.stack([g.to(held.dtype), held]), mesh,
+                              axes)
+        return (tot[0] * held / tot[1]).to(g.dtype), None, None
+
+
+def group_max(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a scalar) maximized over the ambient data-parallel group's
+    ranks (``data_parallel``), differentiably; ``x`` itself outside one,
+    or in a group of one."""
+    group = getattr(_ctx, "group", None)
+    if group is None:
+        return x
+    mesh, axes = group
+    n = 1
+    for a in axes:
+        n *= mesh.shape.get(a, 1)
+    if n == 1:
+        return x
+    return _GroupMax.apply(x, mesh, axes)

@@ -21,6 +21,17 @@ is split major to minor, as in JAX. ``shard_activation`` returns its
 input, because the port's SPMD ranks slice and gather explicitly
 (``distribution.tp``, ``training.train_loop``) instead of asking a
 compiler to reshard.
+
+The collectives record what they send. Inside ``recording(log)`` each
+gather, broadcast and all-reduce calls ``log.add(kind, operand_bytes,
+output_bytes)`` under the kind names of the reference's HLO cost model
+(``all-gather``, ``collective-broadcast``, ``all-reduce``) with its
+operand-bytes convention; on real ranks they also run (count mode). A
+*traced* mesh (``launch.mesh.traced_mesh``) is bound to one chosen
+rank's coordinates with no process groups: there they only record and
+return a tensor of the right shape, which is how the dry run
+(``python -m repro_torch.launch.dryrun``) follows one rank's step under
+``FakeTensorMode``.
 """
 from __future__ import annotations
 
@@ -60,13 +71,16 @@ class Mesh:
     bound to ranks also carries this rank's ``coords`` and, for each
     axis it made a process group for, that group (``groups``) and its
     global ranks in axis order (``group_ranks``): a serving mesh has the
-    ``model`` axis's, a training mesh every axis's.
+    ``model`` axis's, a training mesh every axis's. A traced mesh has
+    ``coords`` and no groups (``traced``).
     """
 
     axes: Tuple[Tuple[str, int], ...]
     coords: Optional[Dict[str, int]] = None
     groups: Optional[Dict[str, Any]] = None
     group_ranks: Optional[Dict[str, Tuple[int, ...]]] = None
+    #: bound to ``coords`` but to no process: collectives only record
+    traced: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -89,7 +103,7 @@ class Mesh:
         return math.prod(s for _, s in self.axes)
 
     def __repr__(self) -> str:
-        return f"Mesh({dict(self.axes)})"
+        return f"Mesh({dict(self.axes)}{', traced' if self.traced else ''})"
 
 
 # -------------------------------------------------------------------- rules
@@ -127,6 +141,7 @@ RULES_FSDP_TP = dict(RULES_TP, embed=("pod", "data"))
 class _Ctx(threading.local):
     mesh: Optional[Mesh] = None
     rules: Optional[Dict[str, Axis]] = None
+    logs: Tuple = ()
 
 
 _CTX = _Ctx()
@@ -270,13 +285,43 @@ def _parts(spec: Sequence, ndim: int) -> list:
 
 
 def require_ranks(mesh: Mesh) -> Dict[str, int]:
-    """This rank's coordinates on ``mesh``; an abstract mesh raises."""
+    """This rank's coordinates on ``mesh`` (bound to ranks, or traced);
+    an abstract mesh raises."""
     if mesh.coords is None:
         raise NotImplementedError(
             f"{mesh!r} is abstract (bound to no ranks): a step on the "
-            "production meshes is lowered, not run (the dry run, ROADMAP.md "
-            "section 1, item 11b)")
+            "production meshes is traced per shard, not run: python -m "
+            "repro_torch.launch.dryrun")
     return mesh.coords
+
+
+@contextlib.contextmanager
+def recording(log):
+    """Record every collective called in this thread into ``log`` (an
+    object with ``add(kind, operand_bytes, output_bytes)``) while the
+    block runs; recordings nest."""
+    prev = _CTX.logs
+    _CTX.logs = prev + (log,)
+    try:
+        yield log
+    finally:
+        _CTX.logs = prev
+
+
+class CollectiveLog:
+    """Operand bytes by kind (``recording``'s plain log)."""
+
+    def __init__(self):
+        self.by_kind: Dict[str, int] = {}
+
+    def add(self, kind: str, operand_bytes: int, output_bytes: int) -> None:
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + int(operand_bytes)
+
+
+def _record(kind: str, operand, output) -> None:
+    for log in _CTX.logs:
+        log.add(kind, operand.numel() * operand.element_size(),
+                output.numel() * output.element_size())
 
 
 def map_specs(fn, tree, *specs):
@@ -347,14 +392,19 @@ def gather_axis(x, dim: int, mesh: Mesh, axis: str,
                 route: Optional[str] = None):
     """Exact concatenation along ``dim`` of the shards that the ranks of
     this rank's ``axis`` group hold, in axis order: the same tensor on
-    every rank of the group. ``route`` forces one of ``GATHER_ROUTES``
-    (default: ``gather_route``)."""
+    every rank of the group, contiguous. ``route`` forces one of
+    ``GATHER_ROUTES`` (default: ``gather_route``; ``all_gather`` on a
+    traced mesh)."""
     import torch
     n = int(mesh.shape.get(axis, 1))
     if n == 1:
         return x
-    group, ranks = mesh.groups[axis], mesh.group_ranks[axis]
-    route = route or gather_route(group, x.device)
+    if mesh.traced:
+        group = ranks = None
+        route = route or "all_gather"   # what NCCL ranks of their own take
+    else:
+        group, ranks = mesh.groups[axis], mesh.group_ranks[axis]
+        route = route or gather_route(group, x.device)
     if route not in GATHER_ROUTES:
         raise ValueError(f"route must be one of {GATHER_ROUTES}, got "
                          f"{route!r}")
@@ -363,16 +413,22 @@ def gather_axis(x, dim: int, mesh: Mesh, axis: str,
         # the concatenated output form (gloo takes no other)
         full = torch.empty((n * xc.shape[0],) + tuple(xc.shape[1:]),
                            dtype=xc.dtype, device=xc.device)
-        _all_gather(full, xc, group)
+        _record("all-gather", xc, full)
+        if not mesh.traced:
+            _all_gather(full, xc, group)
     else:
-        dist, me = _dist(), require_ranks(mesh)[axis]
+        me = require_ranks(mesh)[axis]
         parts = []
-        for i, src in enumerate(ranks):
+        for i in range(n):
             part = xc if i == me else torch.empty_like(xc)
-            dist.broadcast(part, src=src, group=group)
+            _record("collective-broadcast", part, part)
+            if not mesh.traced:
+                _dist().broadcast(part, src=ranks[i], group=group)
             parts.append(part)
         full = torch.cat(parts)
-    return full.movedim(0, dim)
+    # in the full tensor's own layout: a strided view would send a matmul
+    # down another kernel, whose sums round apart from the unsharded step's
+    return full.movedim(0, dim).contiguous()
 
 
 def reshard(x, src: Sequence, dst: Sequence, mesh: Mesh):
@@ -396,11 +452,17 @@ def gather_full(x, spec: Sequence, mesh: Mesh):
     return reshard(x, spec, (), mesh)
 
 
-def all_reduce_axes(x, mesh: Mesh, axes: Sequence[str]):
-    """``x`` summed in place over this rank's group of each of ``axes``
-    (an axis the mesh lacks, or of size 1, is skipped); returns ``x``."""
+def all_reduce_axes(x, mesh: Mesh, axes: Sequence[str], op: str = "sum"):
+    """``x`` reduced in place (``op`` "sum" or "max") over this rank's
+    group of each of ``axes`` (an axis the mesh lacks, or of size 1, is
+    skipped); returns ``x``. On a traced mesh ``x`` is returned as it is
+    (only recorded)."""
     for a in axes:
         if mesh.shape.get(a, 1) > 1:
-            _dist().all_reduce(x, group=mesh.groups[a])
+            _record("all-reduce", x, x)
+            if not mesh.traced:
+                dist = _dist()
+                red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+                dist.all_reduce(x, op=red[op], group=mesh.groups[a])
     return x
 

@@ -7,7 +7,8 @@ headers it includes and the flags, so an edited source never loads a
 stale library). The build happens at first
 use, never at import; ``build_all`` starts one nvcc per source at once.
 A failed build raises with nvcc's output. ``RunCounter`` is the count
-on the card that a kernel keeps of its own runs.
+on the card that a kernel keeps of its own runs. ``refuse_trace`` keeps
+the wrappers out of a dry-run trace.
 """
 from __future__ import annotations
 
@@ -27,6 +28,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def refuse_trace(name: str, t: torch.Tensor) -> None:
+    """Raise where a kernel wrapper is given a ``FakeTensor``: a dry-run
+    trace (``roofline/trace_cost.py``) counts no plain version in a
+    kernel's place, and no kernel can run on a tensor without data."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        raise RuntimeError(f"{name} was reached during a dry-run trace: the "
+                           "traced steps run no hand kernel")
 
 
 def find_nvcc() -> str:

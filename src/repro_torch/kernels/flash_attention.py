@@ -78,6 +78,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"all inputs must be on {q.device}")
+    build.refuse_trace("flash_attention", q)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      block_q=block_q, block_k=block_k)

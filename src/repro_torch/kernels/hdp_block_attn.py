@@ -140,6 +140,7 @@ def hdp_block_sparse_attention(q, k, v, kv_idx, counts, head_kept, *,
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, got "
                              f"{t.device}")
+    build.refuse_trace("hdp_block_sparse_attention", q)
     if q.device.type == "cpu":
         return hdp_block_sparse_attention_plain(
             q, k, v, kv_idx, counts, head_kept, causal=causal,

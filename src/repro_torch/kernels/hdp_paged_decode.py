@@ -148,6 +148,7 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
     quantized = k_scale is not None
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
+    build.refuse_trace("hdp_paged_fum_decode", qq)
     if qq.device.type == "cpu":
         return hdp_paged_fum_decode_ref(
             qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,

@@ -102,6 +102,7 @@ def hdp_scout(iq, ik, *, rho_b: float, block_q: int = 128,
         raise ValueError("block sizes must be >= 1")
     if path not in (None,) + PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    build.refuse_trace("hdp_scout", iq)
     if iq.device.type == "cpu":
         return hdp_scout_plain(iq, ik, rho_b=rho_b, block_q=block_q,
                                block_k=block_k, causal=causal,

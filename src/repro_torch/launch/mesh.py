@@ -4,7 +4,10 @@ PyTorch counterpart of ``repro.launch.mesh``:
 
 * ``make_production_mesh`` — the production shapes, (data=16, model=16)
   or (pod=2, data=16, model=16), as an *abstract* mesh bound to no ranks
-  (a planner lowers a cell per shard on it; nothing runs on 256 ranks);
+  (nothing runs on 256 ranks);
+* ``traced_mesh(mesh, rank)`` — the same axes bound to one rank's
+  coordinates with no process groups: the dry run traces that rank's
+  step on it (``launch.dryrun``);
 * ``make_serving_mesh(tp, dp)`` — (data=dp, model=tp) over the ranks of
   the initialized default process group, which plays the part of the
   reference's "devices present": rank r is data index r // tp and model
@@ -35,6 +38,20 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(tuple(zip(axes, shape)))
+
+
+def traced_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
+    """``mesh``'s axes bound to the coordinates of ``rank``, numbered
+    row-major over the axes (the last axis fastest, as
+    ``make_training_mesh`` numbers them), with no process groups: its
+    collectives record and return shapes (``sharding.gather_axis``)."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside {mesh!r} of {mesh.size}")
+    coords, r = {}, rank
+    for name, n in reversed(mesh.axes):
+        coords[name], r = r % n, r // n
+    return Mesh(mesh.axes, coords={a: coords[a] for a in mesh.axis_names},
+                traced=True)
 
 
 def world_size() -> int:

@@ -11,14 +11,19 @@ params by ``spec_for``, the optimizer's ``m``, ``v`` and ``master`` by
 holds them in the order of the step's arguments, as the reference's
 ``in_shardings``.
 
-A mesh bound to ranks (``launch.mesh.make_training_mesh``) gives the
-sharded train step (``train_loop.make_train_step(mesh=)``); ``mesh=None``
-is one device, on which every spec resolves over a (1, 1) mesh and the
-step is the unsharded one. A step built on the abstract production mesh
-(``make_production_mesh``) has its specs but raises when called: lowering
-cells on it is the dry run (ROADMAP.md section 1, item 11b). The prefill
-and decode steps run on one device; sharded serving is the engine's
-(``Engine(tp=)``). ``FSDP_THRESHOLD`` picks the FSDP rules and the
+A mesh bound to ranks (``launch.mesh.make_training_mesh``), or traced
+(``launch.mesh.traced_mesh``), gives one rank's sharded step
+(``train_loop.make_train_step(mesh=)``, ``make_prefill_step(mesh=)``,
+``make_decode_step(mesh=)``): params gathered on use, the rank's rows of
+the batch, the prefill and decode caches gathered over ``model`` and
+returned as the rank's shard. The ``model`` axis splits memory, not
+compute. ``mesh=None`` is one device, on which every spec resolves over
+a (1, 1) mesh and the step is the unsharded one. A step built on the
+abstract production mesh (``make_production_mesh``) has its specs but
+raises when called: its cells are traced per shard by the dry run
+(``python -m repro_torch.launch.dryrun``). Sharded serving is the
+engine's (``Engine(tp=)``); the mesh prefill and decode steps are what
+the dry run traces. ``FSDP_THRESHOLD`` picks the FSDP rules and the
 gradient accumulators' dtype (bf16 from 8e9 parameters), as in the
 reference.
 """
@@ -163,17 +168,18 @@ def _cache_abs(cfg, shape: ShapeConfig, kind: str):
     return registry.init_cache(cfg, B, max_len=max_len, device="meta", **kw)
 
 
-def _one_device(fn: Callable, mesh: Optional[Mesh], kind: str) -> Callable:
-    """``fn`` where the mesh is one device; else a function that raises."""
-    if mesh is None or (mesh.coords is not None and mesh.size == 1):
-        return fn
-
-    def refused(*args, **kw):
-        shd.require_ranks(mesh)         # an abstract mesh: item 11b
-        raise NotImplementedError(
-            f"the {kind} step runs on one device; serve sharded through "
-            f"Engine(tp=) (mesh {mesh!r})")
-    return refused
+def _on_mesh(make: Callable, mesh: Optional[Mesh], p_sh, c_sh) -> Callable:
+    """``make()``'s one-device step where the mesh is one device, one
+    rank's step on a mesh bound to ranks or traced; on an abstract mesh
+    a function that raises (``require_ranks``: the dry run traces it)."""
+    if mesh is None or (mesh.coords is not None and mesh.size == 1
+                        and not mesh.traced):
+        return make()
+    if mesh.coords is None:
+        def refused(*args, **kw):
+            shd.require_ranks(mesh)
+        return refused
+    return make(param_shardings=p_sh, cache_shardings=c_sh, mesh=mesh)
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -188,8 +194,9 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
                 _batch_shardings(batch_abs, on, rules),
                 _shardings_for(cache_abs, registry.cache_specs(cfg), on,
                                rules))
-    return BuiltStep(_one_device(make_prefill_step(cfg), mesh, "prefill"),
-                     (params_abs, batch_abs, cache_abs), rules,
+    fn = _on_mesh(lambda **kw: make_prefill_step(cfg, **kw), mesh,
+                  in_specs[0], in_specs[2])
+    return BuiltStep(fn, (params_abs, batch_abs, cache_abs), rules,
                      {"kind": "prefill"}, in_specs)
 
 
@@ -207,8 +214,9 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
                 _shardings_for(cache_abs, registry.cache_specs(cfg), on,
                                rules),
                 None)
-    return BuiltStep(_one_device(make_decode_step(cfg), mesh, "decode"),
-                     (params_abs, ins["token"], cache_abs, ins["pos"]),
+    fn = _on_mesh(lambda **kw: make_decode_step(cfg, **kw), mesh,
+                  in_specs[0], in_specs[2])
+    return BuiltStep(fn, (params_abs, ins["token"], cache_abs, ins["pos"]),
                      rules, {"kind": "decode"}, in_specs)
 
 

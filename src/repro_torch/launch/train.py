@@ -16,11 +16,12 @@ shards of the optimizer state, and trains on its rows of every batch
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen2-1.5b --reduced --steps 3 --mesh cpu --device cpu
 
-``--mesh single`` and ``multi`` name the production meshes, which are
-lowered by the dry run and not run (ROADMAP.md section 1, item 11b):
-they raise. Checkpoints keep the unsharded format: a sharded run
-gathers the state and rank 0 writes it, and every rank restores by
-slicing, so sharded and unsharded runs resume each other.
+``--mesh single`` and ``multi`` name the production meshes, whose steps
+are traced per shard by the dry run (``python -m
+repro_torch.launch.dryrun``) and not run: they raise. Checkpoints keep
+the unsharded format: a sharded run gathers the state and rank 0 writes
+it, and every rank restores by slicing, so sharded and unsharded runs
+resume each other.
 Features exercised end-to-end: the train step (``steps.build_train_step``:
 grad accumulation over ``micro_batches``, bf16 gradient compression,
 AdamW with fp32 master weights), deterministic host-sharded data through
@@ -105,9 +106,9 @@ def _mesh_for(args):
         return None
     if args.mesh in ("single", "multi"):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes are lowered by the "
-            "dry run, not run (ROADMAP.md section 1, item 11b); use --mesh "
-            "cpu under torchrun")
+            f"--mesh {args.mesh}: a step on the production meshes is traced "
+            "per shard, not run: python -m repro_torch.launch.dryrun; use "
+            "--mesh cpu under torchrun")
     return make_training_mesh(model=args.tp)
 
 

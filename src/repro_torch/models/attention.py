@@ -984,11 +984,16 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
             if mode != "prefill" or positions.dim() != 1:
                 raise ValueError("a request cache is filled by prefill "
                                  "with shared positions")
-            # the cross cache takes the encoder's K/V at 0
-            pos0 = int(positions[0]) if enc_out is None else 0
+            # the cross cache takes the encoder's K/V at 0; the self cache
+            # at the (consecutive) positions, written by index so that no
+            # position is read back to the host
             Sk = k.shape[1]
-            cache["k"][:, pos0:pos0 + Sk] = k.to(cache["k"].dtype)
-            cache["v"][:, pos0:pos0 + Sk] = v.to(cache["v"].dtype)
+            if enc_out is None:
+                cache["k"].index_copy_(1, positions, k.to(cache["k"].dtype))
+                cache["v"].index_copy_(1, positions, v.to(cache["v"].dtype))
+            else:
+                cache["k"][:, :Sk] = k.to(cache["k"].dtype)
+                cache["v"][:, :Sk] = v.to(cache["v"].dtype)
             k_full, v_full = cache["k"], cache["v"]
             k_pos = torch.arange(k_full.shape[1], device=x.device)
             if enc_out is None:

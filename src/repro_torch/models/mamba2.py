@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.loops import gathered, trips
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -81,12 +82,12 @@ def _ssd_scan(xh, dt, decay, Bm, Cm, s0):
     [B,T,N]; s0 [B,H,P,N]. Returns (y [B,T,H,P], the final state)."""
     S = s0
     ys = []
-    for t in range(xh.shape[1]):
+    for t in trips(xh.shape[1], carry=True):   # a trace: four steps
         xdt = xh[:, t] * dt[:, t, :, None]              # [B,H,P]
         S = decay[:, t, :, None, None] * S \
             + xdt[..., None] * Bm[:, t, None, None, :]  # outer product
         ys.append(torch.einsum("bhpn,bn->bhp", S, Cm[:, t]))
-    return torch.stack(ys, dim=1), S
+    return gathered(ys, xh.shape[1], 1), S
 
 
 def _ssd_chunked(xh, dt, log_decay, Bm, Cm, s0, chunk: int):
@@ -105,8 +106,8 @@ def _ssd_chunked(xh, dt, log_decay, Bm, Cm, s0, chunk: int):
                                  device=xh.device))
     S = s0
     ys = []
-    for c0 in range(0, T, Lc):
-        sl = slice(c0, c0 + Lc)
+    for c in trips(T // Lc, carry=True):   # a trace: four chunks
+        sl = slice(c * Lc, (c + 1) * Lc)
         xc, dtc, ldc, bc, cc = (xh[:, sl], dt[:, sl], log_decay[:, sl],
                                 Bm[:, sl], Cm[:, sl])
         lcum = torch.cumsum(ldc, dim=1)               # [B,L,H]
@@ -124,7 +125,7 @@ def _ssd_chunked(xh, dt, log_decay, Bm, Cm, s0, chunk: int):
         S = S * torch.exp(lcum[:, -1])[..., None, None] + torch.einsum(
             "blhp,bln->bhpn", xc * wj[..., None], bc)
         ys.append(y)
-    return torch.cat(ys, dim=1), S
+    return gathered(ys, T // Lc, 1, cat=True), S
 
 
 def _softplus(x):

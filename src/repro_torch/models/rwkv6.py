@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.loops import gathered, trips
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -103,13 +104,13 @@ def _wkv_scan(r, k, v, w, u, s0):
     Returns (y [B,T,H,hd_v], the final state)."""
     S = s0
     ys = []
-    for t in range(r.shape[1]):
+    for t in trips(r.shape[1], carry=True):    # a trace: four steps
         rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
         kv = kt[..., :, None] * vt[..., None, :]        # outer product
         ys.append(torch.einsum("bhi,bhij->bhj", rt,
                                S + u[None, :, :, None] * kv))
         S = wt[..., None] * S + kv
-    return torch.stack(ys, dim=1), S
+    return gathered(ys, r.shape[1], 1), S
 
 
 def _time_mix(cfg, p, x, x_prev, state):

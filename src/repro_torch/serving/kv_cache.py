@@ -23,7 +23,7 @@ donates its buffers to a jitted call and receives the aliased result.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -452,3 +452,20 @@ class PagedKVCache:
         scales, scout views) is head-sharded, so each of the tp shards
         holds exactly 1/tp of the pool."""
         return cache_bytes(self.cache)
+
+
+def kv_read_bytes_per_step(cfg, seq_len: int, batch: int,
+                           hdp_block_sparsity: float = 0.0) -> Tuple[int, int]:
+    """(dense, hdp) bytes read from the KV cache per decode step.
+
+    The FUM accounting: pruned KV blocks are never fetched, so HDP decode
+    reads ``(1 - sparsity)`` of K/V (the int8 scout copy of K always
+    streams). The itemsize is the config's dtype's."""
+    if not hasattr(cfg, "n_kv_heads") or cfg.n_kv_heads == 0:
+        return 0, 0
+    itemsize = L.torch_dtype(cfg.dtype).itemsize
+    layers = cfg.n_layers
+    kv = 2 * layers * batch * seq_len * cfg.n_kv_heads * cfg.hd * itemsize
+    scout = layers * batch * seq_len * cfg.n_kv_heads * cfg.hd  # int8 K
+    hdp = int(scout + (1.0 - hdp_block_sparsity) * kv)
+    return int(kv), hdp

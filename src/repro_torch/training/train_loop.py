@@ -10,7 +10,8 @@ Divisions by a constant count are products with its reciprocal, as XLA
 compiles the reference's under ``jax.jit``. With a mesh, the step is one
 rank's of the sharded step (``make_train_step(mesh=)``): params held as
 shards, gathered on use; the optimizer state in ZeRO-1 shards; the
-gradients all-reduced over the data-parallel axes.
+gradients all-reduced over the data-parallel axes. The prefill and decode
+steps on a mesh gather on use too (``_sharded_serving``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.attention.registry import default_spec
 from repro_torch.common import tree
+from repro_torch.common.loops import trips
 from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.collectives import (data_parallel,
                                                   maybe_compress, round_bf16)
@@ -82,7 +85,7 @@ def _accumulate(cfg, params, batch, m: int, grad_compression: str,
         lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
         params)
     loss = torch.zeros((), dtype=F32, device=tree.leaves(params)[0].device)
-    for i in range(m):
+    for i in trips(m):      # identical splits: a trace counts one m times
         l_i, grads = one(tree.tree_map(lambda x: x[i], micro))
         g_acc = tree.tree_map(
             lambda a, g: (a.to(F32) + g.to(F32) * inv).to(accum_dtype),
@@ -239,18 +242,111 @@ def gather_state(state, specs, mesh):
                          specs)
 
 
-def make_prefill_step(cfg) -> Callable:
+def _only(spec, axes):
+    """``spec`` with each dim keeping only the mesh axes in ``axes``."""
+    parts = []
+    for part in spec:
+        names = tuple(a for a in ((part,) if isinstance(part, str)
+                                  else part or ()) if a in axes)
+        parts.append(names[0] if len(names) == 1 else (names or None))
+    return shd.PartitionSpec(*parts)
+
+
+def _own(x, spec, mesh):
+    """This rank's shard of ``x`` under ``spec``, a tensor of its own
+    where anything was cut (so the gathered tensor can be freed)."""
+    part = shd.local_slice(x, spec, mesh)
+    return part.clone() if part.shape != x.shape else part
+
+
+def _sharded_serving(step, p_specs, c_specs, mesh) -> Callable:
+    """One rank's prefill or decode step on ``mesh`` (bound to ranks, or
+    traced), gathering on use as ``_sharded_step`` does: the rank takes
+    its rows of the global batch (or tokens) over ``("pod", "data")``,
+    gathers every params leaf in full and its cache shard over the axes
+    its spec names beyond the batch (``kv_heads`` or ``kv_seq`` on
+    ``model``, by ``launch.steps.choose_rules``), runs ``step`` on them,
+    and returns the outputs of its rows with its own shard of the new
+    cache. A statistic over the batch is the data-parallel group's
+    (``collectives.group_max`` in HDP's calibration), so each row equals
+    the one-device step's. On ``model`` the ranks hold disjoint shards
+    and compute the same rows: that axis splits memory, not compute."""
+    axes = data_axes(mesh)
+    rest = tuple(a for a in mesh.axis_names if a not in axes)
+
+    def sharded(params, inputs, cache, *args):
+        shd.require_ranks(mesh)
+        first = tree.leaves(inputs)[0]
+        rows = local_rows(mesh, first.shape[0], 1)
+        if rows is not None:
+            idx = torch.tensor(rows, device=first.device)
+            inputs = tree.tree_map(lambda x: x.index_select(0, idx), inputs)
+        full = shd.map_specs(lambda p, s: shd.gather_full(p, s, mesh),
+                             params, p_specs)
+        cache = shd.map_specs(
+            lambda c, s: shd.reshard(c, s, _only(s, axes), mesh), cache,
+            c_specs)
+        # a statistic over the batch (HDP's calibration scale) is the
+        # whole batch's, as on one device
+        split = rows is not None and shd.shard_index(mesh, axes)[1] > 1
+        with data_parallel(mesh, axes if split else ()):
+            *outs, new_cache = step(full, inputs, cache, *args)
+        del full, cache
+        return (*outs, shd.map_specs(lambda c, s: _own(c, _only(s, rest),
+                                                       mesh),
+                                     new_cache, c_specs))
+
+    return sharded
+
+
+def make_prefill_step(cfg, *, param_shardings=None, cache_shardings=None,
+                      mesh=None) -> Callable:
+    """prefill_step(params, batch, cache) -> (logits, cache). With a mesh
+    bound to ranks (or traced) it is one rank's step: ``params`` and
+    ``cache`` hold this rank's shards by ``param_shardings`` and
+    ``cache_shardings`` (``launch.steps.build_prefill_step``'s specs),
+    the batch is the global one, and the logits and cache are this
+    rank's rows and shard (``_sharded_serving``)."""
     def prefill_step(params, batch, cache):
-        logits, new_cache, _ = registry.apply_prefill(cfg, params, batch,
-                                                      cache)
+        # the reference's step threads no spec, and its attention writes
+        # K/V into the cache as projected; the port's no-spec default is
+        # its engine's int8 pool, which would snap them to the pool grid
+        logits, new_cache, _ = registry.apply_prefill(
+            cfg, params, batch, cache,
+            attn=default_spec().replace(kv_dtype="fp32"))
         return logits, new_cache
-    return prefill_step
+    if mesh is None:
+        return prefill_step
+    return _sharded_serving(prefill_step, param_shardings, cache_shardings,
+                            mesh)
 
 
-def make_decode_step(cfg) -> Callable:
+def make_decode_step(cfg, *, param_shardings=None, cache_shardings=None,
+                     mesh=None) -> Callable:
+    """decode_step(params, token, cache, pos) -> (next tokens, logits,
+    cache); ``pos`` a scalar (every row at one position, the reference's
+    aligned batch) or per-row positions. With a mesh, one rank's step as
+    ``make_prefill_step``'s: ``token`` is the global one, ``pos`` a
+    scalar, the outputs its rows and its cache shard."""
     def decode_step(params, token, cache, pos):
+        if pos.dim() == 0:
+            # the reference's aligned batch: every row at one position
+            # (the port's dense caches take per-row positions)
+            B, S = token.shape
+            pos = (pos + torch.arange(S, dtype=pos.dtype,
+                                      device=pos.device)).expand(B, S)
         logits, new_cache, _ = registry.apply_decode(cfg, params, token,
                                                      cache, pos)
         next_tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         return next_tok, logits, new_cache
-    return decode_step
+    if mesh is None:
+        return decode_step
+    step = _sharded_serving(decode_step, param_shardings, cache_shardings,
+                            mesh)
+
+    def mesh_decode_step(params, token, cache, pos):
+        if pos.dim():
+            raise ValueError("a decode step on a mesh takes one position "
+                             f"for every row (a scalar), got {pos.shape}")
+        return step(params, token, cache, pos)
+    return mesh_decode_step

@@ -48,7 +48,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.train, repro_torch.launch.steps, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
             "repro_torch.attention.backends, "
-            "repro_torch.attention.reference; "
+            "repro_torch.attention.reference, repro_torch.launch.dryrun, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.trace_cost; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

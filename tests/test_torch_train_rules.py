@@ -20,7 +20,7 @@ the small meshes (1, 2), (2, 1), (2, 2) and (1, 4); the port's on its own
 * a shard's place in its tensor: ``local_slice`` over the coordinates of
   a (pod, data, model) mesh tiles the tensor major to minor, and a step
   on the abstract production mesh, or ``launch.train --mesh single``,
-  raises and names item 11b.
+  raises and names the dry run (``python -m repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -225,26 +225,27 @@ def test_local_slices_tile_major_to_minor():
                     shd.PartitionSpec("data"), one)
 
 
-def test_production_mesh_steps_raise_naming_11b():
+def test_production_mesh_steps_raise_naming_the_dry_run():
     """Specs resolve on the abstract production mesh; running a step on
-    it raises and names the dry run's item."""
+    it raises and names the dry run, which traces it per shard."""
     cfg = get_config("qwen2-1.5b")
     mesh = make_production_mesh()
     built = steps.build_train_step(cfg, SHAPES["train_4k"], mesh)
     assert tuple(built.in_specs[0]["embed"]["tok"]) == ("model", None)
-    with pytest.raises(NotImplementedError, match="11b"):
+    dry = "repro_torch.launch.dryrun"
+    with pytest.raises(NotImplementedError, match=dry):
         built.fn(*built.args)
     for kind, shape in (("prefill", "prefill_32k"), ("decode", "decode_32k")):
         b = steps.build_step(cfg, SHAPES[shape], mesh)
         assert b.meta["kind"] == kind
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match=dry):
             b.fn(*b.args)
     from repro_torch.launch import train
     for m in ("single", "multi"):
         args = train.build_parser().parse_args(
             ["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
              "--mesh", m, "--steps", "1"])
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match=dry):
             train.run(args)
 
 

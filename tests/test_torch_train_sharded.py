@@ -20,6 +20,9 @@ visible step):
 * the same with bf16 gradient compression, with the FSDP rules
   (``fsdp=True``: ``embed`` dims over ``data`` as well), and with bf16
   gradient accumulators at (2, 1);
+* with HDP in training (``hdp.apply_in_training``) at (2, 1): the
+  calibration scale is the split's maximum over the ranks, its gradient
+  sent to the rank that holds it (``collectives.group_max``);
 * the (2, 1) run's gathered state against JAX's jitted
   ``build_train_step`` on its one-device mesh (the reference's sharded
   code path) from the same weights and batches;
@@ -65,13 +68,16 @@ def _batches(cfg, n=STEPS, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32))} for _ in range(n)]
 
 
-def _cfg(arch="qwen2-1.5b"):
-    return reduced(get_config(arch))
+def _cfg(arch="qwen2-1.5b", hdp=False):
+    cfg = reduced(get_config(arch))
+    if hdp:
+        cfg = cfg.replace(hdp=cfg.hdp.replace(apply_in_training=True))
+    return cfg
 
 
 # ------------------------------------------------------ functions per rank
 def train_rank(mshape, arch="qwen2-1.5b", comp="none", fsdp=None,
-               accum=None):
+               accum=None, hdp=False):
     """One rank of a sharded run: STEPS steps of NM microbatches from
     SEED's weights; its coords, per-step metrics, local params and opt
     state, their specs, and the state gathered in full. ``accum`` makes
@@ -80,7 +86,7 @@ def train_rank(mshape, arch="qwen2-1.5b", comp="none", fsdp=None,
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_training_mesh
     from repro_torch.training.train_loop import gather_state, shard_state
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, hdp)
     mesh = make_training_mesh(model=mshape[-1])
     assert tuple(mesh.shape.values()) == tuple(mshape)
     shape = ShapeConfig("t", S, B, "train")
@@ -107,8 +113,9 @@ def train_rank(mshape, arch="qwen2-1.5b", comp="none", fsdp=None,
             "full": gather_state({"params": p, "opt": o}, specs, mesh)}
 
 
-def unsharded(arch="qwen2-1.5b", comp="none", accum=torch.float32):
-    cfg = _cfg(arch)
+def unsharded(arch="qwen2-1.5b", comp="none", accum=torch.float32,
+              hdp=False):
+    cfg = _cfg(arch, hdp)
     step = make_train_step(cfg, opt.OptConfig(**OCFG), num_microbatches=NM,
                            grad_compression=comp, accum_dtype=accum)
     params = registry.init_params(cfg, SEED, "cpu")
@@ -250,6 +257,19 @@ def test_bf16_accumulators_equal_unsharded(world):
     gradient before it accumulates."""
     ranks = world.run(train_rank, (2, 1), accum=torch.bfloat16)
     check_ranks(ranks, unsharded(accum=torch.bfloat16), (2, 1))
+
+
+def test_hdp_in_training_equals_unsharded(world):
+    """``hdp.apply_in_training`` at (2, 1): HDP's calibration scale is the
+    whole split's maximum (``collectives.group_max``, each rank holding
+    one of its rows), and its cotangent reaches the rank that holds the
+    maximum, so loss, grad norm and state equal the unsharded step's."""
+    ranks = world.run(train_rank, (2, 1), hdp=True)
+    want = unsharded(hdp=True)
+    check_ranks(ranks, want, (2, 1))
+    # HDP moved the loss: it is not the dense one
+    dense = unsharded()
+    assert want["metrics"][0]["loss"] != dense["metrics"][0]["loss"]
 
 
 def test_gathered_state_equals_jax_build_train_step(data2):

@@ -27,8 +27,10 @@ never JAX nor the JAX package. Phases:
    bad-input NaN); the block-sparse FUM attention on the
    prefill and the paged-decode routes and flash attention (atol = rtol
    = 1e-4 with fp32 V, 2e-2 with bf16 V) on both of their paths, the
-   tensor-core path also at S 4000, hd 64, non-causal, with a gated head
-   and with a q tile that lists no block (each call's path asserted);
+   tensor-core path also at S 4000, hd 64 and hd 112 (zamba2-7b's,
+   padded to 128 columns in shared memory), non-causal, with a gated head
+   and with a q tile that lists no block, and the tile paths at hd 112 in
+   fp32 (each call's path asserted);
    scout, block and flash also at olmoe's 16 heads (MHA);
    the no-read poison checks;
 4. aligned prefill — qwen2-1.5b at full width (bf16, seeded weights),
@@ -173,9 +175,10 @@ never JAX nor the JAX package. Phases:
    prefill call per prompt, no decode kernel: rwkv6 decodes on "none",
    zamba2 on ``xla_hdp``), tok/s, ``prefill_s`` and ``graph_capture_s``
    printed; zamba2's aligned prefill (B 1, S 4096, 32 heads at hd 112)
-   through the scout on its dp4a path and the block kernel on its tile
-   path (HDP on) and flash on its tile path (HDP off), 13 launches each,
-   each held against its plain version at the path's own inputs;
+   through the scout on its dp4a path and the block kernel on its
+   tensor-core path (HDP on) and flash on its tensor-core path (HDP
+   off), 13 launches each, each held against its plain version at the
+   path's own inputs;
    whisper-large-v3 (32 + 32 layers) at model level: 2 x 1500 seeded
    frames, a 16-token prompt, ``registry.apply_prefill`` and 32 greedy
    ``apply_decode`` steps, every logit finite; the reduced rwkv6 and
@@ -240,9 +243,9 @@ never JAX nor the JAX package. Phases:
    the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
    and bf16 pool variants at the int8 timing case's values; the FUM
    decode at olmoe-1b-7b's decode shape and at phase 5k's shard (N 1);
-   the scout (dp4a), block (tile)
-   and flash (tile) kernels at zamba2-7b's aligned prefill (hd 112),
-   flash beside bf16 ``scaled_dot_product_attention``.
+   the scout (dp4a), block (tensor core)
+   and flash (tensor core) kernels at zamba2-7b's aligned prefill (hd
+   112), flash beside bf16 ``scaled_dot_product_attention``.
 
 Each phase's wall seconds are printed as it ends and together before
 the kernels line.
@@ -890,16 +893,20 @@ def phase_new_kernels(torch):
                 label = (f"flash_attention {(B, H, S, hd)} blocks {bq}x{bk} "
                          f"{str(dt)[6:]} {'causal' if causal else 'full'}")
                 check_flash(torch, label, q, k, v, causal, bq, bk)
-    # the tensor-core paths: S not a multiple of the tile, hd 64,
-    # non-causal, approx off, kv_len and score_scale, a gated head, and
-    # the first row's last q tile listing no block
+    # the tensor-core paths: S not a multiple of the tile, hd 64 and 112
+    # (zamba2-7b's, padded to 128 columns in shared memory), non-causal,
+    # approx off, kv_len and score_scale, a gated head, and the first
+    # row's last q tile listing no block
     g = torch.Generator().manual_seed(17)
     for (B, H, S, hd), (bq, bk), causal, approx in (
             ((1, 3, 4000, 128), (128, 128), True, True),
             ((1, 3, 4000, 128), (128, 128), False, False),
             ((1, 2, 1000, 64), (64, 64), True, True),
             ((1, 2, 1000, 64), (64, 128), False, True),
-            ((1, 2, 1000, 128), (128, 64), True, True)):
+            ((1, 2, 1000, 128), (128, 64), True, True),
+            ((1, 3, 4000, 112), (128, 128), True, True),
+            ((1, 3, 4000, 112), (128, 128), False, False),
+            ((1, 2, 1000, 112), (64, 128), True, True)):
         c = block_case(torch, B=B, H=H, S=S, hd=hd, bq=bq, bk=bk,
                        v_bf16=True, seed=13, causal=causal)
         c["approx"] = approx
@@ -914,7 +921,8 @@ def phase_new_kernels(torch):
                  f"{bq}x{bk} v bf16 {'causal' if causal else 'full'} approx "
                  f"{approx}{extra}, head gated, a q tile listing none")
         check_block(torch, label, c, path="tensor_core")
-    for (B, H, S, hd) in ((1, 3, 4000, 128), (1, 2, 1000, 64)):
+    for (B, H, S, hd) in ((1, 3, 4000, 128), (1, 2, 1000, 64),
+                          (1, 3, 4000, 112), (1, 2, 1000, 112)):
         for causal in (True, False):
             q, k, v = (_randn(torch, (B, H, S, hd), s, 2.0).to(torch.bfloat16)
                        for s in (4, 5, 6))
@@ -922,6 +930,20 @@ def phase_new_kernels(torch):
                      f"{'causal' if causal else 'full'}")
             check_flash(torch, label, q, k, v, causal, 128, 128,
                         path="tensor_core")
+    # the tile paths keep hd 112 in fp32 (bf16 at hd 112 takes the
+    # tensor-core kernels above)
+    for causal in (True, False):
+        c = block_case(torch, B=1, H=2, S=1000, hd=112, bq=128, bk=128,
+                       v_bf16=False, seed=19, causal=causal)
+        check_block(torch, f"hdp_block_sparse_attention (1, 2, 1000, 112) "
+                    f"blocks 128x128 v fp32 "
+                    f"{'causal' if causal else 'full'}, head gated", c,
+                    path="tile")
+        q, k, v = (_randn(torch, (1, 2, 1000, 112), s, 2.0)
+                   for s in (7, 8, 9))
+        check_flash(torch, f"flash_attention (1, 2, 1000, 112) float32 "
+                    f"{'causal' if causal else 'full'}", q, k, v, causal,
+                    128, 128, path="tile")
 
 
 # ------------------------------------------------ phase 4: aligned prefill
@@ -3679,11 +3701,12 @@ def _tree_map(fn, tree):
 FAMILY_PLENS = (128, 256, 140, 199, 263, 331, 402, 487)
 FAMILY_KW = dict(max_batch=8, max_len=512 + 32, prefill_buckets=(512,))
 #: zamba2-7b's shared attention block at its aligned prefill (B 1, S 4096):
-#: 32 heads at hd 112 (not a multiple of 32, not in the tensor-core
-#: kernels' head sizes), invoked once per group of 6 Mamba2 layers
+#: 32 heads at hd 112, invoked once per group of 6 Mamba2 layers; the
+#: scout's tensor-core path needs hd % 32 == 0, block and flash take
+#: their tensor-core kernels (hd 112 padded to 128 in shared memory)
 ZAMBA_GROUPS, ZAMBA_PATHS = 13, {"hdp_scout": "dp4a",
-                                 "hdp_block_sparse_attention": "tile",
-                                 "flash_attention": "tile"}
+                                 "hdp_block_sparse_attention": "tensor_core",
+                                 "flash_attention": "tensor_core"}
 #: whisper-large-v3: frames (B, S_enc), the prompt and the greedy steps
 WHISPER_B, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 2, 1500, 16, 32
 
@@ -3793,13 +3816,13 @@ def phase_families(torch):
     new tokens each, batch 8, the dense layout, eagerly and graphed at
     horizon 4 (identical tokens, one capture, exact-length prefill, no
     decode kernel); zamba2's aligned prefill (B 1, S 4096) through the
-    scout (dp4a) and block (tile) kernels with HDP on and flash (tile)
-    with HDP off, 13 launches each at hd 112, each held against its plain
-    version at the path's own inputs; whisper-large-v3 (32 + 32 layers)
-    encoding 2 x 1500 seeded frames, a 16-token prompt and 32 greedy
-    decode steps; the reduced configs card vs CPU. Each model's weights
-    are freed before the next. Returns zamba2's prefill launches, its
-    recorded calls and the kernels' errors."""
+    scout (dp4a) and block (tensor core) kernels with HDP on and flash
+    (tensor core) with HDP off, 13 launches each at hd 112, each held
+    against its plain version at the path's own inputs; whisper-large-v3
+    (32 + 32 layers) encoding 2 x 1500 seeded frames, a 16-token prompt
+    and 32 greedy decode steps; the reduced configs card vs CPU. Each
+    model's weights are freed before the next. Returns zamba2's prefill
+    launches, its recorded calls and the kernels' errors."""
     import numpy as np
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import registry
@@ -4569,11 +4592,12 @@ def phase_dryrun(torch, trained, sharded, smi_line):
 
 
 def phase_timing_zamba2(torch, calls):
-    """The scout (dp4a), block (tile) and flash (tile) kernels at
-    zamba2-7b's aligned prefill's own inputs (B 1, 32 heads, S 4096, hd
-    112, bf16 V): kernel, plain version, bound, and flash beside bf16
-    ``scaled_dot_product_attention`` at the same inputs. Returns {kernel:
-    (kernel ms, plain ms, bound ms, bound by, bytes, ops, library ms)}."""
+    """The scout, block and flash kernels, each on its path in
+    ``ZAMBA_PATHS``, at zamba2-7b's aligned prefill's own inputs (B 1,
+    32 heads, S 4096, hd 112, bf16 V): kernel, plain version, bound, and
+    flash beside bf16 ``scaled_dot_product_attention`` at the same
+    inputs. Returns {kernel: (kernel ms, plain ms, bound ms, bound by,
+    bytes, ops, library ms)}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
@@ -5133,17 +5157,19 @@ def main() -> int:
             kernels[-1]["launches_by_run"] = {
                 "qwen2-1.5b aligned prefill": n,
                 "olmoe-1b-7b aligned prefill": moe["prefill"][ename]}
-    for base, src in (("hdp_scout", "hdp_scout.cu"),
-                      ("hdp_block_sparse_attention", "hdp_block_attn.cu"),
-                      ("flash_attention", "flash_attention.cu")):
+    import repro_torch.kernels.flash_attention as fa_mod
+    import repro_torch.kernels.hdp_block_attn as ba_mod
+    import repro_torch.kernels.hdp_scout as sc_mod
+    for base, mod, tpu in (
+            ("hdp_scout", sc_mod, "hdp_scout.py:75"),
+            ("hdp_block_sparse_attention", ba_mod, "hdp_block_attn.py:91"),
+            ("flash_attention", fa_mod, "flash_attention.py:69")):
         k_ms, p_ms, bound, bound_by, _, _, lib_ms = zamba_timed[base]
-        tpu = {"hdp_scout": "hdp_scout.py:75",
-               "hdp_block_sparse_attention": "hdp_block_attn.py:91",
-               "flash_attention": "flash_attention.py:69"}[base]
+        path = ZAMBA_PATHS[base]
         kernels.append({
-            "name": f"{base}[{ZAMBA_PATHS[base]}, zamba2-7b hd112]",
-            "path": ZAMBA_PATHS[base], "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src}",
+            "name": f"{base}[{path}, zamba2-7b hd112]",
+            "path": path, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{mod.SOURCES[path]}.cu",
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": families["prefill"][base],
             "max_abs_err": families["errs"][base],

@@ -103,16 +103,18 @@ __device__ __forceinline__ void softmax_step(float (&s)[NT][4], float scale,
   }
 }
 
-// S (+)= A . B^T over HD for one warpgroup, as wgmma m64n{BN}k16 steps
-// with K-major operands in 128-byte-swizzled shared memory: `a` at the
-// warpgroup's first row of a tile of `a_rows` rows, `b` a BN-row tile.
-// `first` starts the sum (its first step ignores s). Issued, not waited
-// for; the caller fences before and commits after.
-template <int HD, int BN>
+// S (+)= A . B^T over the first 16 KS columns for one warpgroup, as KS
+// wgmma m64n{BN}k16 steps with K-major operands in 128-byte-swizzled
+// shared memory: `a` at the warpgroup's first row of a tile of `a_rows`
+// rows, `b` a BN-row tile. KS is the head size over 16 (7 at hd 112,
+// whose tiles are 128 columns wide: the zero columns 112-127 are never
+// multiplied). `first` starts the sum (its first step ignores s).
+// Issued, not waited for; the caller fences before and commits after.
+template <int KS, int BN>
 __device__ __forceinline__ void qk(float (&s)[BN / 8][4], uint32_t a, int a_rows,
                                    uint32_t b, bool first) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint32_t off = (kk & 3) * 32;   // 16 columns inside a 64-column atom
     const uint64_t da = wgmma::desc(a + (kk >> 2) * (a_rows * 128) + off, 16, 1024);
     const uint64_t db = wgmma::desc(b + (kk >> 2) * (BN * 128) + off, 16, 1024);
@@ -141,6 +143,23 @@ __device__ __forceinline__ void pv(const float (&s)[BN / 8][4], uint32_t v,
   }
   wgmma::commit();
   wgmma::wait<0>();
+}
+
+// Zeroes columns HD_IN..HD-1 of a 128-byte-swizzled [rows x HD] bf16
+// tile at shared address t (nothing when HD_IN == HD). The kernels call
+// it once per tile: their loads write only columns < HD_IN, so the
+// padding of a head size that is not a multiple of 64 stays zero.
+template <int HD, int HD_IN>
+__device__ __forceinline__ void zero_cols(uint32_t t, int rows, int tid,
+                                          int nthr) {
+  constexpr int PAD = (HD - HD_IN) / 8;   // 16-byte chunks a row
+  if constexpr (PAD > 0) {
+    for (int c = tid; c < rows * PAD; c += nthr) {
+      const int r = c / PAD, ch = HD_IN / 8 + (c - r * PAD);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n"
+                   :: "r"(t + wgmma::sw128(r, ch, rows)), "r"(0) : "memory");
+    }
+  }
 }
 
 // Completes l across the quad and floors it at 1e-30 (keeps NaN, like

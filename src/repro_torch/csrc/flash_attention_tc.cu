@@ -1,13 +1,20 @@
 // Dense flash attention on Hopper's tensor cores (sm_90a), bf16.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
-// flash_attention (its pallas_call at :87) for bf16 q, k, v with hd 64
-// or 128: softmax(q.k^T / sqrt(hd)) v with an online softmax over KV
+// flash_attention (its pallas_call at :87) for bf16 q, k, v with hd 64,
+// 112 or 128: softmax(q.k^T / sqrt(hd)) v with an online softmax over KV
 // tiles, cols < Sk masked (ragged S) and, under causal, rows >= cols,
 // KV tiles wholly in the future of the q tile skipped; fp32 scores and
 // accumulators, p rounded to bf16 for P.V, the row sum of the unrounded
 // p, the output in bf16. (fp32 and other head sizes take the CUDA-core
 // tile kernel of flash_attention.cu.)
+//
+// hd 112 (zamba2-7b) is padded in shared memory, never in global
+// memory: the tiles and the O accumulator stay 128 columns wide (the
+// hd-128 layouts and swizzle), the copies read 224-byte rows (HD_IN),
+// columns 112-127 of every tile are zeroed once, QK^T takes 7 k16 steps
+// instead of 8, P.V stays m64n128 over the zero columns (1/7 more P.V
+// work than needed), and the stores write only columns < 112.
 //
 // Bound: operations. At qwen2-1.5b's aligned prefill (B 2, 12 heads,
 // S 4096, hd 128, causal) QK^T and P.V are ~1.0e11 flops against ~50 MB
@@ -48,25 +55,28 @@ constexpr int kBM = 64 * kWG;           // q rows per CTA
 constexpr int kBN = 128;                // KV rows per tile
 constexpr int kThreads = 128 * kWG;
 
-template <int HD>
+// HD_IN: the head size of the rows in global memory; HD: the width of
+// the tiles in shared memory and of O in registers (a multiple of 64)
+template <int HD_IN>
 struct Cfg {
+  static constexpr int HD = HD_IN <= 64 ? 64 : 128;
   static constexpr int TILE = kBN * HD * 2;          // bytes of a K or V tile
   static constexpr int QBYTES = kBM * HD * 2;
   // Q + 2 x (K, V), and slack to align the tiles to 1024 bytes
   static constexpr int SMEM = QBYTES + 4 * TILE + 1024;
 };
 
-// cp.async copy of ROWS rows from row r0 of src (rows >= nvalid read as
-// zeros) into the swizzled tile at shared address dst
-template <int HD, int ROWS>
+// cp.async copy of ROWS rows of HD_IN columns from row r0 of src (rows
+// >= nvalid read as zeros) into the swizzled tile at shared address dst
+template <int HD_IN, int ROWS>
 __device__ __forceinline__ void load_tile(const bf16* src, uint32_t dst, int r0,
                                           int nvalid, int tid) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = HD_IN / 8;
   for (int c = tid; c < ROWS * CH; c += kThreads) {
     const int r = c / CH, ch = c - r * CH;
     const int gr = r0 + r;
     const bool ok = gr < nvalid;
-    cp_async16(dst + wgmma::sw128(r, ch, ROWS), src + (size_t)(ok ? gr : 0) * HD + ch * 8, ok);
+    cp_async16(dst + wgmma::sw128(r, ch, ROWS), src + (size_t)(ok ? gr : 0) * HD_IN + ch * 8, ok);
   }
 }
 
@@ -79,12 +89,12 @@ __device__ __forceinline__ void arrived() {
   __syncthreads();
 }
 
-template <int HD>
+template <int HD_IN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
                 int Sk, int nq, int causal, float scale_log2) {
-  constexpr int TILE = Cfg<HD>::TILE;
+  constexpr int HD = Cfg<HD_IN>::HD, TILE = Cfg<HD_IN>::TILE;
   constexpr int NT = kBN / 8;     // n-tiles of S
   constexpr int DT = HD / 8;      // n-tiles of O
   const int i = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
@@ -96,21 +106,24 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   extern __shared__ uint8_t smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t kv_s = q_s + Cfg<HD>::QBYTES;   // stage s: K at +2s*TILE, V after
+  const uint32_t kv_s = q_s + Cfg<HD_IN>::QBYTES;   // stage s: K at +2s*TILE, V after
 
-  const bf16* qb = q + (size_t)bh * Sq * HD;
-  const bf16* kb = k + (size_t)bh * Sk * HD;
-  const bf16* vb = v + (size_t)bh * Sk * HD;
+  const bf16* qb = q + (size_t)bh * Sq * HD_IN;
+  const bf16* kb = k + (size_t)bh * Sk * HD_IN;
+  const bf16* vb = v + (size_t)bh * Sk * HD_IN;
+
+  zero_cols<HD, HD_IN>(q_s, kBM, tid, kThreads);   // Q, then K, V of both stages
+  for (int t = 0; t < 4; ++t) zero_cols<HD, HD_IN>(kv_s + t * TILE, kBN, tid, kThreads);
 
   int n_tiles = (Sk + kBN - 1) / kBN;
   if (causal) n_tiles = min(n_tiles, min(row0 + kBM - 1, Sq - 1) / kBN + 1);
 
   // cp.async groups: Q, then K and V of each tile in turn
-  load_tile<HD, kBM>(qb, q_s, row0, Sq, tid);
+  load_tile<HD_IN, kBM>(qb, q_s, row0, Sq, tid);
   cp_async_commit();
-  if (n_tiles > 0) load_tile<HD, kBN>(kb, kv_s, 0, Sk, tid);
+  if (n_tiles > 0) load_tile<HD_IN, kBN>(kb, kv_s, 0, Sk, tid);
   cp_async_commit();
-  if (n_tiles > 0) load_tile<HD, kBN>(vb, kv_s + TILE, 0, Sk, tid);
+  if (n_tiles > 0) load_tile<HD_IN, kBN>(vb, kv_s + TILE, 0, Sk, tid);
   cp_async_commit();
 
   float o[DT][4];
@@ -126,9 +139,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     arrived<1>();         // Q and K of tile j; every warp is past tile j-1
     if (j + 1 < n_tiles) {   // into the stage that tile j-1 used
       const uint32_t nxt = kv_s + ((j + 1) & 1) * 2 * TILE;
-      load_tile<HD, kBN>(kb, nxt, (j + 1) * kBN, Sk, tid);
+      load_tile<HD_IN, kBN>(kb, nxt, (j + 1) * kBN, Sk, tid);
       cp_async_commit();
-      load_tile<HD, kBN>(vb, nxt + TILE, (j + 1) * kBN, Sk, tid);
+      load_tile<HD_IN, kBN>(vb, nxt + TILE, (j + 1) * kBN, Sk, tid);
     } else {
       cp_async_commit();
     }
@@ -138,7 +151,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     wgmma::fence();
-    qk<HD, kBN>(s, q_wg, kBM, k_t, true);
+    qk<HD_IN / 16, kBN>(s, q_wg, kBM, k_t, true);
     wgmma::commit();
     wgmma::wait<0>();
 
@@ -161,30 +174,30 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();   // nothing in flight at exit (no tile: Q's copy)
 
   finish_l(l);
-  bf16* ob = out + (size_t)bh * Sq * HD;
+  bf16* ob = out + (size_t)bh * Sq * HD_IN;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + h * 8;
     if (row >= Sq) continue;
 #pragma unroll
-    for (int d = 0; d < DT; ++d) {
+    for (int d = 0; d < HD_IN / 8; ++d) {   // columns < HD_IN
       const int col = d * 8 + (lane & 3) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * HD_IN + col) =
           __floats2bfloat162_rn(o[d][2 * h] / l[h], o[d][2 * h + 1] / l[h]);
     }
   }
 }
 
-template <int HD>
+template <int HD_IN>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH,
            int Sq, int Sk, int causal, float scale, cudaStream_t st) {
-  const int smem = Cfg<HD>::SMEM;
+  const int smem = Cfg<HD_IN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tc_kernel<HD_IN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nq = (Sq + kBM - 1) / kBM;
   if (BH == 0 || nq == 0) return 0;
-  flash_tc_kernel<HD><<<dim3(BH, nq), kThreads, smem, st>>>(
+  flash_tc_kernel<HD_IN><<<dim3(BH, nq), kThreads, smem, st>>>(
       q, k, v, out, Sq, Sk, nq, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -193,7 +206,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH,
 
 extern "C" {
 
-// bf16 q/k/v/out [BH, S, hd] row-major, hd 64 or 128. Launches on
+// bf16 q/k/v/out [BH, S, hd] row-major, hd 64, 112 or 128. Launches on
 // `stream`; returns the cudaError_t of the launch (0 = success;
 // cudaErrorInvalidValue for another hd). Nothing is synchronised and
 // nothing is allocated.
@@ -206,6 +219,7 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(out);
   if (hd == 128) return launch<128>(qp, kp, vp, op, BH, Sq, Sk, causal, scale, st);
+  if (hd == 112) return launch<112>(qp, kp, vp, op, BH, Sq, Sk, causal, scale, st);
   if (hd == 64) return launch<64>(qp, kp, vp, op, BH, Sq, Sk, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel repro/kernels/hdp_block_attn.py:
 // hdp_block_sparse_attention (its pallas_call at :144), the paper's
-// Fetch-Upon-Mask dataflow, for bf16 V, hd 64 or 128 and 64- or 128-row
+// Fetch-Upon-Mask dataflow, for bf16 V, hd 64, 112 or 128 and 64- or 128-row
 // blocks (the aligned prefill's shapes; other shapes and fp32 V take the
 // CUDA-core tile kernel of hdp_block_attn.cu). For each (b*h, q tile)
 // only the KV blocks listed in kv_idx[..., :counts] are loaded; scores
@@ -47,6 +47,14 @@
 // double-buffered: the next block's load waits for the current block's
 // products. q tiles are launched last-first (the causal rows with the
 // most listed blocks first).
+//
+// hd 112 (zamba2-7b) is padded in shared memory, never in global
+// memory: the limb tiles, V and O stay 128 columns wide (the hd-128
+// layouts, swizzle and shared memory, 230,400 bytes at 128 x 128
+// blocks), the loads read 448-byte fp32 and 224-byte bf16 rows (HD_IN),
+// columns 112-127 of every tile are zeroed once (zero limbs, exact +0
+// terms), each limb product takes 7 k16 steps instead of 8, P.V stays
+// m64n128 over V's zero columns, and the stores write only columns < 112.
 
 #include "attn_mma.cuh"
 
@@ -55,8 +63,11 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace attn_mma;
 
-template <int HD, int BK>
+// HD_IN: the head size of the rows in global memory; HD: the width of
+// the tiles in shared memory and of O in registers (a multiple of 64)
+template <int HD_IN, int BK>
 struct Cfg {
+  static constexpr int HD = HD_IN <= 64 ? 64 : 128;
   static constexpr int KLIMB = BK * HD * 2;       // bytes of one K limb tile
   // Q limbs, K limbs, V, and slack to align the tiles to 1024 bytes
   static int smem(int bq) { return 3 * bq * HD * 2 + 4 * KLIMB + 1024; }
@@ -101,9 +112,10 @@ __device__ __forceinline__ void store_limbs(uint8_t* t0, int stride, int rows,
       make_uint2(pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]));
 }
 
-template <int HD, int BK>
+template <int HD_IN, int BK>
 __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
-  constexpr int CH = HD / 8, KLIMB = Cfg<HD, BK>::KLIMB;
+  constexpr int HD = Cfg<HD_IN, BK>::HD, KLIMB = Cfg<HD_IN, BK>::KLIMB;
+  constexpr int CH = HD_IN / 8, C4 = HD_IN / 4;   // 16-byte chunks, float4s of a row
   constexpr int NT = BK / 8;      // n-tiles of S
   constexpr int DT = HD / 8;      // n-tiles of O
   const int i = a.nq - 1 - (int)blockIdx.y;
@@ -113,8 +125,8 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
   const int nthr = blockDim.x;
   const int bq = a.bq, row0 = i * bq;
   const int nrows = min(bq, a.Sq - row0);
-  const size_t base_q = (size_t)bh * a.Sq * HD;
-  const size_t base_k = (size_t)bh * a.Sk * HD;
+  const size_t base_q = (size_t)bh * a.Sq * HD_IN;
+  const size_t base_k = (size_t)bh * a.Sk * HD_IN;
 
   const bool kept = a.head_kept[bh] > 0;
   int steps = a.counts[(size_t)bh * a.nq + i];
@@ -124,7 +136,7 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
   for (int j = tid; j < steps; j += nthr) bad |= list[j] < 0 || list[j] >= a.nk;
   if (__syncthreads_or(bad) || !kept) {   // NaN rows, or a gated head's zeros
     const float fill = kept ? nan_f() : 0.f;
-    for (int e = tid; e < nrows * HD; e += nthr) a.out[base_q + (size_t)row0 * HD + e] = fill;
+    for (int e = tid; e < nrows * HD_IN; e += nthr) a.out[base_q + (size_t)row0 * HD_IN + e] = fill;
     return;
   }
   const int len = a.kv_len != nullptr ? min(a.kv_len[bh], a.Sk) : a.Sk;
@@ -136,13 +148,18 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
   uint8_t* v_t = k_l + 3 * KLIMB;             // [BK][HD] V
   const int q_stride = bq * HD * 2;            // [3][bq][HD] limbs of Q
 
-  for (int e = tid; e < bq * HD / 4; e += nthr) {
-    const int r = e / (HD / 4), c = (e - r * (HD / 4)) * 4;
+  for (int e = tid; e < bq * C4; e += nthr) {
+    const int r = e / C4, c = (e - r * C4) * 4;
     const float4 x = r < nrows
-        ? *reinterpret_cast<const float4*>(a.q + base_q + (size_t)(row0 + r) * HD + c)
+        ? *reinterpret_cast<const float4*>(a.q + base_q + (size_t)(row0 + r) * HD_IN + c)
         : make_float4(0.f, 0.f, 0.f, 0.f);
     store_limbs(q_l, q_stride, bq, r, c, x);
   }
+  for (int t = 0; t < 3; ++t) {   // the padding of the Q and K limbs and V
+    zero_cols<HD, HD_IN>(smem_u32(q_l) + t * q_stride, bq, tid, nthr);
+    zero_cols<HD, HD_IN>(smem_u32(k_l) + t * KLIMB, BK, tid, nthr);
+  }
+  zero_cols<HD, HD_IN>(smem_u32(v_t), BK, tid, nthr);
 
   float o[DT][4];
 #pragma unroll
@@ -160,14 +177,14 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
       const int r = c / CH, ch = c - r * CH;
       const bool ok = col0 + r < a.Sk;
       cp_async16(va + wgmma::sw128(r, ch, BK),
-                 a.v + base_k + (size_t)(ok ? col0 + r : 0) * HD + ch * 8, ok);
+                 a.v + base_k + (size_t)(ok ? col0 + r : 0) * HD_IN + ch * 8, ok);
     }
     cp_async_commit();
 #pragma unroll 4
-    for (int e = tid; e < BK * HD / 4; e += nthr) {
-      const int r = e / (HD / 4), c = (e - r * (HD / 4)) * 4;
+    for (int e = tid; e < BK * C4; e += nthr) {
+      const int r = e / C4, c = (e - r * C4) * 4;
       const float4 x = col0 + r < a.Sk
-          ? *reinterpret_cast<const float4*>(a.k + base_k + (size_t)(col0 + r) * HD + c)
+          ? *reinterpret_cast<const float4*>(a.k + base_k + (size_t)(col0 + r) * HD_IN + c)
           : make_float4(0.f, 0.f, 0.f, 0.f);
       store_limbs(k_l, KLIMB, BK, r, c, x);
     }
@@ -181,17 +198,18 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     wgmma::fence();
-    qk<HD, BK>(s, qa, bq, ka, true);
-    qk<HD, BK>(s, qa, bq, ka + KLIMB, false);
-    qk<HD, BK>(s, qa, bq, ka + 2 * KLIMB, false);
-    qk<HD, BK>(s, qa + q_stride, bq, ka, false);
-    qk<HD, BK>(s, qa + 2 * q_stride, bq, ka, false);
+    constexpr int KS = HD_IN / 16;
+    qk<KS, BK>(s, qa, bq, ka, true);
+    qk<KS, BK>(s, qa, bq, ka + KLIMB, false);
+    qk<KS, BK>(s, qa, bq, ka + 2 * KLIMB, false);
+    qk<KS, BK>(s, qa + q_stride, bq, ka, false);
+    qk<KS, BK>(s, qa + 2 * q_stride, bq, ka, false);
     if (!a.approx) {
 #pragma unroll
       for (int qf = 1; qf < 3; ++qf)
 #pragma unroll
         for (int kf = 1; kf < 3; ++kf)
-          qk<HD, BK>(s, qa + qf * q_stride, bq, ka + kf * KLIMB, false);
+          qk<KS, BK>(s, qa + qf * q_stride, bq, ka + kf * KLIMB, false);
     }
     wgmma::commit();
     wgmma::wait<0>();
@@ -218,22 +236,22 @@ __global__ void __launch_bounds__(256, 1) block_tc_kernel(const Args a) {
     const int row = r_lo + h * 8;
     if (row >= row0 + nrows) continue;
 #pragma unroll
-    for (int d = 0; d < DT; ++d) {
+    for (int d = 0; d < HD_IN / 8; ++d) {   // columns < HD_IN
       const int col = d * 8 + (lane & 3) * 2;
-      *reinterpret_cast<float2*>(ob + (size_t)row * HD + col) =
+      *reinterpret_cast<float2*>(ob + (size_t)row * HD_IN + col) =
           make_float2(o[d][2 * h] / l[h], o[d][2 * h + 1] / l[h]);
     }
   }
 }
 
-template <int HD, int BK>
+template <int HD_IN, int BK>
 int launch(Args a, int BH, cudaStream_t st) {
-  const int smem = Cfg<HD, BK>::smem(a.bq);
+  const int smem = Cfg<HD_IN, BK>::smem(a.bq);
   cudaError_t err = cudaFuncSetAttribute(
-      block_tc_kernel<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      block_tc_kernel<HD_IN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (BH == 0 || a.nq == 0) return 0;
-  block_tc_kernel<HD, BK><<<dim3(BH, a.nq), a.bq * 2, smem, st>>>(a);   // a warpgroup per 64 rows
+  block_tc_kernel<HD_IN, BK><<<dim3(BH, a.nq), a.bq * 2, smem, st>>>(a);   // a warpgroup per 64 rows
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,7 +260,7 @@ int launch(Args a, int BH, cudaStream_t st) {
 extern "C" {
 
 // q, k fp32 fixed-grid and v bf16 [BH, S, hd]; out fp32 [BH, Sq, hd];
-// hd 64 or 128, bq and bk 64 or 128 (else cudaErrorInvalidValue).
+// hd 64, 112 or 128, bq and bk 64 or 128 (else cudaErrorInvalidValue).
 // kv_len and score_scale may be null. Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success). Nothing is synchronised and
 // nothing is allocated.
@@ -263,6 +281,8 @@ int hdp_block_attn_tc_launch(const float* q, const float* k, const void* v,
   if (bq != 64 && bq != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 128 && bk == 128) return launch<128, 128>(a, BH, st);
   if (hd == 128 && bk == 64) return launch<128, 64>(a, BH, st);
+  if (hd == 112 && bk == 128) return launch<112, 128>(a, BH, st);
+  if (hd == 112 && bk == 64) return launch<112, 64>(a, BH, st);
   if (hd == 64 && bk == 128) return launch<64, 128>(a, BH, st);
   if (hd == 64 && bk == 64) return launch<64, 64>(a, BH, st);
   return static_cast<int>(cudaErrorInvalidValue);

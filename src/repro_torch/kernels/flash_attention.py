@@ -8,7 +8,7 @@ raises; on a CPU tensor it runs the plain version
 
 Two kernels serve CUDA tensors, picked by ``flash_path`` from the call's
 dtype and head size alone: the tensor-core kernel
-(``csrc/flash_attention_tc.cu``) for bf16 with hd 64 or 128, the
+(``csrc/flash_attention_tc.cu``) for bf16 with hd 64, 112 or 128, the
 CUDA-core tile kernel (``csrc/flash_attention.cu`` and
 ``csrc/attn_tile.cuh``) for fp32 and other head sizes.
 ``flash_attention.launches`` counts kernel launches,

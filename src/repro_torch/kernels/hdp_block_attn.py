@@ -11,8 +11,9 @@ plain version ``ref.hdp_block_sparse_attention_plain``.
 Two kernels serve CUDA tensors, picked by ``block_path`` from the call's
 types and shapes alone: the tensor-core kernel
 (``csrc/hdp_block_attn_tc.cu``: the fixed-grid scores as exact bf16 limb
-products, ``fixed_limbs``) for bf16 V, hd 64 or 128 and blocks of 64 or
-128 rows and columns, the aligned prefill's shapes; the CUDA-core tile
+products, ``fixed_limbs``) for bf16 V, hd 64, 112 or 128 (hd 112 padded
+to 128 columns in shared memory) and blocks of 64 or 128 rows and
+columns, the aligned prefill's shapes; the CUDA-core tile
 kernel for the rest (fp32 V, as the paged decode's densified route
 passes, and small blocks or head sizes). ``hdp_block_sparse_attention
 .launches`` counts kernel launches, ``.launches_by_path`` them per path;
@@ -37,8 +38,9 @@ F32 = torch.float32
 
 #: the two kernels behind the wrappers of this module and flash's
 PATHS = ("tensor_core", "tile")
-#: head sizes the tensor-core kernels take
-TC_HEAD_DIMS = (64, 128)
+#: head sizes the tensor-core kernels take (112, zamba2-7b's, on tiles
+#: padded to 128 columns in shared memory)
+TC_HEAD_DIMS = (64, 112, 128)
 #: block sizes (rows and columns) the tensor-core block kernel takes
 TC_BLOCKS = (64, 128)
 

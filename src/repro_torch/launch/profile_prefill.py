@@ -9,7 +9,12 @@ HDP on (scout + block-sparse kernels) and off (flash), each once to warm
 up and then ``--runs`` times under the profiler, and prints one JSON
 line per setting: the wall time per prefill, the device's busy time (the
 sum of kernel time) and idle share, the launches of each attention
-kernel per path, and the top kernels by device time.
+kernel per path, and the top kernels by device time. With ``--walls``
+it takes no profile: each of the ``--runs`` prefills is timed alone on
+the host clock (ending in a synchronize), and the JSON line gives every
+wall and their median, for A/Bs of two checkouts on one card (the
+profiler slows a prefill of many small kernels, such as zamba2-7b's,
+several times over, and reading its events takes minutes).
 
     python -m repro_torch.launch.profile_prefill --arch granite-8b --serving
 
@@ -25,6 +30,7 @@ device and by host time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -40,6 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--walls", action="store_true",
+                    help="time each prefill without the profiler")
     ap.add_argument("--serving", action="store_true",
                     help="profile the serving engine's bucketed and "
                          "chunked prefill instead")
@@ -135,45 +143,53 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     toks = torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
         1, cfg.vocab_size, (args.batch, args.seq))).cuda()
     top = 10
+    wrappers = (hdp_scout, hdp_block_sparse_attention, flash_attention)
     with torch.inference_mode():
         for hdp_on in (True, False):
             c = cfg.replace(hdp=cfg.hdp.replace(enabled=hdp_on))
             registry.apply_prefill(c, params, {"tokens": toks}, None)
             torch.cuda.synchronize()
-            for fn in (hdp_scout, hdp_block_sparse_attention,
-                       flash_attention):
+            for fn in wrappers:
                 fn.launches = 0
-            for fn in (hdp_scout, hdp_block_sparse_attention,
-                       flash_attention):
                 fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+            walls = []
+            ctx = contextlib.nullcontext() if args.walls else profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            with ctx as prof:
+                t_start = time.perf_counter()
                 for _ in range(args.runs):
+                    t0 = time.perf_counter()
                     registry.apply_prefill(c, params, {"tokens": toks}, None)
+                    if args.walls:
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
-            busy_us = sum(e.self_device_time_total for e in kernels)
-            by_dev = sorted(kernels, key=lambda e: e.self_device_time_total,
-                            reverse=True)[:top]
-            print(json.dumps({
+                wall = time.perf_counter() - t_start
+            out = {
                 "device": torch.cuda.get_device_name(0),
                 "arch": args.arch, "batch": args.batch, "seq": args.seq,
                 "hdp": hdp_on, "runs": args.runs,
                 "wall_ms_per_prefill": 1e3 * wall / args.runs,
-                "device_busy_ms_per_prefill": busy_us / 1e3 / args.runs,
-                "device_idle_share": 1.0 - busy_us / 1e6 / wall,
                 "launches_per_prefill": {
                     fn.__name__: {p: n / args.runs for p, n in
                                   fn.launches_by_path.items()}
-                    for fn in (hdp_scout, hdp_block_sparse_attention,
-                               flash_attention)},
-                "top_device_ms_per_prefill": [
+                    for fn in wrappers}}
+            if args.walls:
+                out["wall_ms"] = [1e3 * w for w in walls]
+                out["wall_ms_median"] = 1e3 * float(np.median(walls))
+            else:
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                busy_us = sum(e.self_device_time_total for e in kernels)
+                by_dev = sorted(kernels,
+                                key=lambda e: e.self_device_time_total,
+                                reverse=True)[:top]
+                out["device_busy_ms_per_prefill"] = busy_us / 1e3 / args.runs
+                out["device_idle_share"] = 1.0 - busy_us / 1e6 / wall
+                out["top_device_ms_per_prefill"] = [
                     [e.key[:100], e.self_device_time_total / 1e3 / args.runs,
-                     e.count / args.runs] for e in by_dev],
-            }), flush=True)
+                     e.count / args.runs] for e in by_dev]
+            print(json.dumps(out), flush=True)
     return 0
 
 

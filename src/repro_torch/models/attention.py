@@ -808,11 +808,12 @@ def build_attn_call(cfg, *, mode: str, paged: bool = False,
 
 
 def _spec_pool(cfg, attn: Optional[AttnSpec]) -> Tuple[str, str]:
-    """(kv_dtype, kv_scale) of the pool an ``attn`` spec serves from; no
-    spec, or kv_dtype "auto", means the default int8 pool of a family
-    with KV pages, and no pool ("fp32") for the others, whose caches
-    hold the projections as they are (as the reference's with no
-    spec)."""
+    """(kv_dtype, kv_scale) of the pool an ``attn`` spec serves from, as
+    the paged decode reads it; no spec, or kv_dtype "auto", means the
+    default int8 pool of a family with KV pages, and no pool ("fp32")
+    for the others, whose caches hold the projections as they are (as
+    the reference's with no spec). The prefill's dense-cache snap reads
+    the spec itself."""
     if attn is None or attn.kv_dtype == "auto":
         pooled = cfg.family in ("dense", "moe", "vlm")
         return ("int8" if pooled else "fp32",
@@ -938,12 +939,16 @@ def attn_apply(cfg, p, x, *, mode: str, positions, cache=None,
         if rope:
             k = L.apply_rope(k, positions, cfg.rope_theta)
 
+        # only a spec that names a quantized pool snaps the prefill's
+        # dense cache to its grid (as the reference): with no spec, or
+        # "auto", K/V are written as projected
         if (mode == "prefill" and cache is not None and not paged
-                and enc_out is None and kv_dtype != "fp32"
-                and kv_scale != "absmax"):
+                and enc_out is None and attn is not None
+                and attn.kv_dtype in ("int8", "fp8_v")
+                and attn.kv_scale != "absmax"):
             ib = pool_int_bits(cfg.hdp)
             k = roundtrip_pool(k, ib).to(k.dtype)
-            v = (to_fp8_e4m3(v) if kv_dtype == "fp8_v"
+            v = (to_fp8_e4m3(v) if attn.kv_dtype == "fp8_v"
                  else roundtrip_pool(v, ib)).to(v.dtype)
 
         if paged:

@@ -19,7 +19,6 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.attention.registry import default_spec
 from repro_torch.common import tree
 from repro_torch.common.loops import trips
 from repro_torch.distribution import sharding as shd
@@ -308,12 +307,8 @@ def make_prefill_step(cfg, *, param_shardings=None, cache_shardings=None,
     the batch is the global one, and the logits and cache are this
     rank's rows and shard (``_sharded_serving``)."""
     def prefill_step(params, batch, cache):
-        # the reference's step threads no spec, and its attention writes
-        # K/V into the cache as projected; the port's no-spec default is
-        # its engine's int8 pool, which would snap them to the pool grid
-        logits, new_cache, _ = registry.apply_prefill(
-            cfg, params, batch, cache,
-            attn=default_spec().replace(kv_dtype="fp32"))
+        logits, new_cache, _ = registry.apply_prefill(cfg, params, batch,
+                                                      cache)
         return logits, new_cache
     if mesh is None:
         return prefill_step

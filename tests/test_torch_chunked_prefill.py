@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.attention import AttnSpec
+from repro_torch.attention import AttnSpec as TAttnSpec
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
 from repro.models import registry as jregistry
@@ -113,7 +114,8 @@ def test_prefill_chunks_match_jax(weights):
         with torch.no_grad():
             tl, cache, tst = registry.apply_prefill(
                 cfg, params, {"tokens": torch.from_numpy(piece).long()},
-                cache, collect_stats=True, pos_offset=off)
+                cache, collect_stats=True, pos_offset=off,
+                attn=TAttnSpec(backend="xla", kv_dtype="int8"))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
                                    rtol=0, err_msg=f"offset {off}")
         for name in ("block_sparsity", "head_sparsity"):

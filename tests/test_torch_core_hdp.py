@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from repro.attention import AttnSpec as JSpec
+from repro_torch.attention import AttnSpec as TSpec
 from repro.attention import resolve_backend as jresolve
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
@@ -515,15 +516,16 @@ def test_hdp_prefill_approx_softmax_logits(approx_qwen):
     softmax's."""
     cfg, jcfg, jparams, params = approx_qwen
     toks = np.random.default_rng(3).integers(1, 250, (2, 24))
+    spec = TSpec(backend="xla", kv_dtype="int8")
     with torch.no_grad():
         lg, _, st = registry.apply_prefill(
             cfg, params, {"tokens": torch.from_numpy(toks)},
-            registry.init_cache(cfg, 2, 32, device="cpu"),
+            registry.init_cache(cfg, 2, 32, device="cpu"), attn=spec,
             collect_stats=True)
         elg, _, _ = registry.apply_prefill(
             cfg.replace(hdp=cfg.hdp.replace(approx_softmax=False)), params,
             {"tokens": torch.from_numpy(toks)},
-            registry.init_cache(cfg, 2, 32, device="cpu"))
+            registry.init_cache(cfg, 2, 32, device="cpu"), attn=spec)
     jlg, _, jst = jregistry.apply_prefill(
         jcfg, jparams, {"tokens": jnp.asarray(toks)},
         jregistry.init_cache(jcfg, 2, 32),

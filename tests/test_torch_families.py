@@ -147,7 +147,8 @@ def test_prefill_and_decode_logits_match_jax(arch, kw):
     with torch.no_grad():
         tl, tc, _ = registry.apply_prefill(
             cfg, params, {"tokens": torch.from_numpy(toks).long()},
-            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"))
+            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"),
+            attn=AttnSpec(backend="xla", kv_dtype="int8"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=PREFILL_ATOL,
                                rtol=0)
     for name in ("k", "v"):

@@ -110,6 +110,7 @@ def test_prefill_logits_match(weights, calib, seed):
         tl, tc, tst = registry.apply_prefill(
             cfg, params, {"tokens": torch.from_numpy(toks).long()},
             registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"),
+            attn=TAttnSpec(backend="xla", kv_dtype="int8"),
             collect_stats=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
     for name in ("k", "v"):
@@ -136,7 +137,8 @@ def test_paged_decode_logits_and_pool_match(weights):
     with torch.no_grad():
         _, tc, _ = registry.apply_prefill(
             cfg, params, {"tokens": torch.from_numpy(toks).long()},
-            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"))
+            registry.init_cache(cfg, len(PLENS), BUCKET, device="cpu"),
+            attn=TAttnSpec(backend="xla", kv_dtype="int8"))
     jpages = JPagedKVCache(jcfg, len(PLENS), MAX_LEN, kv_dtype="int8")
     pages = PagedKVCache(cfg, len(PLENS), MAX_LEN, device="cpu")
     for slot, n in enumerate(PLENS):

@@ -323,8 +323,8 @@ def test_build_step_dispatches_by_kind():
     """``build_step`` gives the train, prefill and decode steps with
     their abstract arguments; the prefill and decode steps run the
     registry's functions (the decode step's next token is the argmax),
-    the prefill with the spec the reference's step means by none (K/V
-    written into the cache as projected, not snapped to the int8 pool)."""
+    the prefill with no spec, as the reference's step (K/V written into
+    the cache as projected, not snapped to the int8 pool)."""
     from repro_torch.configs import ShapeConfig, get_config, reduced
     from repro_torch.launch import steps
     from repro_torch.models import registry
@@ -345,10 +345,8 @@ def test_build_step_dispatches_by_kind():
     cache = registry.init_cache(cfg, 2, 20, device="cpu")
     ref_cache = registry.init_cache(cfg, 2, 20, device="cpu")
     logits, cache = built["prefill"].fn(params, {"tokens": toks}, cache)
-    from repro_torch.attention.registry import default_spec
-    want, _, _ = registry.apply_prefill(
-        cfg, params, {"tokens": toks}, ref_cache,
-        attn=default_spec().replace(kv_dtype="fp32"))
+    want, _, _ = registry.apply_prefill(cfg, params, {"tokens": toks},
+                                        ref_cache)
     assert torch.equal(logits, want)
     pos = torch.full((2, 1), 16)
     nxt, logits, cache = built["decode"].fn(params, toks[:, -1:], cache, pos)

@@ -16,10 +16,11 @@ zero-filled):
   spreads it over its per-row positions): next tokens equal, logits and
   every cache leaf close.
 
-The port's step passes the spec the reference's no-spec call means
-(K/V written into the cache as projected); the port's own no-spec
-default is its engine's int8 pool, which snaps K/V to the pool grid
-and would put qwen2's prefill logits 1.47 apart.
+Both steps thread no spec: ``registry.apply_prefill`` with no spec
+writes K/V into a dense cache as projected, in both packages (only an
+explicit int8 or fp8_v spec snaps them to the pool grid). The last test
+holds that no-spec call itself against the reference's, on reduced
+qwen2-1.5b, where snapping put the prefill logits 1.47 apart.
 
 Tolerances: rtol 1e-4, and atol 1e-5 (the train-step tests') for
 qwen2-1.5b (measured at most 1.1e-5 on values up to 2.3, within the
@@ -39,6 +40,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
+from repro.models import registry as jregistry
 from repro.training import train_loop as jtrain_loop
 from repro_torch.common import tree
 from repro_torch.configs import ShapeConfig, get_config, reduced
@@ -123,3 +125,24 @@ def test_prefill_and_decode_steps_match_jax(arch):
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     _close(tl, jl, f"{arch} decode logits", atol)
     _close_cache(tc, jc, f"{arch} decode cache", atol)
+
+
+def test_no_spec_prefill_matches_jax_no_spec():
+    """``registry.apply_prefill(cfg, params, batch, cache)`` with no spec
+    against the reference's no-spec call: reduced qwen2-1.5b, B 4, S 16,
+    weights from seed 3, into a zero-filled prefill cache."""
+    cfg = reduced(get_config("qwen2-1.5b"))
+    jcfg = jax_reduced(jax_get_config("qwen2-1.5b"))
+    np_params = _np_tree(registry.init_params(cfg, 3, "cpu"))
+    params = params_from_jax(cfg, np_params, "cpu")
+    toks = _tokens(cfg, (B, S_PROMPT), 1)
+    cache = _zeros("prefill", cfg)
+    jl, jc, _ = jregistry.apply_prefill(
+        jcfg, jax.tree.map(jnp.asarray, np_params),
+        {"tokens": jnp.asarray(toks)},
+        jax.tree.map(jnp.asarray, _np_tree(cache)))
+    with torch.no_grad():
+        tl, tc, _ = registry.apply_prefill(
+            cfg, params, {"tokens": torch.from_numpy(toks)}, cache)
+    _close(tl, jl, "no-spec prefill logits", ATOL)
+    _close_cache(tc, jc, "no-spec prefill cache", ATOL)

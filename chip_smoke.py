@@ -16,17 +16,21 @@ never JAX nor the JAX package. Phases:
    last two also at granite-8b's shape), at Sq 1, 3 and 8 (the verify
    shape; 48 rows split over two row blocks), split across blocks and in
    one pass, each with its poison checks; on the int8 pool also at
-   olmoe-1b-7b's decode and verify shapes (MHA: G 1, one pass by
-   ``fum_splits``), at G 5 and G 8 (llama4-scout, chameleon-34b) and at
+   olmoe-1b-7b's decode and verify shapes (MHA: G 1; two blocks a row
+   by ``fum_splits``), at G 5 and G 8 (llama4-scout, chameleon-34b) and at
    one rank's shard of qwen2-1.5b at tp 2 (phase 5k: N 1), and
    at olmoe's shape on uniform +-127 codes against the plain version
    evaluated in float64 (the reference's kernel tolerance, 2e-3: fp32
    sum order alone parts kernel and fp32 plain version there);
    the integer scout on both of its paths (theta, keep and theta_head
    bit-equal, ragged S, non-causal, rho < 0, int8 extremes, and the
-   bad-input NaN); the block-sparse FUM attention on the
-   prefill and the paged-decode routes and flash attention (atol = rtol
-   = 1e-4 with fp32 V, 2e-2 with bf16 V) on both of their paths, the
+   bad-input NaN), its tensor-core path also at hd 112 (zamba2-7b's, on
+   int8 copies zero-padded to 128 columns: S 4000 and 1000, 64- and
+   128-row blocks, strided views, int8 extremes, bad input), each of
+   those calls bit-equal to the dp4a kernel too; the block-sparse FUM
+   attention on the prefill and the paged-decode routes and flash
+   attention (atol = rtol = 1e-4 with fp32 V, 2e-2 with bf16 V) on both
+   of their paths, the
    tensor-core path also at S 4000, hd 64 and hd 112 (zamba2-7b's,
    padded to 128 columns in shared memory), non-causal, with a gated head
    and with a q tile that lists no block, and the tile paths at hd 112 in
@@ -54,9 +58,9 @@ never JAX nor the JAX package. Phases:
    identical tokens; prompts of 2,500
    and 4,000 tokens through chunked prefill; the reduced config graphed
    on the card, with one prompt chunked, must give the CPU's tokens;
-5b. granite-8b at full width (36 layers, bf16, 16 GB of seeded weights
-   built on the card): 8 requests of up to 4,096 prompt tokens, 32 new
-   tokens each, on the int8 grid pool, the fp8_v pool and the bf16
+5b. granite-8b at full width cut to 4 of its 36 layers (bf16, seeded
+   weights built on the card): 8 requests of up to 4,096 prompt tokens,
+   32 new tokens each, on the int8 grid pool, the fp8_v pool and the bf16
    ("fp32") pool through the FUM kernel, the absmax pool through the
    plain stage 3, HDP off on the paged and the dense layout, and HDP on
    on the dense layout (``xla_hdp``); each eagerly and graphed at
@@ -92,10 +96,11 @@ never JAX nor the JAX package. Phases:
    launches each, tensor-core path, each held against its plain version
    at the path's inputs); 8 requests of 200-2,000 prompt tokens, 32 new,
    on the int8 grid pool, eagerly and graphed at horizons 1 and 4 with
-   identical tokens and 16 FUM runs a decode step on the card (one pass:
-   B*N = 128 blocks), the kernel against its plain version at the
-   path's busiest call; speculative decode at draft_len 4 graphed and
-   eager (identical tokens, acceptance printed); the prefix traffic hot
+   identical tokens and 16 FUM runs a decode step on the card (split:
+   B*N = 128 rows, two blocks a row), the kernel against its plain
+   version at the path's busiest call; speculative decode at draft_len 4
+   graphed and eager (identical tokens, acceptance printed); the prefix
+   traffic hot
    and cold. The MoE drops tokens past an expert's capacity, so spec
    against greedy and hot against cold are printed, not asserted, at
    full width. llama4-scout, chameleon-34b and nemotron-4-15b at full
@@ -175,10 +180,10 @@ never JAX nor the JAX package. Phases:
    prefill call per prompt, no decode kernel: rwkv6 decodes on "none",
    zamba2 on ``xla_hdp``), tok/s, ``prefill_s`` and ``graph_capture_s``
    printed; zamba2's aligned prefill (B 1, S 4096, 32 heads at hd 112)
-   through the scout on its dp4a path and the block kernel on its
-   tensor-core path (HDP on) and flash on its tensor-core path (HDP
-   off), 13 launches each, each held against its plain version at the
-   path's own inputs;
+   through the scout and the block kernel (HDP on) and flash (HDP
+   off), all on the tensor-core path, 13 launches each, each held
+   against its plain version at the path's own inputs, the scout also
+   against its dp4a kernel;
    whisper-large-v3 (32 + 32 layers) at model level: 2 x 1500 seeded
    frames, a 16-token prompt, ``registry.apply_prefill`` and 32 greedy
    ``apply_decode`` steps, every logit finite; the reduced rwkv6 and
@@ -242,10 +247,11 @@ never JAX nor the JAX package. Phases:
    designs) at the same inputs as their successors; the FUM decode at
    the verify shape (Sq 4 and 8, the timing case's widths); its fp8-V
    and bf16 pool variants at the int8 timing case's values; the FUM
-   decode at olmoe-1b-7b's decode shape and at phase 5k's shard (N 1);
-   the scout (dp4a), block (tensor core)
-   and flash (tensor core) kernels at zamba2-7b's aligned prefill (hd
-   112), flash beside bf16 ``scaled_dot_product_attention``.
+   decode at olmoe-1b-7b's decode shape (at the rule's S and in one
+   pass) and at phase 5k's shard (N 1); the scout, block and flash
+   kernels (tensor core) at zamba2-7b's aligned prefill (hd 112), the
+   scout beside its dp4a kernel and flash beside bf16
+   ``scaled_dot_product_attention``.
 
 Each phase's wall seconds are printed as it ends and together before
 the kernels line.
@@ -487,8 +493,8 @@ def phase_kernels(torch):
                           dict(B=8, N=8, G=4, Sq=1, hd=128, ps=128, nP=33,
                                fmt=fmt, live=0.3, seed=9)))
     # the moe and vlm configs' decode and verify shapes on the int8 pool:
-    # olmoe is MHA (G 1; B*N = 128 blocks, so fum_splits gives one pass),
-    # llama4-scout G 5, chameleon G 8
+    # olmoe is MHA (G 1; B*N = 128 rows, so fum_splits gives two blocks a
+    # row), llama4-scout G 5, chameleon G 8
     for Sq in (1, 4):
         cases.append((f"{OLMOE_FUM_LABEL}Sq{Sq}hd128ps128 int8",
                       dict(OLMOE_FUM, Sq=Sq, seed=30 + Sq)))
@@ -508,7 +514,8 @@ def phase_kernels(torch):
         tol = FUM_TOL[kw["fmt"]]
         if kw["fmt"] == "int8" and kw["hd"] == 128:
             fp32_sum_order(torch, label, args, kws, ref)
-        auto = fum_splits(kw["B"], kw["N"], c["page_ids"].shape[1], n_sm)
+        auto = fum_splits(kw["B"], kw["N"], c["page_ids"].shape[1], n_sm,
+                          kw["G"])
         for mode, splits in (("split" if auto > 1 else "single", None),
                              ("split", 3), ("single", 1)):
             tag = f"{label} [{mode}, S={splits or f'fum_splits={auto}'}]"
@@ -580,7 +587,7 @@ def phase_kernels(torch):
     exact = fp32_sum_order(torch, label, args, kws,
                            hdp_paged_fum_decode_ref(*args, **kws))
     auto = fum_splits(OLMOE_FUM["B"], OLMOE_FUM["N"], c["page_ids"].shape[1],
-                      n_sm)
+                      n_sm, OLMOE_FUM["G"])
     for mode, splits in (("split" if auto > 1 else "single", None),
                          ("split", 3), ("single", 1)):
         out = hdp_paged_fum_decode(*args, **kws, splits=splits).double()
@@ -629,15 +636,32 @@ def fixed_grid_split(torch, x):
     return xq, torch.trunc(xq)
 
 
-def check_scout(torch, label, iq, ik, path=None, force=None, **kw):
+def same_bits(torch, a, b):
+    """Equal tensors, NaN where the other is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def check_scout(torch, label, iq, ik, path=None, force=None, twin=False,
+                **kw):
     """Scout kernel vs plain: theta, keep and theta_head bit-equal (every
     sum is an exact integer rounded once, in both). ``path``: the path
-    the call must take; ``force``: the wrapper's ``path`` argument."""
+    the call must take; ``force``: the wrapper's ``path`` argument; with
+    ``twin`` the dp4a kernel on the same inputs, bit-equal to the call's
+    kernel too."""
     from repro_torch.kernels.hdp_scout import hdp_scout
     from repro_torch.kernels.ref import hdp_scout_plain
     (th, kp, hh), ran = on_path(label, hdp_scout, lambda: hdp_scout(
         iq, ik, path=force, **kw), path)
     pth, pkp, phh = hdp_scout_plain(iq, ik, **kw)
+    if twin:
+        got = on_path(f"{label} [dp4a twin]", hdp_scout, lambda: hdp_scout(
+            iq, ik, path="dp4a", **kw), "dp4a")[0]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((th, kp, hh), got)),
+              f"{label}: the {ran} and dp4a kernels' theta, keep or "
+              "theta_head differ")
+        note_err("hdp_scout", "dp4a", (got[0] - pth).abs().max().item())
     torch.cuda.synchronize()
     check(bool(torch.isfinite(th).all() and torch.isfinite(hh).all()),
           f"{label}: non-finite theta")
@@ -649,28 +673,32 @@ def check_scout(torch, label, iq, ik, path=None, force=None, **kw):
     check(torch.equal(kp, pkp), f"{label} [{ran}]: keep differs in "
           f"{int((kp != pkp).sum())} blocks")
     log(f"[kernels] {label} [{ran}]: theta, keep and theta_head bit-equal "
-        f"to the plain version")
+        f"to the plain version" + (" and to the dp4a kernel's" if twin
+                                   else ""))
     note_err("hdp_scout", ran, err)
     return err
 
 
-def check_scout_bad_input(torch, path):
+def check_scout_bad_input(torch, path, hd=None):
     """A value that is not an integer in [-128, 127] (0.5 in a q row of
     head 0, 200 in a k row of head 1) turns the theta of exactly the q
     tiles that read it to NaN, their keep to 0 and the heads' theta_head
-    to NaN; every other tile equals the plain version."""
+    to NaN; every other tile equals the plain version. Blocks of 128
+    at hd 128 (or ``hd``) on the tensor-core path, of 32 at hd 16 (or
+    128 at ``hd``) on the dp4a path. Returns (theta, keep, theta_head)."""
     from repro_torch.kernels.hdp_scout import hdp_scout
     from repro_torch.kernels.ref import hdp_scout_plain
-    bq = 128 if path == "tensor_core" else 32
-    hd = 128 if path == "tensor_core" else 16
+    bq = 128 if path == "tensor_core" or hd else 32
+    hd = hd or (128 if path == "tensor_core" else 16)
     shape = (1, 2, 4 * bq, hd)
     _, iq = fixed_grid_split(torch, _randn(torch, shape, 9))
     _, ik = fixed_grid_split(torch, _randn(torch, shape, 10))
     iq[0, 0, bq + 2, 5] = 0.5          # q tile 1 of head 0
     ik[0, 1, 2 * bq + 4, 7] = 200.0    # k block 2 of head 1: tiles 2, 3
     kw = dict(rho_b=0.5, block_q=bq, block_k=bq, causal=True)
-    (th, kp, hh), _ = on_path(f"hdp_scout bad input [{path}]", hdp_scout,
-                              lambda: hdp_scout(iq, ik, **kw), path)
+    tag = f"hdp_scout bad input hd {hd} [{path}]"
+    (th, kp, hh), _ = on_path(tag, hdp_scout, lambda: hdp_scout(
+        iq, ik, path=path, **kw), path)
     pth, pkp, _ = hdp_scout_plain(iq, ik, **kw)
     torch.cuda.synchronize()
     want = torch.tensor([[[False, True, False, False],
@@ -678,16 +706,16 @@ def check_scout_bad_input(torch, path):
     nan_tile = torch.isnan(th).all(-1)
     check(torch.equal(nan_tile, want)
           and not bool(torch.isnan(th[~want]).any()),
-          f"hdp_scout bad input [{path}]: NaN tiles {nan_tile.tolist()}, "
+          f"{tag}: NaN tiles {nan_tile.tolist()}, "
           f"expected {want.tolist()}")
     check(not bool(kp[want].any()) and torch.equal(kp[~want], pkp[~want])
           and torch.equal(th[~want], pth[~want]),
-          f"hdp_scout bad input [{path}]: keep or clean tiles differ")
+          f"{tag}: keep or clean tiles differ")
     check(bool(torch.isnan(hh).all()),
-          f"hdp_scout bad input [{path}]: theta_head {hh.tolist()}")
-    log(f"[kernels] hdp_scout bad input [{path}]: the 3 tiles that read it "
-        "NaN with no kept block, both heads' theta_head NaN, the rest "
-        "bit-equal")
+          f"{tag}: theta_head {hh.tolist()}")
+    log(f"[kernels] {tag}: the 3 tiles that read it NaN with no kept "
+        "block, both heads' theta_head NaN, the rest bit-equal")
+    return th, kp, hh
 
 
 def block_case(torch, *, B, H, S, hd, bq, bk, v_bf16, seed, gate=True,
@@ -821,6 +849,52 @@ def note_err(name, path, err):
     ERRS[entry] = max(ERRS.get(entry, 0.0), err)
 
 
+def scout_hd112(torch):
+    """The scout at zamba2-7b's hd 112 on the tensor-core path (int8
+    copies zero-padded to 128 columns), each call held bit-equal to the
+    plain version and to the dp4a kernel: S 4000 and 1000 (ragged),
+    causal and full, 128x128, 64x128, 128x64 and 64x64 blocks, rho of
+    both signs, the prefill's strided [B, H, S, hd] views of [B, S, H,
+    hd] tensors, int8 extremes, and the bad-input NaN."""
+    for shape, (bq, bk), rho, causal in (
+            ((1, 3, 4000, 112), (128, 128), 0.5, True),
+            ((1, 3, 4000, 112), (128, 128), -0.5, False),
+            ((1, 2, 1000, 112), (64, 128), 0.5, True),
+            ((1, 2, 1000, 112), (128, 64), -0.5, False),
+            ((1, 2, 1000, 112), (64, 64), 0.5, False)):
+        _, iq = fixed_grid_split(torch, _randn(torch, shape, 27))
+        _, ik = fixed_grid_split(torch, _randn(torch, shape, 28))
+        check_scout(torch, f"hdp_scout {shape} blocks {bq}x{bk} rho {rho} "
+                    f"{'causal' if causal else 'full'}", iq, ik,
+                    path="tensor_core", twin=True, rho_b=rho, block_q=bq,
+                    block_k=bk, causal=causal)
+    _, iq = fixed_grid_split(torch, _randn(torch, (1, 1000, 3, 112), 27))
+    _, ik = fixed_grid_split(torch, _randn(torch, (1, 1000, 3, 112), 28))
+    for causal in (True, False):
+        check_scout(torch, "hdp_scout (1, 3, 1000, 112) strided views blocks "
+                    f"128x128 {'causal' if causal else 'full'}",
+                    iq.transpose(1, 2), ik.transpose(1, 2),
+                    path="tensor_core", twin=True, rho_b=0.5, block_q=128,
+                    block_k=128, causal=causal)
+    g = torch.Generator().manual_seed(29)
+    for shape in ((1, 2, 384, 112), (1, 1, 300, 112)):
+        iq, ik = (torch.where(torch.rand(shape, generator=g) < 0.5, -128.0,
+                              127.0).cuda() for _ in range(2))
+        ik[..., ::3, :] = -128.0
+        for causal in (True, False):
+            check_scout(torch, f"hdp_scout {shape} int8 extremes "
+                        f"{'causal' if causal else 'full'}", iq, ik,
+                        path="tensor_core", twin=True, rho_b=0.5,
+                        block_q=128, block_k=128, causal=causal)
+    tc, dp = (check_scout_bad_input(torch, path, hd=112)
+              for path in ("tensor_core", "dp4a"))
+    check(all(same_bits(torch, a, b) for a, b in zip(tc, dp)),
+          "hdp_scout bad input hd 112: the tensor-core and dp4a kernels' "
+          "theta, keep or theta_head differ")
+    log("[kernels] hdp_scout bad input hd 112: tensor-core == dp4a, NaNs "
+        "included")
+
+
 def phase_new_kernels(torch):
     """Scout, block and flash kernels vs their plain versions (their
     errors go to ERRS)."""
@@ -869,6 +943,7 @@ def phase_new_kernels(torch):
                         block_k=128, causal=causal)
     for path in ("tensor_core", "dp4a"):
         check_scout_bad_input(torch, path)
+    scout_hd112(torch)
     for (B, H, S, hd), (bq, bk) in small + [
             ((PREFILL_B, 12, PREFILL_S, 128), (128, 128)),
             (MHA_PREFILL, (128, 128))]:
@@ -1071,16 +1146,17 @@ def aligned_prefill(torch, cfg, params, toks, label, n_calls=None,
     return out, {k: r.best for k, r in rec.items()}
 
 
-def check_prefill_calls(torch, calls, label, paths=None):
+def check_prefill_calls(torch, calls, label, paths=None, twin=False):
     """The scout, block and flash kernels against their plain versions at
     the aligned prefill's own recorded inputs, each on its path in
-    ``paths`` (default the tensor-core path). Returns the max |kernel -
-    plain| of each (the scout's is 0: bit-equal)."""
+    ``paths`` (default the tensor-core path), the scout with ``twin``
+    also against its dp4a kernel. Returns the max |kernel - plain| of
+    each (the scout's is 0: bit-equal)."""
     paths = paths or {}
     (iq, ik), kw = calls["scout"]
     errs = {"hdp_scout": check_scout(
         torch, f"hdp_scout at {label}'s last call", iq, ik,
-        path=paths.get("hdp_scout", "tensor_core"), **kw)}
+        path=paths.get("hdp_scout", "tensor_core"), twin=twin, **kw)}
     args, kw = calls["block"]
     c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
              **{"kv_len": None, "score_scale": None, **kw})
@@ -3203,6 +3279,9 @@ def phase_tp(torch, cfg, params, phase5, smi_line):
 
 
 N_LAYERS_GRANITE = 36
+#: the depth phase 5b serves granite-8b at (each route's serve at full
+#: depth took ~15 s, mostly the plain ``xla_hdp`` prefill's layers)
+GRANITE_LAYERS = 4
 GRANITE_KW = dict(max_batch=8, max_len=4096 + 32,
                   prefill_buckets=(1024, 2048, 4096), collect_stats=True)
 
@@ -3233,10 +3312,11 @@ def granite_runs(cfg):
 
 
 def phase_granite(torch):
-    """granite-8b at full width (36 layers, bf16, seeded weights): 8
-    requests of up to 4,096 prompt tokens and 32 new tokens on every
-    serving route, eagerly and on the decode graph at horizon 4 with
-    equal tokens; the FUM kernel's runs counted on the card. Then the
+    """granite-8b at full width cut to ``GRANITE_LAYERS`` of its 36 layers
+    (bf16, seeded weights): 8 requests of up to 4,096 prompt tokens and
+    32 new tokens on every serving route, eagerly and on the decode
+    graph at horizon 4 with equal tokens; the FUM kernel's runs counted
+    on the card. Then the
     reduced config on the card (graphed) against the CPU on each pool and
     layout. Returns the FUM kernel's runs on the card in the graphed
     serve of each pool format and a summary per route."""
@@ -3249,6 +3329,7 @@ def phase_granite(torch):
            cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings)
           == (N_LAYERS_GRANITE, 4096, 32, 8, 128, 14336, 49152, False),
           f"unexpected granite-8b config {cfg}")
+    cfg = cfg.replace(n_layers=GRANITE_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3293,7 +3374,7 @@ def phase_granite(torch):
                   f"{backend} ({stage3})")
             if fmt is not None:
                 check_decode_launches(s, launches, "fum", tag, runs,
-                                      n_layers=N_LAYERS_GRANITE)
+                                      n_layers=GRANITE_LAYERS)
                 got = launches["fum_format"]
                 check(got[fmt] == sum(got.values()),
                       f"{tag}: FUM launches by format {got}, expected "
@@ -3477,7 +3558,8 @@ def phase_moe(torch):
     import numpy as np
     import repro_torch.models.attention as attention
     from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.hdp_paged_decode import (fum_splits,
+                                                      hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     from repro_torch.serving import Engine, Request
     cfg = get_config("olmoe-1b-7b")
@@ -3515,13 +3597,22 @@ def phase_moe(torch):
           f"olmoe decode stage 3 resolved to {s['attn_decode_stage3']}")
     check_decode_launches(s, launches, "fum", "olmoe-1b-7b eager", runs,
                           n_layers=N_LAYERS_OLMOE)
-    log(f"[moe] olmoe-1b-7b eager: FUM launches by pass {launches['fum']} "
-        f"(B*N = 8 x 16 = 128 blocks: fum_splits gives one pass), "
-        f"cache_bytes_per_token {s['cache_bytes_per_token']}, weights "
-        f"{wbytes} B")
     check(rec.score is not None and rec.score > 0,
           "olmoe: no FUM call of the path listed a page")
     (args, kw), rec = rec.best, None
+    # the pass the rule gives olmoe's decode (B*N = 8 x 16 = 128 rows)
+    olmoe_S = fum_splits(*args[0].shape[:2], args[3].shape[1],
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count, args[0].shape[2])
+    olmoe_mode = "split" if olmoe_S > 1 else "single"
+    check(launches["fum"][olmoe_mode] == sum(launches["fum"].values()),
+          f"olmoe-1b-7b eager: FUM launches by pass {launches['fum']}, "
+          f"expected every launch {olmoe_mode} (fum_splits: S={olmoe_S})")
+    out["fum_mode"], out["fum_S"] = olmoe_mode, olmoe_S
+    log(f"[moe] olmoe-1b-7b eager: FUM launches by pass {launches['fum']} "
+        f"(B*N = 8 x 16 = 128 rows: fum_splits gives S={olmoe_S}), "
+        f"cache_bytes_per_token {s['cache_bytes_per_token']}, weights "
+        f"{wbytes} B")
     ref = hdp_paged_fum_decode_ref(*args, **kw)
     for mode, splits in (("default", None), ("split", 3), ("single", 1)):
         got = hdp_paged_fum_decode(*args, **kw, splits=splits)
@@ -3550,9 +3641,9 @@ def phase_moe(torch):
               "graph captures, expected 1")
         check_decode_launches(s, launches, "fum", label, runs,
                               n_layers=N_LAYERS_OLMOE)
-        check(launches["fum"]["single"] == sum(launches["fum"].values()),
+        check(launches["fum"][olmoe_mode] == sum(launches["fum"].values()),
               f"{label}: FUM launches by pass {launches['fum']}, expected "
-              "every launch in one pass")
+              f"every launch {olmoe_mode} (S={olmoe_S})")
         fum_runs[label] = runs["fum"]
         out[f"h{horizon}"] = {k: s[k] for k in (
             "decode_tok_s", "decode_tok_s_steady", "prefill_s",
@@ -3702,9 +3793,9 @@ FAMILY_PLENS = (128, 256, 140, 199, 263, 331, 402, 487)
 FAMILY_KW = dict(max_batch=8, max_len=512 + 32, prefill_buckets=(512,))
 #: zamba2-7b's shared attention block at its aligned prefill (B 1, S 4096):
 #: 32 heads at hd 112, invoked once per group of 6 Mamba2 layers; the
-#: scout's tensor-core path needs hd % 32 == 0, block and flash take
-#: their tensor-core kernels (hd 112 padded to 128 in shared memory)
-ZAMBA_GROUPS, ZAMBA_PATHS = 13, {"hdp_scout": "dp4a",
+#: scout takes its tensor-core kernel on int8 copies zero-padded to 128
+#: columns, block and flash theirs (hd 112 padded to 128 in shared memory)
+ZAMBA_GROUPS, ZAMBA_PATHS = 13, {"hdp_scout": "tensor_core",
                                  "hdp_block_sparse_attention": "tensor_core",
                                  "flash_attention": "tensor_core"}
 #: whisper-large-v3: frames (B, S_enc), the prompt and the greedy steps
@@ -3816,9 +3907,10 @@ def phase_families(torch):
     new tokens each, batch 8, the dense layout, eagerly and graphed at
     horizon 4 (identical tokens, one capture, exact-length prefill, no
     decode kernel); zamba2's aligned prefill (B 1, S 4096) through the
-    scout (dp4a) and block (tensor core) kernels with HDP on and flash
-    (tensor core) with HDP off, 13 launches each at hd 112, each held
-    against its plain version at the path's own inputs; whisper-large-v3
+    scout and block kernels with HDP on and flash with HDP off, all on
+    the tensor-core path, 13 launches each at hd 112, each held against
+    its plain version at the path's own inputs (the scout also against
+    its dp4a kernel); whisper-large-v3
     (32 + 32 layers) encoding 2 x 1500 seeded frames, a 16-token prompt
     and 32 greedy decode steps; the reduced configs card vs CPU. Each
     model's weights are freed before the next. Returns zamba2's prefill
@@ -3873,7 +3965,8 @@ def phase_families(torch):
         torch, cfg, params, toks, "zamba2-7b", n_calls=ZAMBA_GROUPS,
         paths=ZAMBA_PATHS)
     out["errs"] = check_prefill_calls(torch, calls, "zamba2-7b's aligned "
-                                      "prefill (hd 112)", ZAMBA_PATHS)
+                                      "prefill (hd 112)", ZAMBA_PATHS,
+                                      twin=True)
     out["calls"] = calls
     del params, toks
     torch.cuda.empty_cache()
@@ -4596,8 +4689,9 @@ def phase_timing_zamba2(torch, calls):
     ``ZAMBA_PATHS``, at zamba2-7b's aligned prefill's own inputs (B 1,
     32 heads, S 4096, hd 112, bf16 V): kernel, plain version, bound, and
     flash beside bf16 ``scaled_dot_product_attention`` at the same
-    inputs. Returns {kernel: (kernel ms, plain ms, bound ms, bound by,
-    bytes, ops, library ms)}."""
+    inputs; the scout's dp4a kernel too ("hdp_scout[dp4a]"). Returns
+    {kernel: (kernel ms, plain ms, bound ms, bound by, bytes, ops,
+    library ms)}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
@@ -4611,6 +4705,10 @@ def phase_timing_zamba2(torch, calls):
         time_ms(torch, lambda: hdp_scout(iq, ik, **kw), 20, flush),
         time_ms(torch, lambda: hdp_scout_plain(iq, ik, **kw), 3, flush),
         *scout_bound(torch, iq, ik, kw), None)}
+    # the dp4a kernel, the earlier path at this shape, at the same inputs
+    res["hdp_scout[dp4a]"] = (
+        time_ms(torch, lambda: hdp_scout(iq, ik, path="dp4a", **kw), 20,
+                flush), *res["hdp_scout"][1:])
     args, kw = calls["block"]
     res["hdp_block_sparse_attention"] = (
         time_ms(torch, lambda: hdp_block_sparse_attention(*args, **kw), 10,
@@ -4627,10 +4725,10 @@ def phase_timing_zamba2(torch, calls):
         time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=kw["causal"]), 20, flush))
     for name, (k_ms, p_ms, bound, by, nbytes, ops, lib) in res.items():
-        log(f"[timing] {name} [{ZAMBA_PATHS[name]}] at zamba2-7b's aligned "
-            f"prefill (B1 H32 S{PREFILL_S} hd112): kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
-            f"{ops:.4g} ops)"
+        log(f"[timing] {name} [{ZAMBA_PATHS.get(name, 'dp4a')}] at "
+            f"zamba2-7b's aligned prefill (B1 H32 S{PREFILL_S} hd112): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} "
+            f"ms ({by}: {nbytes} B, {ops:.4g} ops)"
             + (f", scaled_dot_product_attention (bf16) {lib:.4f} ms"
                if lib is not None else ""))
     return res
@@ -4713,19 +4811,20 @@ def phase_timing(torch, c, olmoe_case, tp_case):
     (``fum_splits``' S) and in one pass (S = 1), in turns with the plain
     version; then at the verify shape (Sq 4 and 8, the same widths and
     page density); then the fp8-V and bf16 pool variants at the timing
-    case, split; then at olmoe-1b-7b's decode shape (G 1, one pass) and
-    at one rank's shard of qwen2's at tp 2 (N 1). Returns {mode,
-    "verify<Sq>", format, "olmoe" or "tp2": (kernel ms, plain ms, bound
-    ms, bound by)}."""
+    case, split; then at olmoe-1b-7b's decode shape (G 1) at the rule's
+    S and in one pass, and at one rank's shard of qwen2's at tp 2 (N 1).
+    Returns {mode, "verify<Sq>", format, "olmoe", "olmoe_single" or
+    "tp2": (kernel ms, plain ms, bound ms, bound by)}."""
     from repro_torch.kernels.hdp_paged_decode import (fum_splits,
                                                       hdp_paged_fum_decode)
     from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
     args, kws = kernel_args(c)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     bound, bound_by, nbytes, flops = fum_bound(torch, c)
-    B, N = c["qq"].shape[:2]
+    B, N, G = c["qq"].shape[:3]
     S = fum_splits(B, N, c["page_ids"].shape[1],
-                   torch.cuda.get_device_properties(0).multi_processor_count)
+                   torch.cuda.get_device_properties(0).multi_processor_count,
+                   G)
     p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
                    flush)
     res = {}
@@ -4768,20 +4867,27 @@ def phase_timing(torch, c, olmoe_case, tp_case):
             f"bound {bound:.6f} ms ({bound_by}: {nbytes} B, {flops} flop)")
     args, kws = kernel_args(olmoe_case)
     bound, bound_by, nbytes, flops = fum_bound(torch, olmoe_case)
+    S = fum_splits(*olmoe_case["qq"].shape[:2],
+                   olmoe_case["page_ids"].shape[1],
+                   torch.cuda.get_device_properties(0).multi_processor_count,
+                   olmoe_case["qq"].shape[2])
     p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
                    flush)
-    k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
-                   flush)
-    res["olmoe"] = (k_ms, p_ms, bound, bound_by)
-    log(f"[timing] hdp_paged_fum_decode [olmoe-1b-7b, single pass] at B8 "
-        f"N16 G1 Sq1 hd128 ps128 (pages listed per row "
-        f"{olmoe_case['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
-        f"{flops} flop)")
+    # the rule's S, and one pass beside it (each in turns with the other)
+    for key, splits in (("olmoe", None), ("olmoe_single", 1)):
+        k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(
+            *args, **kws, splits=splits), 50, flush)
+        res[key] = (k_ms, p_ms, bound, bound_by)
+        log(f"[timing] hdp_paged_fum_decode [olmoe-1b-7b, S={splits or S}] "
+            f"at B8 N16 G1 Sq1 hd128 ps128 (pages listed per row "
+            f"{olmoe_case['counts'].tolist()}): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}: {nbytes} B, "
+            f"{flops} flop)")
     args, kws = kernel_args(tp_case)
     bound, bound_by, nbytes, flops = fum_bound(torch, tp_case)
     S = fum_splits(8, 1, tp_case["page_ids"].shape[1],
-                   torch.cuda.get_device_properties(0).multi_processor_count)
+                   torch.cuda.get_device_properties(0).multi_processor_count,
+                   6)
     p_ms = time_ms(torch, lambda: hdp_paged_fum_decode_ref(*args, **kws), 5,
                    flush)
     k_ms = time_ms(torch, lambda: hdp_paged_fum_decode(*args, **kws), 50,
@@ -5033,10 +5139,10 @@ def main() -> int:
         })
     kernels[-1]["note"] = ("the one-pass mode (S = 1), the earlier design, "
                            "timed beside the split; fum_splits gives S > 1 "
-                           "at every shape qwen2's path runs (olmoe's runs "
-                           "one pass: its own entry)")
-    # the FUM runs on the card of phase 5e's graphed serves, by the pass
-    # they take: olmoe (B*N = 128) one pass, the 4-layer configs split
+                           "at every shape the main paths run (olmoe's: its "
+                           "own entry)")
+    # the FUM runs on the card of phase 5e's graphed serves: olmoe's
+    # (B*N = 128, two blocks a row) in its own entry
     olmoe_runs = {k: v for k, v in moe["fum_runs"].items()
                   if k.startswith("olmoe")}
     kernels[0]["launches_by_run"] = {
@@ -5081,7 +5187,7 @@ def main() -> int:
         })
     k_ms, p_ms, bound, bound_by = fum_timed["olmoe"]
     kernels.append({
-        "name": "hdp_paged_fum_decode[olmoe G=1]", "path": "single",
+        "name": "hdp_paged_fum_decode[olmoe G=1]", "path": moe["fum_mode"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/hdp_paged_decode.cu",
         "replaces": "src/repro/kernels/hdp_paged_decode.py:122",
@@ -5092,11 +5198,12 @@ def main() -> int:
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "library_note": NO_LIBRARY_CALL["hdp_paged_fum_decode"],
-        "note": "olmoe-1b-7b's decode shape (MHA, G 1): B*N = 128 blocks, "
-                "so fum_splits gives one pass; timed at B8 N16 G1 hd128 "
+        "note": f"olmoe-1b-7b's decode shape (MHA, G 1): B*N = 128 rows, "
+                f"fum_splits gives S={moe['fum_S']}; timed at B8 N16 G1 hd128 "
                 "ps128 with half the 16 page slots live; launches: its "
                 "graphed horizon-1 serve (16 layers x (32 decode steps + "
                 "1 warm-up))",
+        "single_pass_ms": fum_timed["olmoe_single"][0],
     })
     k_ms, p_ms, bound, bound_by = fum_timed["tp2"]
     kernels.append({
@@ -5179,6 +5286,10 @@ def main() -> int:
                     "hd 112, bf16): 13 launches, one per shared-block "
                     "invocation; hd 112 takes this path",
         })
+        if base == "hdp_scout":
+            # the dp4a kernel, which served this shape before, at the
+            # same inputs
+            kernels[-1]["dp4a_ms"] = zamba_timed["hdp_scout[dp4a]"][0]
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
     log(f"[train] phase 5j {json.dumps(trained)}")

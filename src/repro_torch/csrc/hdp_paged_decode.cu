@@ -29,8 +29,10 @@
 // * the pages of each (b, n) are split across S blocks, grid (N, B,
 //   S * RC): block s takes the listed pages whose logical slot is s mod
 //   S (S comes from shapes alone, without reading counts; one warp
-//   compacts the block's entries of the list into shared memory by
-//   ballot before the page loop). A page goes
+//   compacts the block's entries of the list, with their page ids and
+//   slots, into shared memory by ballot before the page loop, and each
+//   page's keep flags are loaded one page ahead, so the page loop waits
+//   on no list read). A page goes
 //   to its block by its slot and not by its place in the list, so that
 //   a query row's partial sums group alike whatever else is listed: the
 //   list of a multi-query verify call is the union over its rows, and a
@@ -53,17 +55,27 @@
 //   would spill registers. A row's arithmetic does not depend on its
 //   chunk, so the split changes no bit;
 // * inside a block: qq and frac(qq) for the G*Sq rows sit in shared
-//   memory; an int8 page's K and V codes are loaded 16 bytes a thread
-//   (int4) into registers while the block computes the previous page
-//   (two pages in flight), then dequantized on the way into shared
-//   memory as fp32 (fp8 V through an exact bit decode of e4m3);
-//   unquantized pools are loaded four elements a thread (float4, or
-//   8 bytes of bf16) and snapped on the way in, one page at a time
-//   (their registers would not hold a second page). The pool format is a
+//   memory; an int8 page's K and V codes, when hd % 16 == 0 (every
+//   config), are copied as they are into shared memory by cp.async, 16
+//   bytes a copy, into one of two buffers while the block computes the
+//   page in the other, and dequantized where the scores and p.V read
+//   them (code x scale, -128 -> NaN; fp8 V through an exact bit decode
+//   of e4m3: the values an fp32 tile of the page holds, so every sum is
+//   the same as on the 4-byte path below). Two
+//   pages of codes take 4 x ps x (hd + 16) bytes (74 KB at 128 x 128,
+//   rows padded by 16 bytes so a quarter warp's 16-byte loads hit
+//   distinct banks) against the fp32 tiles' 133 KB, so a block of one
+//   row (an MHA decode) fits two to an SM and the S blocks of a split
+//   (b, n) row run side by side. Other int8 pages are loaded 4 bytes a
+//   thread into registers while the block computes the previous page,
+//   then dequantized on the way into shared memory as fp32; unquantized
+//   pools are loaded four elements a thread (float4, or 8 bytes of
+//   bf16) and snapped on the way in, one page at a time (their
+//   registers would not hold a second page). The pool format is a
 //   template argument, so each format compiles to its own loads;
-// * per page: scores with one thread per (column, group of RPT rows),
-//   each K value and its fraction read once (float4 along d) for all of
-//   the thread's rows; per-row m and l (one warp per row); p.V with one
+// * per page: scores with one thread per (column, group of RPT rows:
+//   1 in a block of one row, 4, or 16), each K value and its fraction
+//   read once for all of the thread's rows; per-row m and l (one warp per row); p.V with one
 //   thread per (d, group of RPT rows), its rows' accumulators in
 //   registers. The rows are padded to whole groups with zero rows, so
 //   the inner loops carry no per-row test. All fp32, each sum in
@@ -86,6 +98,9 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
+// a block's rows are at most 16 * kThreads / max(ps, hd) <= 4 * kThreads
+// (hd >= 4): keep flags a thread holds
+constexpr int kKeepPer = 4;
 
 // pool formats: int8 K and V with scales; int8 K with scales and fp8
 // e4m3 V (scale 1.0); unquantized fp32 or bf16 K and V
@@ -115,8 +130,10 @@ struct Args {
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
+// code x scale rounded once (never fused into a later add: the scores
+// take frac() of it where it is read)
 __device__ __forceinline__ float dequant(int8_t c, float s) {
-  return c == -128 ? nan_f() : static_cast<float>(c) * s;
+  return c == -128 ? nan_f() : __fmul_rn(static_cast<float>(c), s);
 }
 
 // float8_e4m3fn code -> float, exactly: bias 7, no infinity, S.1111.111
@@ -164,17 +181,17 @@ __device__ __forceinline__ int8_t byte_at(int v, int x) {
 }
 
 // One int8 page's K and V codes (V int8 or fp8 e4m3 bytes, FP8) for
-// head n, held in registers: VB codes per load (16 when hd % 16 == 0,
-// else 4), up to ps*hd/VB/kThreads loads a thread for each of K and V.
-template <int VB, bool FP8>
+// head n, held in registers, 4 codes a load (pages that hd % 16 or
+// their alignment keep from load_codes' 16-byte copies), up to
+// ps*hd/4/kThreads loads a thread for each of K and V.
+template <bool FP8>
 struct Codes {
-  using Vec = typename std::conditional<VB == 16, int4, int>::type;
-  static constexpr int kMax = 128 * 128 / VB / kThreads;
-  Vec k[kMax], v[kMax];
+  static constexpr int kMax = 128 * 128 / 4 / kThreads;
+  int k[kMax], v[kMax];
   float ks, vs;
 
   __device__ __forceinline__ void fetch(const Args& a, int pid, int n) {
-    const int per_row = a.hd / VB, total = a.ps * per_row;
+    const int per_row = a.hd / 4, total = a.ps * per_row;
     const size_t page0 = (size_t)pid * a.ps * a.N;
     ks = a.k_scale[(size_t)pid * a.N + n];
     vs = a.v_scale[(size_t)pid * a.N + n];
@@ -182,10 +199,10 @@ struct Codes {
     for (int u = 0; u < kMax; ++u) {
       const int e = threadIdx.x + u * kThreads;
       if (e < total) {
-        const int pos = e / per_row, d = (e - pos * per_row) * VB;
+        const int pos = e / per_row, d = (e - pos * per_row) * 4;
         const size_t g = (page0 + (size_t)pos * a.N + n) * a.hd + d;
-        k[u] = *reinterpret_cast<const Vec*>(static_cast<const int8_t*>(a.k_pool) + g);
-        v[u] = *reinterpret_cast<const Vec*>(static_cast<const int8_t*>(a.v_pool) + g);
+        k[u] = *reinterpret_cast<const int*>(static_cast<const int8_t*>(a.k_pool) + g);
+        v[u] = *reinterpret_cast<const int*>(static_cast<const int8_t*>(a.v_pool) + g);
       }
     }
   }
@@ -196,21 +213,18 @@ struct Codes {
 
   // dequantize into k_s [ps, hd+4] and v_s [ps, hd], four values a store
   __device__ __forceinline__ void store(const Args& a, float* k_s, float* v_s) const {
-    const int per_row = a.hd / VB, total = a.ps * per_row;
+    const int per_row = a.hd / 4, total = a.ps * per_row;
 #pragma unroll
     for (int u = 0; u < kMax; ++u) {
       const int e = threadIdx.x + u * kThreads;
       if (e < total) {
-        const int pos = e / per_row, d = (e - pos * per_row) * VB;
-#pragma unroll
-        for (int x = 0; x < VB; x += 4) {
-          *reinterpret_cast<float4*>(k_s + pos * (a.hd + 4) + d + x) = make_float4(
-              dequant(byte_at(k[u], x), ks), dequant(byte_at(k[u], x + 1), ks),
-              dequant(byte_at(k[u], x + 2), ks), dequant(byte_at(k[u], x + 3), ks));
-          *reinterpret_cast<float4*>(v_s + pos * a.hd + d + x) = make_float4(
-              vdec(byte_at(v[u], x)), vdec(byte_at(v[u], x + 1)),
-              vdec(byte_at(v[u], x + 2)), vdec(byte_at(v[u], x + 3)));
-        }
+        const int pos = e / per_row, d = (e - pos * per_row) * 4;
+        *reinterpret_cast<float4*>(k_s + pos * (a.hd + 4) + d) = make_float4(
+            dequant(byte_at(k[u], 0), ks), dequant(byte_at(k[u], 1), ks),
+            dequant(byte_at(k[u], 2), ks), dequant(byte_at(k[u], 3), ks));
+        *reinterpret_cast<float4*>(v_s + pos * a.hd + d) = make_float4(
+            vdec(byte_at(v[u], 0)), vdec(byte_at(v[u], 1)),
+            vdec(byte_at(v[u], 2)), vdec(byte_at(v[u], 3)));
       }
     }
   }
@@ -247,12 +261,80 @@ __device__ __forceinline__ void load_float(const Args& a, int pid, int n,
   }
 }
 
-// F: the pool format (Fmt); VB: codes per int8 load; RPT: rows per
-// thread group (the groups, Rp / RPT, fit 256 / ps and 256 / hd).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One int8 page's K and V codes (V int8 or fp8 e4m3 bytes) for head n
+// into shared memory as they are, rows of hd + 16 bytes (kc, vc), by
+// cp.async 16 bytes a copy (hd % 16 == 0, pools 16-byte aligned); the
+// caller commits.
+__device__ __forceinline__ void load_codes(const Args& a, int pid, int n,
+                                           int8_t* kc, int8_t* vc) {
+  const int per_row = a.hd / 16, total = a.ps * per_row;
+  const size_t page0 = (size_t)pid * a.ps * a.N;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int pos = e / per_row, d = (e - pos * per_row) * 16;
+    const size_t g = (page0 + (size_t)pos * a.N + n) * a.hd + d;
+    const int at = pos * (a.hd + 16) + d;
+    cp_async16(kc + at, static_cast<const int8_t*>(a.k_pool) + g);
+    cp_async16(vc + at, static_cast<const int8_t*>(a.v_pool) + g);
+  }
+}
+
+// int8 pages loaded 16 codes at a time keep their codes in shared memory
+// (two pages, 2 x 2 x ps x (hd + 16) bytes) and dequantize them where
+// the scores and p.V read them: a block of one row then fits two to an
+// SM (its fp32 page tiles took 133 KB, one block an SM), so the blocks
+// of a split (b, n) row run side by side
+template <int F, int VB>
+__host__ __device__ constexpr bool shared_codes() {
+  return (F == kI8 || F == kI8Fp8) && VB == 16;
+}
+
+// blocks an SM must hold (the registers a thread may take follow)
 template <int F, int VB, int RPT>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int min_blocks() {
+  return shared_codes<F, VB>() && RPT == 1 ? 2 : 1;
+}
+
+// s1 += q.k and s2 += frac(q).frac(k) over four columns e .. e + 3 of
+// the RPT rows at qb / fb, in ascending order
+template <int RPT>
+__device__ __forceinline__ void score4(float (&s1)[RPT], float (&s2)[RPT],
+                                       const float4 k, const float* qb,
+                                       const float* fb, int hd, int e) {
+  const float4 fk = make_float4(k.x - truncf(k.x), k.y - truncf(k.y),
+                                k.z - truncf(k.z), k.w - truncf(k.w));
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const float4 q = *reinterpret_cast<const float4*>(qb + u * hd + e);
+    const float4 f = *reinterpret_cast<const float4*>(fb + u * hd + e);
+    s1[u] = fmaf(q.x, k.x, s1[u]); s2[u] = fmaf(f.x, fk.x, s2[u]);
+    s1[u] = fmaf(q.y, k.y, s1[u]); s2[u] = fmaf(f.y, fk.y, s2[u]);
+    s1[u] = fmaf(q.z, k.z, s1[u]); s2[u] = fmaf(f.z, fk.z, s2[u]);
+    s1[u] = fmaf(q.w, k.w, s1[u]); s2[u] = fmaf(f.w, fk.w, s2[u]);
+  }
+}
+
+// F: the pool format (Fmt); VB: codes per int8 load (16: load_codes into
+// shared memory, 4: Codes in registers); RPT: rows per thread group (the
+// groups, Rp / RPT, fit 256 / ps and 256 / hd).
+template <int F, int VB, int RPT>
+__global__ void __launch_bounds__(kThreads, (min_blocks<F, VB, RPT>()))
 fum_decode_kernel(const Args a) {
   constexpr bool Q = F == kI8 || F == kI8Fp8;
+  constexpr bool SC = shared_codes<F, VB>();
   const int n = blockIdx.x, b = blockIdx.y;
   const int s = blockIdx.z % a.S, r0 = blockIdx.z / a.S * a.Rb;
   // this block's rows: global rows r0 .. r0 + R - 1
@@ -266,14 +348,24 @@ fum_decode_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // [Rp, hd], zero past R
   float* fq_s = q_s + Rp * hd;            // [Rp, hd]
-  float* v_s = fq_s + Rp * hd;            // [ps, hd]
-  float* k_s = v_s + ps * hd;             // [ps, hd + 4]
-  float* s_s = k_s + ps * (hd + 4);       // [Rp, ps] scores, then p
+  // the page: fp32 V [ps, hd] and K [ps, hd + 4] tiles, or with SC two
+  // pages of K codes, then two of V codes, [ps, hd + 16] bytes each
+  float* v_s = fq_s + Rp * hd;
+  float* k_s = v_s + (SC ? 0 : ps * hd);
+  int8_t* kc_s = reinterpret_cast<int8_t*>(k_s + (SC ? 0 : ps * (hd + 4)));
+  const int code_tile = ps * (hd + 16);
+  int8_t* vc_s = kc_s + 2 * code_tile;
+  float* s_s = reinterpret_cast<float*>(kc_s + (SC ? 4 * code_tile : 0));
+                                          // [Rp, ps] scores, then p
   float* m_s = s_s + Rp * ps;             // [Rb]
   float* l_s = m_s + a.Rb;                // [Rb]
   float* c_s = l_s + a.Rb;                // [Rb] per-page correction
   int* keep_s = reinterpret_cast<int*>(c_s + a.Rb);   // [Rb]
-  int* list_s = keep_s + a.Rb;            // [mk] this block's list entries
+  // this block's list entries: their place in the list, page id and
+  // logical slot
+  int* list_s = keep_s + a.Rb;            // [mk]
+  int* pid_s = list_s + a.mk;             // [mk]
+  int* slot_s = pid_s + a.mk;             // [mk]
   __shared__ int n_mine_s;
 
   // the block's first row in the [B,N,R] rows of qq and out
@@ -290,14 +382,23 @@ fum_decode_kernel(const Args a) {
   int cnt = a.counts[b];
   cnt = cnt < 0 ? 0 : (cnt > a.mk ? a.mk : cnt);
   // this block's pages: the list entries whose logical slot is s mod S,
-  // in list order, compacted by warp 0 (32 entries a ballot)
+  // in list order, compacted by warp 0 (32 entries a ballot) with their
+  // page ids and slots, so that the page loop reads no list entry from
+  // device memory
   if (warp == 0) {
     int mine_n = 0;
     for (int base = 0; base < cnt; base += 32) {
       const int j = base + lane;
-      const bool mine = j < cnt && a.logical[(size_t)b * a.mk + j] % S == s;
+      const int slot = j < cnt ? a.logical[(size_t)b * a.mk + j] : 0;
+      const int pid = j < cnt ? a.page_ids[(size_t)b * a.mk + j] : 0;
+      const bool mine = j < cnt && slot % S == s;
       const unsigned m = __ballot_sync(0xffffffffu, mine);
-      if (mine) list_s[mine_n + __popc(m & ((1u << lane) - 1u))] = j;
+      if (mine) {
+        const int at = mine_n + __popc(m & ((1u << lane) - 1u));
+        list_s[at] = j;
+        pid_s[at] = pid;
+        slot_s[at] = slot;
+      }
       mine_n += __popc(m);
     }
     if (lane == 0) n_mine_s = mine_n;
@@ -332,25 +433,63 @@ fum_decode_kernel(const Args a) {
 #pragma unroll
   for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
 
-  Codes<VB, F == kI8Fp8> codes;
+  Codes<F == kI8Fp8> codes;   // unused with SC
   const int n_mine = n_mine_s;   // written before the barrier above
-  if constexpr (Q) {
-    if (n_mine > 0) codes.fetch(a, a.page_ids[(size_t)b * a.mk + list_s[0]], n);
+  // thread t holds the keep flags of rows t, t + 256, ... of the next
+  // page (loaded one page ahead, as the codes are)
+  const int* keep_row = a.keep + ((size_t)b * a.mk * a.N + n) * a.R + r0 + tid;
+  const size_t keep_step = (size_t)a.N * a.R;
+  int keep_next[kKeepPer];
+  // with SC, the next page's scales (its codes are in flight)
+  float ks = 0.f, vs = 0.f, ks_next = 0.f, vs_next = 0.f;
+  if (n_mine > 0) {
+    if constexpr (SC) {
+      load_codes(a, pid_s[0], n, kc_s, vc_s);
+      cp_async_commit();
+      ks_next = a.k_scale[(size_t)pid_s[0] * a.N + n];
+      vs_next = a.v_scale[(size_t)pid_s[0] * a.N + n];
+    } else if constexpr (Q) {
+      codes.fetch(a, pid_s[0], n);
+    }
+#pragma unroll
+    for (int u = 0; u < kKeepPer; ++u)
+      if (tid + u * kThreads < R)
+        keep_next[u] = keep_row[list_s[0] * keep_step + u * kThreads];
   }
   for (int i = 0; i < n_mine; ++i) {
-    const int j = list_s[i];
     __syncthreads();   // the previous page's readers are done
-    const int col0 = a.logical[(size_t)b * a.mk + j] * ps;
-    if constexpr (Q) {
-      codes.store(a, k_s, v_s);
+    const int col0 = slot_s[i] * ps;
+    const int8_t* kc = kc_s + (i & 1) * code_tile;
+    const int8_t* vc = vc_s + (i & 1) * code_tile;
+    if constexpr (SC) {
+      // page i + 1's codes into the other buffer (page i - 1's, whose
+      // readers are done), then wait for page i's
       if (i + 1 < n_mine)
-        codes.fetch(a, a.page_ids[(size_t)b * a.mk + list_s[i + 1]], n);
+        load_codes(a, pid_s[i + 1], n, kc_s + ((i + 1) & 1) * code_tile,
+                   vc_s + ((i + 1) & 1) * code_tile);
+      cp_async_commit();
+      ks = ks_next;
+      vs = vs_next;
+      if (i + 1 < n_mine) {
+        ks_next = a.k_scale[(size_t)pid_s[i + 1] * a.N + n];
+        vs_next = a.v_scale[(size_t)pid_s[i + 1] * a.N + n];
+      }
+      cp_async_wait1();
+    } else if constexpr (Q) {
+      codes.store(a, k_s, v_s);
+      if (i + 1 < n_mine) codes.fetch(a, pid_s[i + 1], n);
     } else {
       using T = typename std::conditional<F == kBf16, __nv_bfloat16, float>::type;
-      load_float<T>(a, a.page_ids[(size_t)b * a.mk + j], n, k_s, v_s);
+      load_float<T>(a, pid_s[i], n, k_s, v_s);
     }
-    for (int r = tid; r < R; r += kThreads)
-      keep_s[r] = a.keep[(((size_t)b * a.mk + j) * a.N + n) * a.R + r0 + r];
+#pragma unroll
+    for (int u = 0; u < kKeepPer; ++u) {
+      if (tid + u * kThreads < R) {
+        keep_s[tid + u * kThreads] = keep_next[u];
+        if (i + 1 < n_mine)
+          keep_next[u] = keep_row[list_s[i + 1] * keep_step + u * kThreads];
+      }
+    }
     __syncthreads();
 
     // scores: s = (qq.k - fq.fk) * scale, masked to NEG (0 in pad rows)
@@ -358,23 +497,28 @@ fum_decode_kernel(const Args a) {
       float s1[RPT], s2[RPT];
 #pragma unroll
       for (int u = 0; u < RPT; ++u) s1[u] = s2[u] = 0.f;
-      const float* kr = k_s + c * (hd + 4);
       const float* qb = q_s + sg * RPT * hd;
       const float* fb = fq_s + sg * RPT * hd;
-#pragma unroll 2
-      for (int e = 0; e < hd; e += 4) {
-        const float4 k = *reinterpret_cast<const float4*>(kr + e);
-        const float4 fk = make_float4(k.x - truncf(k.x), k.y - truncf(k.y),
-                                      k.z - truncf(k.z), k.w - truncf(k.w));
+      if constexpr (SC) {
+        // row c's codes 16 at a time (rows of hd + 16 bytes: a quarter
+        // warp's 16-byte loads hit distinct banks), each dequantized here
+        const int8_t* kr = kc + c * (hd + 16);
+        for (int e0 = 0; e0 < hd; e0 += 16) {
+          const int4 w = *reinterpret_cast<const int4*>(kr + e0);
 #pragma unroll
-        for (int u = 0; u < RPT; ++u) {
-          const float4 q = *reinterpret_cast<const float4*>(qb + u * hd + e);
-          const float4 f = *reinterpret_cast<const float4*>(fb + u * hd + e);
-          s1[u] = fmaf(q.x, k.x, s1[u]); s2[u] = fmaf(f.x, fk.x, s2[u]);
-          s1[u] = fmaf(q.y, k.y, s1[u]); s2[u] = fmaf(f.y, fk.y, s2[u]);
-          s1[u] = fmaf(q.z, k.z, s1[u]); s2[u] = fmaf(f.z, fk.z, s2[u]);
-          s1[u] = fmaf(q.w, k.w, s1[u]); s2[u] = fmaf(f.w, fk.w, s2[u]);
+          for (int x = 0; x < 16; x += 4) {
+            const float4 k = make_float4(
+                dequant(byte_at(w, x), ks), dequant(byte_at(w, x + 1), ks),
+                dequant(byte_at(w, x + 2), ks), dequant(byte_at(w, x + 3), ks));
+            score4<RPT>(s1, s2, k, qb, fb, hd, e0 + x);
+          }
         }
+      } else {
+        const float* kr = k_s + c * (hd + 4);
+#pragma unroll 2
+        for (int e = 0; e < hd; e += 4)
+          score4<RPT>(s1, s2, *reinterpret_cast<const float4*>(kr + e), qb,
+                      fb, hd, e);
       }
 #pragma unroll
       for (int u = 0; u < RPT; ++u) {
@@ -420,11 +564,19 @@ fum_decode_kernel(const Args a) {
       for (int u = 0; u < RPT; ++u) pv[u] = 0.f;
       const float* pr = s_s + pg * RPT * ps;
       int cc = 0;
+      // V's column d: the fp32 tile's, or with SC its codes dequantized
+      auto vat = [&](int col) {
+        if constexpr (SC)
+          return F == kI8Fp8 ? fp8_e4m3(vc[col * (hd + 16) + d]) * vs
+                             : dequant(vc[col * (hd + 16) + d], vs);
+        else
+          return v_s[col * hd + d];
+      };
       if (ps % 4 == 0) {   // p four columns a load (rows 16-byte aligned)
 #pragma unroll 2
         for (; cc < ps; cc += 4) {
-          const float v0 = v_s[cc * hd + d], v1 = v_s[(cc + 1) * hd + d];
-          const float v2 = v_s[(cc + 2) * hd + d], v3 = v_s[(cc + 3) * hd + d];
+          const float v0 = vat(cc), v1 = vat(cc + 1);
+          const float v2 = vat(cc + 2), v3 = vat(cc + 3);
 #pragma unroll
           for (int u = 0; u < RPT; ++u) {
             const float4 p = *reinterpret_cast<const float4*>(pr + u * ps + cc);
@@ -436,7 +588,7 @@ fum_decode_kernel(const Args a) {
         }
       }
       for (; cc < ps; ++cc) {
-        const float v = v_s[cc * hd + d];
+        const float v = vat(cc);
 #pragma unroll
         for (int u = 0; u < RPT; ++u) pv[u] = fmaf(pr[u * ps + cc], v, pv[u]);
       }
@@ -492,10 +644,11 @@ fum_merge_kernel(const float* part, float* out, int R, int hd, int S) {
 
 // Dynamic shared memory of one block: the layout at the top of
 // fum_decode_kernel.
-size_t smem_bytes(int Rb, int Rp, int hd, int ps, int mk) {
-  return sizeof(float) * ((size_t)2 * Rp * hd + (size_t)ps * hd +
-                          (size_t)ps * (hd + 4) + (size_t)Rp * ps + 3 * (size_t)Rb) +
-         sizeof(int) * ((size_t)Rb + mk);
+size_t smem_bytes(int Rb, int Rp, int hd, int ps, int mk, bool sc) {
+  const size_t page = sc ? (size_t)4 * ps * (hd + 16)
+                         : sizeof(float) * ((size_t)ps * hd + (size_t)ps * (hd + 4));
+  return page + sizeof(float) * ((size_t)2 * Rp * hd + (size_t)Rp * ps + 3 * (size_t)Rb) +
+         sizeof(int) * ((size_t)Rb + 3 * (size_t)mk);
 }
 
 template <int F, int VB, int RPT>
@@ -503,13 +656,21 @@ int launch(Args a, int rc, cudaStream_t st) {
   a.Rp = (a.Rb + RPT - 1) / RPT * RPT;
   // above the 227 KB a block may use, the attribute call (and so the
   // launch) is refused with cudaErrorInvalidValue
-  const size_t smem = smem_bytes(a.Rb, a.Rp, a.hd, a.ps, a.mk);
+  const size_t smem = smem_bytes(a.Rb, a.Rp, a.hd, a.ps, a.mk,
+                                 shared_codes<F, VB>());
   cudaError_t err = cudaFuncSetAttribute(
       fum_decode_kernel<F, VB, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   fum_decode_kernel<F, VB, RPT><<<dim3(a.N, a.B, a.S * rc), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int F, int VB>
+int launch_rows(const Args& a, int rc, int rpt, cudaStream_t st) {
+  return rpt == 1 ? launch<F, VB, 1>(a, rc, st)
+                  : (rpt == 4 ? launch<F, VB, 4>(a, rc, st)
+                              : launch<F, VB, 16>(a, rc, st));
 }
 
 }  // namespace
@@ -549,27 +710,28 @@ int hdp_paged_fum_decode_launch(
       fmt < kI8 || fmt > kBf16)
     return static_cast<int>(cudaErrorInvalidValue);
   // rows a block takes: all of them, or RC even chunks of at most 16
-  // per thread group; rows a thread group takes: 4, or 16 when more
-  // groups than the threads hold would be needed
+  // per thread group; rows a thread group takes: 1 for a block of one
+  // row (an MHA decode), 4, or 16 when more groups than the threads hold
+  // would be needed
   const int groups = kThreads / (ps > hd ? ps : hd);
   const int rc = (a.R + 16 * groups - 1) / (16 * groups);
   a.Rb = (a.R + rc - 1) / rc;
-  const bool few = (a.Rb + 3) / 4 <= groups;
+  const int rpt = a.Rb == 1 ? 1 : ((a.Rb + 3) / 4 <= groups ? 4 : 16);
   if (B == 0 || N == 0 || a.R == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = hd % 16 == 0 && reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
   int err;
   switch (fmt) {
-    case kF32: err = few ? launch<kF32, 4, 4>(a, rc, st) : launch<kF32, 4, 16>(a, rc, st); break;
-    case kBf16: err = few ? launch<kBf16, 4, 4>(a, rc, st) : launch<kBf16, 4, 16>(a, rc, st); break;
+    case kF32: err = launch_rows<kF32, 4>(a, rc, rpt, st); break;
+    case kBf16: err = launch_rows<kBf16, 4>(a, rc, rpt, st); break;
     case kI8Fp8:
-      if (wide) err = few ? launch<kI8Fp8, 16, 4>(a, rc, st) : launch<kI8Fp8, 16, 16>(a, rc, st);
-      else err = few ? launch<kI8Fp8, 4, 4>(a, rc, st) : launch<kI8Fp8, 4, 16>(a, rc, st);
+      err = wide ? launch_rows<kI8Fp8, 16>(a, rc, rpt, st)
+                 : launch_rows<kI8Fp8, 4>(a, rc, rpt, st);
       break;
     default:
-      if (wide) err = few ? launch<kI8, 16, 4>(a, rc, st) : launch<kI8, 16, 16>(a, rc, st);
-      else err = few ? launch<kI8, 4, 4>(a, rc, st) : launch<kI8, 4, 16>(a, rc, st);
+      err = wide ? launch_rows<kI8, 16>(a, rc, rpt, st)
+                 : launch_rows<kI8, 4>(a, rc, rpt, st);
   }
   if (err != 0 || S == 1) return err;
   fum_merge_kernel<<<dim3(B * N, a.R), hd, 0, st>>>(part, out, a.R, hd, S);

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel repro/kernels/hdp_scout.py:hdp_scout (its
 // pallas_call at :101), the paper's PE array and Sparsity Engine, for hd
-// a multiple of 32 up to 128 and 64- or 128-row blocks (the aligned
-// prefill's shapes; smaller head sizes and blocks take the dp4a kernel
-// of hdp_scout.cu). The function is the same as there: for each
+// a multiple of 32 up to 128 or hd 112 (zamba2-7b's, run as hd 128 on
+// copies whose columns 112-127 are zero) and 64- or 128-row blocks (the
+// aligned prefills' shapes; smaller head sizes and blocks take the dp4a
+// kernel of hdp_scout.cu). The function is the same as there: for each
 // (b*h, q tile i) |IQ.IK^T| pooled per KV block into theta (rows < Sq,
 // cols < Sk, rows >= cols under causal), the row threshold over the
 // analytically valid blocks (block start < Sk, and under causal <= the
@@ -14,7 +15,8 @@
 // keep to 0 and its head's theta_head to NaN.
 //
 // Exact. The integer parts fit in int8, so every score is an exact int32
-// (|s| <= 128 * 128 * hd = 2^21 at hd 128), a thread's sum of the |s| it
+// (|s| <= 128 * 128 * hd = 2^21 at hd 128; a zero byte of the padded
+// copies adds an exact 0), a thread's sum of the |s| it
 // holds for one block (64 of them) is an exact int32 (< 2^27), the
 // block sums across the CTA are exact 64-bit integers, and theta rounds
 // to fp32 once: theta equals the plain version's (exact float64 sums,
@@ -27,8 +29,10 @@
 //
 // Design (wgmma.cuh, attn_mma.cuh):
 // * a pre-pass (pack_kernel) converts IQ and IK once to int8 copies
-//   padded with zero rows to whole blocks, and flags each block of rows
-//   that holds a bad value. It reads the fp32 inputs once from device
+//   padded with zero rows to whole blocks and, at hd 112, with zero
+//   columns to rows of 128 bytes (hd 112 is 3.5 k32 steps, and the
+//   128-byte swizzle wants whole rows), and flags each block of rows
+//   that holds a bad value in its real columns. It reads the fp32 inputs once from device
 //   memory, through their strides (the prefill passes [B, H, S, hd] views
 //   of [B, S, H, hd] tensors); converting inside the main kernel instead
 //   would convert each K block once per later q tile (16x at S 4096), at
@@ -38,9 +42,9 @@
 //   so the heaviest start first). The q tile and a four-stage ring of K
 //   blocks sit in shared memory as int8 rows of 128 bytes in the 128-byte
 //   swizzle wgmma reads, written by cp.async; blocks t + 1 .. t + 3 are
-//   in flight while block t's products run (hd is a template argument,
-//   so the k32 steps carry no branch);
-// * each warpgroup issues hd / 32 wgmma m64n{bk}k32 s8 products per
+//   in flight while block t's products run (the copies' row width hdp
+//   is a template argument, so the k32 steps carry no branch);
+// * each warpgroup issues hdp / 32 wgmma m64n{bk}k32 s8 products per
 //   block into int32 accumulators, then takes |s| in registers (the
 //   zero padding contributes 0; only blocks that cross the diagonal
 //   mask row >= col), sums them per thread in int32 and across the warp
@@ -72,14 +76,14 @@ constexpr float kBig = 1e30f;
 struct PackSide {
   const float* x;        // [B, H, S, hd], element (b, h, s, d) at
   long long sb, sh, ss;  //   b * sb + h * sh + s * ss + d
-  int8_t* x8;            // [BH, n * blk, hd]
+  int8_t* x8;            // [BH, n * blk, hdp]
   int* bad;              // [BH, n]: the block of rows holds a bad value
   int S, blk, n;
 };
 
 struct Args {
-  const int8_t* iq8;               // [BH, nq * bq, hd]
-  const int8_t* ik8;               // [BH, nk * bk, hd]
+  const int8_t* iq8;               // [BH, nq * bq, hdp]
+  const int8_t* ik8;               // [BH, nk * bk, hdp]
   const int* q_bad;                // [BH, nq]
   const int* k_bad;                // [BH, nk]
   float* theta;                    // [BH, nq, nk]
@@ -108,24 +112,25 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // grid (max(nq, nk), BH, 2): block j of rows of iq (z = 0) or ik (z = 1)
-// to int8, four values per thread and step; rows past S are zero.
+// to int8 rows of hdp bytes, four values per thread and step; rows past
+// S and columns past hd are zero.
 __global__ void __launch_bounds__(256) pack_kernel(const PackSide q,
                                                   const PackSide k, int H,
-                                                  int hd) {
+                                                  int hd, int hdp) {
   const PackSide p = blockIdx.z ? k : q;
   const int j = blockIdx.x, bh = blockIdx.y;
   if (j >= p.n) return;
-  const int W = hd >> 2, blk = p.blk, S = p.S;
+  const int W = hd >> 2, Wp = hdp >> 2, blk = p.blk, S = p.S;
   const int row0 = j * blk;
   const float* src = p.x + (bh / H) * p.sb + (bh % H) * p.sh;
   uint32_t* dst = reinterpret_cast<uint32_t*>(
-      p.x8 + ((size_t)bh * p.n * blk + row0) * hd);
+      p.x8 + ((size_t)bh * p.n * blk + row0) * hdp);
   bool ok = true;
 #pragma unroll 4
-  for (int e = threadIdx.x; e < blk * W; e += blockDim.x) {
-    const int r = e / W, c = e - r * W;
+  for (int e = threadIdx.x; e < blk * Wp; e += blockDim.x) {
+    const int r = e / Wp, c = e - r * Wp;
     uint32_t word = 0;
-    if (row0 + r < S) {
+    if (row0 + r < S && c < W) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(
           src + (row0 + r) * p.ss + 4 * c));
       uint32_t b0, b1, b2, b3;
@@ -139,22 +144,22 @@ __global__ void __launch_bounds__(256) pack_kernel(const PackSide q,
   if (threadIdx.x == 0) p.bad[(size_t)bh * p.n + j] = bad ? 1 : 0;
 }
 
-// `rows` int8 rows of hd bytes at src -> a tile of 128-byte rows in the
+// `rows` int8 rows of hdp bytes at src -> a tile of 128-byte rows in the
 // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r & 7)), by
-// cp.async (the caller commits); chunks past hd / 16 are never read by
+// cp.async (the caller commits); chunks past hdp / 16 are never read by
 // the products.
 __device__ __forceinline__ void load_tile(uint8_t* tile, const int8_t* src,
-                                          int rows, int hd) {
-  const int ch = hd >> 4;
+                                          int rows, int hdp) {
+  const int ch = hdp >> 4;
   const uint32_t t = smem_u32(tile);
   for (int e = threadIdx.x; e < rows * ch; e += blockDim.x) {
     const int r = e / ch, c = e - r * ch;
-    cp_async16(t + r * 128 + ((c ^ (r & 7)) << 4), src + (size_t)r * hd + c * 16,
-               true);
+    cp_async16(t + r * 128 + ((c ^ (r & 7)) << 4),
+               src + (size_t)r * hdp + c * 16, true);
   }
 }
 
-// hd / 32 = KS k32 steps, 32 bytes of a 128-byte row each
+// hdp / 32 = KS k32 steps, 32 bytes of a 128-byte row each
 template <int BN, int KS>
 __device__ __forceinline__ void issue(int (&d)[BN / 8][4], uint32_t qa,
                                       uint32_t kb) {
@@ -175,7 +180,7 @@ __global__ void __launch_bounds__(256, 2) scout_tc_kernel(const Args a) {
   const int i = a.nq - 1 - (int)blockIdx.y;   // the heaviest tiles first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, nwarps = blockDim.x >> 5;
-  constexpr int hd = KS * 32;
+  constexpr int hdp = KS * 32;
   const int bq = a.bq;
   const int row0 = i * bq;
   const int last_row = row0 + bq - 1;
@@ -198,14 +203,15 @@ __global__ void __launch_bounds__(256, 2) scout_tc_kernel(const Args a) {
   float* thr_s = reinterpret_cast<float*>(red_n + kMaxWarps);    // [1]
 
   for (int j = nblk + tid; j < a.nk; j += blockDim.x) th_s[j] = 0ull;
-  const int8_t* kbase = a.ik8 + (size_t)bh * a.nk * BN * hd;
-  load_tile(q_t, a.iq8 + ((size_t)bh * a.nq * bq + row0) * hd, bq, hd);
+  const int8_t* kbase = a.ik8 + (size_t)bh * a.nk * BN * hdp;
+  load_tile(q_t, a.iq8 + ((size_t)bh * a.nq * bq + row0) * hdp, bq, hdp);
   cp_async_commit();
   // blocks 0 .. kStages - 2 in flight; one commit group per block (empty
   // past the last), so block t has landed once at most kStages - 2 newer
   // groups are pending
   for (int t = 0; t < kStages - 1; ++t) {
-    if (t < nblk) load_tile(k_t + t * BN * 128, kbase + (size_t)t * BN * hd, BN, hd);
+    if (t < nblk)
+      load_tile(k_t + t * BN * 128, kbase + (size_t)t * BN * hdp, BN, hdp);
     cp_async_commit();
   }
   bool bad = a.q_bad[(size_t)bh * a.nq + i] != 0;
@@ -225,7 +231,8 @@ __global__ void __launch_bounds__(256, 2) scout_tc_kernel(const Args a) {
     issue<BN, KS>(d, qa, smem_u32(k_t + (t % kStages) * BN * 128));
     const int tn = t + kStages - 1;
     if (tn < nblk)
-      load_tile(k_t + (tn % kStages) * BN * 128, kbase + (size_t)tn * BN * hd, BN, hd);
+      load_tile(k_t + (tn % kStages) * BN * 128,
+                kbase + (size_t)tn * BN * hdp, BN, hdp);
     cp_async_commit();
     bad |= a.k_bad[(size_t)bh * a.nk + t] != 0;
     wgmma::wait<0>();
@@ -343,9 +350,10 @@ extern "C" {
 
 // iq/ik fp32 [B, H, S, hd] integer parts with element strides q_s*/k_s*
 // (d contiguous, rows 16-byte aligned); iq8/ik8 int8 scratch of
-// [BH, nq * bq, hd] and [BH, nk * bk, hd]; blk_bad int32 scratch of
+// [BH, nq * bq, hdp] and [BH, nk * bk, hdp], hdp = hd rounded up to a
+// multiple of 32 (128 at hd 112); blk_bad int32 scratch of
 // BH * (nq + nk); head_acc/head_done/head_bad zeroed by the caller. hd a
-// multiple of 32 up to 128, bq and bk 64 or 128 (else
+// multiple of 32 up to 128 or 112, bq and bk 64 or 128 (else
 // cudaErrorInvalidValue). Launches the pre-pass and the scout on
 // `stream`; returns the first cudaError_t (0 = success). Nothing is
 // synchronised and nothing is allocated.
@@ -359,16 +367,18 @@ int hdp_scout_tc_launch(const float* iq, const float* ik, int8_t* iq8,
                         long long k_ss, int causal, int use_max, float c_ext,
                         float c_mean, void* stream) {
   const int BH = B * H;
-  if (hd % 32 || hd < 32 || hd > 128 || (bq != 64 && bq != 128) ||
-      (bk != 64 && bk != 128))
+  if ((hd != 112 && (hd % 32 || hd < 32 || hd > 128)) ||
+      (bq != 64 && bq != 128) || (bk != 64 && bk != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int hdp = (hd + 31) / 32 * 32;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = (Sq + bq - 1) / bq, nk = (Sk + bk - 1) / bk;
   if (BH == 0 || nq == 0) return 0;
   const PackSide q{iq, q_sb, q_sh, q_ss, iq8, blk_bad, Sq, bq, nq};
   const PackSide k{ik, k_sb, k_sh, k_ss, ik8, blk_bad + (size_t)BH * nq, Sk,
                    bk, nk};
-  pack_kernel<<<dim3(nq > nk ? nq : nk, BH, 2), 256, 0, st>>>(q, k, H, hd);
+  pack_kernel<<<dim3(nq > nk ? nq : nk, BH, 2), 256, 0, st>>>(q, k, H, hd,
+                                                               hdp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   Args a{};
@@ -377,7 +387,7 @@ int hdp_scout_tc_launch(const float* iq, const float* ik, int8_t* iq8,
   a.head_acc = head_acc; a.head_done = head_done; a.head_bad = head_bad;
   a.Sk = Sk; a.bq = bq; a.nq = nq; a.nk = nk;
   a.causal = causal; a.use_max = use_max; a.c_ext = c_ext; a.c_mean = c_mean;
-  switch (hd / 32 + (bk == 128 ? 0 : 4)) {
+  switch (hdp / 32 + (bk == 128 ? 0 : 4)) {
     case 1: return launch<128, 1>(a, BH, st);
     case 2: return launch<128, 2>(a, BH, st);
     case 3: return launch<128, 3>(a, BH, st);

@@ -12,11 +12,12 @@ page goes to the block of its logical slot mod S, so a query row's sums
 group the same whatever else the list holds: a multi-query verify row
 equals the single step at its position) and merges their partial
 softmaxes in a second pass; ``fum_splits`` picks S from shapes and the
-SM count alone (about one block per SM), so no call waits on
-``counts``. S = 1 ("single") writes the output in one pass; S > 1
-("split") adds the merge. The G*Sq query rows split over blocks of at
-most ``ROWS_PER_THREAD * (256 // max(ps, hd))`` rows, so any verify
-width runs. ``hdp_paged_fum_decode.launches`` counts
+SM count alone (about one block per SM, two a row at an MHA shape whose
+rows fill the card), so no call waits on ``counts``. S = 1 ("single")
+writes the output in one pass; S > 1 ("split") adds the merge. The G*Sq
+query rows split over blocks of at most ``ROWS_PER_THREAD * (256 //
+max(ps, hd))`` rows, so any verify width runs.
+``hdp_paged_fum_decode.launches`` counts
 wrapper launches (the plain version does not count),
 ``.launches_by_path`` them per mode and ``.launches_by_format`` per pool
 format; a call under CUDA graph capture
@@ -49,6 +50,10 @@ FORMAT_NAMES = ("int8", "fp8_v", "fp32", "bf16")
 #: the most query rows one thread takes: a block takes at most
 #: this * (256 // max(ps, hd)) of the G*Sq rows, and more split over blocks
 ROWS_PER_THREAD = 16
+#: S for an MHA decode (G 1) whose rows alone fill the card (n_sm / 2 <
+#: B*N <= n_sm): a block of one row fits two to an SM, so two blocks a
+#: row run side by side (the best S measured at olmoe-1b-7b's decode)
+MHA_FULL_CARD_SPLITS = 2
 
 _lib: Optional[ctypes.CDLL] = None   # loaded (and built) at first launch
 _n_sm: Dict[int, int] = {}           # SM count per CUDA device index
@@ -112,12 +117,17 @@ def _check(qq, k_pool, v_pool, page_ids, logical, counts, keep, kv_len,
     return fmt
 
 
-def fum_splits(B: int, N: int, mk: int, n_sm: int) -> int:
+def fum_splits(B: int, N: int, mk: int, n_sm: int, G: int = 1) -> int:
     """Blocks per (b, n) row of the FUM kernel: enough for about one block
-    per SM (``n_sm // (B*N)``), at most one per page slot (``mk``), at
-    least 1. A function of shapes alone: the kernel spreads the listed
-    pages over the S blocks itself, so no host sync on ``counts``."""
-    return max(1, min(mk, n_sm // max(1, B * N)))
+    per SM (``n_sm // (B*N)``), or ``MHA_FULL_CARD_SPLITS`` for an MHA
+    shape (``G`` 1) whose rows alone fill the card; at most one per page
+    slot (``mk``), at least 1. A function of shapes alone: the kernel
+    spreads the listed pages over the S blocks itself, so no host sync on
+    ``counts``; a verify call (Sq > 1) gets its decode step's S."""
+    S = n_sm // max(1, B * N)
+    if S == 1 and G == 1:
+        S = MHA_FULL_CARD_SPLITS
+    return max(1, min(mk, S))
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -168,8 +178,8 @@ def hdp_paged_fum_decode(qq, k_pool, v_pool, page_ids, logical, counts,
     if not 1 <= ps <= 128:
         raise ValueError(f"the kernel takes pages of 1 to 128 positions, got "
                          f"ps={ps}")
-    S = splits if splits is not None else fum_splits(B, N, mk,
-                                                     _sm_count(qq.device))
+    S = splits if splits is not None else fum_splits(
+        B, N, mk, _sm_count(qq.device), G)
     lib = _library()
     out = torch.empty_like(qq)
     part = torch.empty((B, N, S, G * Sq, hd + 2) if S > 1 else (0,),

@@ -9,8 +9,9 @@ runs the plain version ``ref.hdp_scout_plain``.
 Two kernels serve CUDA tensors, picked by ``scout_path`` from the call's
 shapes alone: the int8 tensor-core kernel (``csrc/hdp_scout_tc.cu``:
 ``wgmma`` s8 products on int8 copies made by a pre-pass) for hd a
-multiple of 32 up to 128 with blocks of 64 or 128, the aligned
-prefill's shapes; the ``__dp4a`` kernel (``csrc/hdp_scout.cu``) for the
+multiple of 32 up to 128, or 112 (zamba2-7b's: the copies' rows are
+zero-padded to 128 bytes), with blocks of 64 or 128, the aligned
+prefills' shapes; the ``__dp4a`` kernel (``csrc/hdp_scout.cu``) for the
 rest (the reduced configs' hd 16 and 2×2 blocks). Both are exact: theta,
 keep and theta_head equal the plain version's bit for bit.
 ``hdp_scout.launches`` counts kernel launches (the plain version does not
@@ -30,6 +31,9 @@ from repro_torch.kernels.ref import hdp_scout_plain, scout_coefficients
 PATHS = ("tensor_core", "dp4a")
 #: block sizes (rows and columns) the tensor-core kernel takes
 TC_BLOCKS = (64, 128)
+#: head size the tensor-core kernel takes besides the multiples of 32,
+#: run as hd 128 on copies whose last 16 columns are zero
+TC_PADDED_HD = 112
 #: the CUDA source (and C prefix) of each path
 SOURCES = {"tensor_core": "hdp_scout_tc", "dp4a": "hdp_scout"}
 
@@ -61,12 +65,12 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 def scout_path(hd: int, block_q: int, block_k: int) -> str:
     """Which kernel serves a CUDA call, from shapes alone: "tensor_core"
-    for hd a multiple of 32 up to 128 and block_q, block_k in
-    ``TC_BLOCKS``; else "dp4a" for hd a multiple of 4 up to 256 and
-    blocks of 1 to 128 rows and columns; a shape that neither takes
-    raises ValueError."""
-    if hd % 32 == 0 and 32 <= hd <= 128 and block_q in TC_BLOCKS \
-            and block_k in TC_BLOCKS:
+    for hd a multiple of 32 up to 128 or ``TC_PADDED_HD`` and block_q,
+    block_k in ``TC_BLOCKS``; else "dp4a" for hd a multiple of 4 up to
+    256 and blocks of 1 to 128 rows and columns; a shape that neither
+    takes raises ValueError."""
+    if (hd % 32 == 0 and 32 <= hd <= 128 or hd == TC_PADDED_HD) \
+            and block_q in TC_BLOCKS and block_k in TC_BLOCKS:
         return "tensor_core"
     if hd % 4 or not 4 <= hd <= 256:
         raise ValueError(f"the scout kernels need hd a multiple of 4 up to "
@@ -139,11 +143,13 @@ def hdp_scout(iq, ik, *, rho_b: float, block_q: int = 128,
     vp = ctypes.c_void_p
     ptrs = [vp(iq.data_ptr()), vp(ik.data_ptr())]
     if path == "tensor_core":
-        # the pre-pass's int8 copies, padded to whole blocks, and its
-        # per-block bad-input flags; every byte is written before it is read
-        iq8 = torch.empty((BH, nq * block_q, hd), dtype=torch.int8,
+        # the pre-pass's int8 copies, padded to whole blocks (and hd 112
+        # to rows of 128 bytes), and its per-block bad-input flags; every
+        # byte is written before it is read
+        hdp = -(-hd // 32) * 32
+        iq8 = torch.empty((BH, nq * block_q, hdp), dtype=torch.int8,
                           device=dev)
-        ik8 = torch.empty((BH, nk * block_k, hd), dtype=torch.int8,
+        ik8 = torch.empty((BH, nk * block_k, hdp), dtype=torch.int8,
                           device=dev)
         flags = torch.empty(BH * (nq + nk), dtype=torch.int32, device=dev)
         ptrs += [vp(iq8.data_ptr()), vp(ik8.data_ptr()),

@@ -8,9 +8,10 @@ max(Σ l_s·e^(m_s−m*), 1e-30). Here that merge, written in Python, is
 applied to the plain version run on those page subsets
 (``hdp_paged_fum_decode_ref(partial=True)``) and must give the unsplit
 plain version within 1e-6 (fp32; only the order of the sums differs),
-and the JAX kernel in interpret mode within its tests' 1e-5. NaN must
-survive the merge as it survives one pass. ``fum_splits`` is a pure
-function of shapes. The kernel itself runs only on the card
+and the JAX kernel in interpret mode within its tests' 1e-5, also at
+olmoe-1b-7b's MHA heads at the S its decode gets. NaN must survive the
+merge as it survives one pass. ``fum_splits`` is a pure function of
+shapes. The kernel itself runs only on the card
 (``chip_smoke.py``)."""
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 
 import repro.kernels.hdp_paged_decode as jkern
 from repro_torch.core.quant import pool_scale, quantize_fixed
-from repro_torch.kernels.hdp_paged_decode import (PATHS, fum_splits,
+from repro_torch.kernels.hdp_paged_decode import (MHA_FULL_CARD_SPLITS,
+                                                  PATHS, fum_splits,
                                                   hdp_paged_fum_decode)
 from repro_torch.kernels.ref import hdp_paged_fum_decode_ref
 
@@ -34,16 +36,21 @@ P = 1 + B * NP
 TOL = 1e-6
 NAMES = ("qq", "k_pool", "v_pool", "page_ids", "logical", "counts", "keep",
          "kv_len")
+#: olmoe-1b-7b's decode heads (MHA) and the S fum_splits gives its decode
+#: (B 8, 16 page slots) on an H100's 132 SMs
+OLMOE_HEADS = dict(N=16, G=1)
+OLMOE_S = 2
 
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def inputs(seed, Sq, quantized):
+def inputs(seed, Sq, quantized, N=N, G=G):
     """Kernel inputs the way stage 2 builds them, numpy from a seed: row 1
     lists no page, row 2 lists pages that no query row keeps, rows 0 and
-    3 list about two thirds of their pages."""
+    3 list about two thirds of their pages. ``N``, ``G``: kv heads and
+    query heads a kv head (olmoe-1b-7b's MHA: N 16, G 1)."""
     rng = np.random.default_rng(seed)
     q = rng.normal(0, 2, (B, N, G, Sq, HD)).astype(np.float32)
     qq = np.asarray(quantize_fixed(_t(q)))
@@ -140,6 +147,41 @@ def test_merged_partials_match_jax_kernel(Sq, quantized):
     np.testing.assert_allclose(merged(d, 3).numpy(), want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "fp32"])
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_merged_partials_at_olmoe_heads(Sq, quantized):
+    """olmoe-1b-7b's heads (N 16, G 1) at the S its decode gets, one query
+    row (the decode step) and four (its verify at draft_len 4): the
+    merged partials equal the unsplit plain version and the JAX kernel
+    in interpret mode."""
+    assert fum_splits(8, 16, 16, 132) == OLMOE_S
+    d = inputs(70 + Sq, Sq, quantized, **OLMOE_HEADS)
+    args, kw = torch_args(d)
+    want = hdp_paged_fum_decode_ref(*args, **kw)
+    got = merged(d, OLMOE_S)
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    assert not got[1].any() and not got[2].any()
+    jkw = {k: (None if d[k] is None else jnp.asarray(d[k]))
+           for k in ("k_scale", "v_scale")}
+    ref = np.asarray(jkern.hdp_paged_fum_decode(
+        *(jnp.asarray(d[k]) for k in NAMES), interpret=True, **jkw))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("G,mk,want", [(1, 16, MHA_FULL_CARD_SPLITS),
+                                       (1, 1, 1), (4, 16, 1), (6, 16, 1)])
+def test_fum_splits_of_rows_that_fill_the_card(G, mk, want):
+    """B*N in (n_sm / 2, n_sm]: an MHA shape (G 1) takes two blocks a row
+    (a one-row block fits two to an SM), a GQA shape one pass; rows past
+    the card take one pass and fewer rows about one block per SM, at any
+    G."""
+    assert MHA_FULL_CARD_SPLITS == OLMOE_S
+    assert fum_splits(8, 16, mk, 132, G) == want
+    assert fum_splits(9, 16, mk, 132, G) == 1          # 144 rows
+    assert fum_splits(4, 16, mk, 132, G) == min(mk, 2)   # 132 // 64
+
+
 @pytest.mark.parametrize("S", [1, 3, 8])
 def test_nan_on_a_listed_page_no_row_keeps_survives_the_merge(S):
     """Every listed page is read for every kv head: a NaN V scale on a
@@ -166,6 +208,7 @@ def test_nan_on_a_listed_page_no_row_keeps_survives_the_merge(S):
     (70, 2, 9, 132, 1),      # more rows than SMs: one pass
     (4, 2, 0, 132, 1),       # no page slot
     (2, 1, 5, 4, 2),
+    (8, 16, 16, 132, OLMOE_S),   # olmoe-1b-7b's decode (MHA): 128 rows
 ])
 def test_fum_splits_is_a_function_of_shapes(B_, N_, mk, n_sm, want):
     assert fum_splits(B_, N_, mk, n_sm) == want

@@ -2,11 +2,13 @@
 
 On the card the scout takes one of two kernels, picked by
 ``scout_path`` from the shapes alone: int8 tensor-core products (wgmma
-s8) for hd a multiple of 32 up to 128 with 64- or 128-row blocks, and
-``__dp4a`` for the rest. The tensor-core kernel's arithmetic is written
-out here in numpy: int8 operands, exact int32 scores, each thread's
-int32 sum of the |s| it holds in the wgmma accumulator layout, int64
-block sums, one rounding to fp32, then the Sparsity Engine in fp32. It
+s8) for hd a multiple of 32 up to 128 or 112 (zamba2-7b's, on copies
+zero-padded to 128 columns: ``tests/test_torch_scout_tc_hd112.py``) with
+64- or 128-row blocks, and ``__dp4a`` for the rest. The tensor-core
+kernel's arithmetic is written out here in numpy: int8 operands, exact
+int32 scores, each thread's int32 sum of the |s| it holds in the wgmma
+accumulator layout, int64 block sums, one rounding to fp32, then the
+Sparsity Engine in fp32. It
 must equal the plain version (``ref.hdp_scout_plain``) and the JAX
 kernel in interpret mode bit for bit: theta, keep and theta_head. The
 inputs keep every block sum below 2^24, where the reference's fp32 sums
@@ -153,6 +155,10 @@ def test_scout_path_of_the_configs():
     # the reduced configs: hd 16, 2x2 blocks
     assert scout_path(small.hd, small.hdp.block_q, small.hdp.block_k) \
         == "dp4a"
+    # the aligned prefill of zamba2-7b: hd 112, 128x128 blocks, on int8
+    # copies zero-padded to 128 columns
+    z = get_config("zamba2-7b")
+    assert scout_path(z.hd, z.hdp.block_q, z.hdp.block_k) == "tensor_core"
 
 
 @pytest.mark.parametrize("hd,bq,bk,want", [
@@ -161,7 +167,11 @@ def test_scout_path_of_the_configs():
     (16, 2, 2, "dp4a"), (8, 2, 2, "dp4a"), (64, 32, 16, "dp4a"),
     (128, 128, 32, "dp4a"), (160, 128, 128, "dp4a"), (256, 64, 64, "dp4a"),
     (130, 128, 128, None), (512, 64, 64, None), (128, 256, 128, None),
-    (16, 128, 0, None)])
+    (16, 128, 0, None),
+    (112, 128, 128, "tensor_core"), (112, 64, 128, "tensor_core"),
+    (112, 128, 64, "tensor_core"), (112, 64, 64, "tensor_core"),
+    (112, 32, 32, "dp4a"), (112, 2, 2, "dp4a"), (80, 128, 128, "dp4a"),
+    (144, 64, 64, "dp4a"), (112, 256, 128, None)])
 def test_scout_path_choice(hd, bq, bk, want):
     if want is None:
         with pytest.raises(ValueError):

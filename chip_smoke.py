@@ -238,6 +238,31 @@ never JAX nor the JAX package. Phases:
    bytes equal what 5l's ranks sent a step (counted as they ran,
    ``sharding.recording``: 2,431,031,300); traced / measured peak within
    0.5-2.0 for the 5j and 5l cells. ``[dry]`` lines;
+5n. the examples (ROADMAP item 12), outside inference mode (they
+   train): each script of ``examples_torch/`` run in this process
+   through ``runpy`` with its argv, ``common.CACHE_DIR`` a fresh
+   temporary directory, so every model is trained on the card.
+   quickstart: section 3 launches the scout once on its tensor-core
+   path and the block kernel once on its tile path (fp32 V), and
+   nothing else launches; both held against their plain versions at the
+   recorded inputs (the scout bit-equal), section 3's output against the
+   plain pipeline at atol = rtol = 1e-4 and its theta_head and sparsity
+   stats equal; "quickstart OK". train_lm: 20 steps into a temporary
+   checkpoint directory, exit 0, no kernel launched. pruning_sweep:
+   bench-tiny trained 300 steps (its first and last loss printed, the
+   loss falls), the eight-row table; its densest and sparsest rows
+   recomputed on the CPU: on the card's own Q/K/V the keep masks and
+   head gates equal and net sparsity within 1e-6; from the card's
+   weights (a CPU forward) agreement equal, and a keep mask differs
+   only where the CPU's Q or K rounds to another integer part (counted
+   and printed), each differing token printed with its top-2 margin;
+   the printed row equal to the recomputed one. serve_hdp at bench-tiny
+   (the sweep's cached model) and bench-base (trained 300 steps): the
+   HDP serve decodes on the FUM route at page size 2 (hd 64 and hd 32,
+   MHA), the kernel's runs on the card = layers x (decode steps + 1
+   warm-up), both serves' tokens equal the same serves on the CPU from
+   the card's weights; each summary printed beside the card's name and
+   power limit. ``[examples]`` lines;
 6. timing — each kernel and its plain version at the main path's shape
    (CUDA events around device work only, L2 flushed between launches)
    beside its bound and, where one PyTorch call computes the same
@@ -4684,6 +4709,332 @@ def phase_dryrun(torch, trained, sharded, smi_line):
         "measured_5j_steady_step_s": steady}
 
 
+# ------------------------------------------------ phase 5n: the examples
+EXAMPLES = ROOT / "examples_torch"
+#: the examples' training steps (their default: the reference scripts')
+EXAMPLE_TRAIN_STEPS = 300
+#: train_lm's steps (the launcher's reduced qwen2-1.5b)
+EXAMPLE_LM_STEPS = 20
+#: the sweep's rows recomputed on the CPU: its densest and sparsest
+SWEEP_CHECKED = ((-0.5, 0), (0.6, 15))
+#: the net sparsity's largest difference card vs CPU on the same Q/K/V
+SWEEP_TOL = 1e-6
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_example(name, *argv):
+    """``examples_torch/<name>.py`` run in this process as ``__main__``
+    with ``argv``: (its globals, or None after a ``sys.exit(0)``, and
+    what it printed). A non-zero exit fails the phase."""
+    import contextlib
+    import runpy
+    path = EXAMPLES / f"{name}.py"
+    old = sys.argv
+    sys.argv = [str(path), *argv]
+    tee = _Tee(sys.stdout)
+    g = None
+    try:
+        with contextlib.redirect_stdout(tee):
+            g = runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as e:
+        check(not e.code, f"examples_torch/{name}.py {argv} exited {e.code}")
+    finally:
+        sys.argv = old
+    return g, "".join(tee.parts)
+
+
+def _quickstart(torch):
+    """quickstart.py on the card: section 3 launches the scout (tensor-core
+    path) and the block kernel (tile path, fp32 V) once each, and nothing
+    else launches; both are held against their plain versions at the
+    recorded inputs (scout bit-equal), and section 3's output and stats
+    against the pipeline's plain versions on the same inputs."""
+    import repro_torch.kernels.ops as ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hdp_block_attn import hdp_block_sparse_attention
+    from repro_torch.kernels.hdp_paged_decode import hdp_paged_fum_decode
+    from repro_torch.kernels.hdp_scout import hdp_scout
+    rec = {"scout": Recorder(hdp_scout),
+           "block": Recorder(hdp_block_sparse_attention)}
+    ops.hdp_scout, ops.hdp_block_sparse_attention = rec["scout"], rec["block"]
+    with torch.inference_mode():
+        zero_launches()
+    try:
+        g, out = run_example("quickstart", "--device", "cuda")
+    finally:
+        ops.hdp_scout = hdp_scout
+        ops.hdp_block_sparse_attention = hdp_block_sparse_attention
+    with torch.inference_mode():
+        launched = {f.__name__: dict(f.launches_by_path) for f in (
+            hdp_scout, hdp_block_sparse_attention, flash_attention,
+            hdp_paged_fum_decode)}
+        block_runs = hdp_block_sparse_attention.runs.read()
+    want = {"hdp_scout": {"tensor_core": 1, "dp4a": 0},
+            "hdp_block_sparse_attention": {"tensor_core": 0, "tile": 1},
+            "flash_attention": {"tensor_core": 0, "tile": 0},
+            "hdp_paged_fum_decode": {"split": 0, "single": 0}}
+    check(launched == want and block_runs == 1,
+          f"quickstart: launches {launched} and {block_runs} block tile "
+          f"runs on the card, expected {want} and 1")
+    check(out.rstrip().endswith("quickstart OK"),
+          "quickstart did not print 'quickstart OK'")
+    (iq, ik), kw = rec["scout"].best
+    check_scout(torch, "hdp_scout at quickstart's section 3", iq, ik,
+                path="tensor_core", **kw)
+    args, kw = rec["block"].best
+    c = dict(zip(("q", "k", "v", "kv_idx", "counts", "head_kept"), args),
+             **{"kv_len": None, "score_scale": None, **kw})
+    check_block(torch, "hdp_block_sparse_attention at quickstart's section "
+                "3", c, poison=False, path="tile")
+    # section 3 end to end against the plain versions on the CPU
+    cpu = [g[n].cpu() for n in ("q", "k", "v")]
+    p_out, p_st = ops.hdp_attention_tpu(*cpu, g["kcfg"], return_stats=True)
+    o, st = g["out_k"].cpu(), g["st"]
+    err = (o - p_out).abs().max().item()
+    check(torch.allclose(o, p_out, atol=ATOL, rtol=RTOL),
+          f"quickstart section 3: card vs plain max |err| {err:.3e}")
+    check(torch.equal(st["theta_head"].cpu(), p_st["theta_head"])
+          and all(float(st[k]) == float(p_st[k]) for k in (
+              "block_sparsity", "head_sparsity", "kept_blocks_per_row")),
+          f"quickstart section 3: stats differ from the plain versions' "
+          f"{ {k: (float(st[k]), float(p_st[k])) for k in ('block_sparsity', 'head_sparsity', 'kept_blocks_per_row')} }")
+    log(f"[examples] quickstart: scout 1 launch on the tensor-core path, "
+        f"block 1 on the tile path (1 run on the card), section 3 vs the "
+        f"plain pipeline max |err| {err:.3e}, theta_head bit-equal, block "
+        f"sparsity {float(st['block_sparsity']):.4f}")
+    return {"launches": {"hdp_scout": 1, "hdp_block_sparse_attention": 1},
+            "section3_max_abs_err": err}
+
+
+def _loss_line(out, scale):
+    """(first, last) loss of ``train_model``'s summary line."""
+    import re
+    m = re.search(rf"\[{scale}\] trained (\d+) steps in \S+ loss "
+                  r"([\d.]+) -> ([\d.]+)", out)
+    check(m is not None and int(m.group(1)) == EXAMPLE_TRAIN_STEPS,
+          f"bench-{scale} was not trained for {EXAMPLE_TRAIN_STEPS} steps "
+          f"on the card")
+    return float(m.group(2)), float(m.group(3))
+
+
+def _sweep_point(g, th, rho, pct):
+    """The sweep's HDPConfig at (rho, pct) of the theta_head samples
+    ``th``, and its tau."""
+    import numpy as np
+    tau = float(np.percentile(th, pct)) if pct else -1.0
+    return g["base"].replace(rho_b=rho, tau_h=tau), tau
+
+
+def _masks(caps, hdp):
+    """Each layer's (keep blocks, head gates), moved to the CPU, and the
+    mean net sparsity, of ``hdp_attention`` on the captured Q/K/V (on
+    their device)."""
+    import numpy as np
+    from repro_torch.core.hdp import hdp_attention
+    masks, nets = [], []
+    for c in caps:
+        st = hdp_attention(c["q"], c["k"], c["v"], hdp)[1]
+        masks.append((st.keep_blocks.cpu(), st.head_kept.cpu()))
+        nets.append(float(st.net_sparsity))
+    return masks, float(np.mean(nets))
+
+
+def _mask_diff(a, b):
+    """(entries that differ, entries) of two layers' mask lists."""
+    n = diff = 0
+    for (ka, ha), (kb, hb) in zip(a, b):
+        n += ka.numel() + ha.numel()
+        diff += int((ka != kb).sum()) + int((ha != hb).sum())
+    return diff, n
+
+
+def _int_parts_differ(caps_a, caps_b, hdp):
+    """How many integer parts of the scout's Q and K (the fixed-point
+    split it prunes on) differ between two captures of the same tokens."""
+    from repro_torch.core.hdp import calibrated_split
+    n = 0
+    for a, b in zip(caps_a, caps_b):
+        for key in ("q", "k"):
+            ia = calibrated_split(a[key].cpu(), hdp)[2]
+            ib = calibrated_split(b[key].cpu(), hdp)[2]
+            n += int((ia != ib).sum())
+    return n
+
+
+def _pruning_sweep(torch, common):
+    """pruning_sweep.py on the card (bench-tiny trained there from
+    scratch), its densest and sparsest rows recomputed on the CPU. On
+    the card's own Q/K/V (captured on the card, moved to the CPU), keep
+    masks and head gates equal and net sparsity within SWEEP_TOL. From
+    the card's weights (a CPU forward): agreement equal, and a keep mask
+    may differ only where the CPU's Q or K rounds to another integer
+    part than the card's (fp32 sums in another order: a value within a
+    few ulps of an integer), which is counted and printed; each token
+    that differs is printed with its top-2 margin."""
+    from repro_torch.common import tree
+    from repro_torch.core.hdp import hdp_attention
+    g, out = run_example("pruning_sweep", "--device", "cuda")
+    first, last = _loss_line(out, "tiny")
+    check(last < first, f"bench-tiny's loss did not fall: {first} -> {last}")
+    rows = [ln.split() for ln in out.splitlines()
+            if len(ln.split()) == 4 and ln.split()[1].isdigit()]
+    check(len(rows) == 8, f"the sweep printed {len(rows)} rows, not 8")
+    cfg, batches = g["cfg"], g["batches"]
+    cpu_params = tree.tree_map(lambda t: t.cpu(), g["params"])
+    cpu_th = common.theta_head_samples(cfg, cpu_params, batches,
+                                       g["base"].replace(block_pruning=False))
+    caps_card = common.capture_qkv(cfg, g["params"], batches[0])
+    caps_moved = [{k: t.cpu() for k, t in c.items()} for c in caps_card]
+    caps_cpu = common.capture_qkv(cfg, cpu_params, batches[0])
+    out_rows = {}
+    for rho, pct in SWEEP_CHECKED:
+        hdp, tau = _sweep_point(g, g["th"], rho, pct)
+        hdp_cpu, tau_cpu = _sweep_point(g, cpu_th, rho, pct)
+        printed = next(r for r in rows if float(r[0]) == rho
+                       and int(r[1]) == pct)
+        label = f"sweep rho {rho} pct {pct}"
+        # the card's own inputs on both devices
+        card, net = _masks(caps_card, hdp)
+        same, net_same = _masks(caps_moved, hdp)
+        diff, n = _mask_diff(card, same)
+        check(diff == 0 and abs(net - net_same) <= SWEEP_TOL,
+              f"{label}: on the card's Q/K/V the CPU's keep masks differ "
+              f"in {diff} of {n} entries, net {net_same} vs the card's {net}")
+        # from the card's weights: the CPU's own forward
+        attn_card = lambda li, q, k, v: hdp_attention(q, k, v, hdp)[0]  # noqa: E731
+        attn_cpu = lambda li, q, k, v: hdp_attention(q, k, v, hdp_cpu)[0]  # noqa: E731
+        ag = common.agreement_with(cfg, g["params"], attn_card, batches)
+        ag_cpu = common.agreement_with(cfg, cpu_params, attn_cpu, batches)
+        own, net_own = _masks(caps_cpu, hdp_cpu)
+        diff_own, _ = _mask_diff(card, own)
+        n_int = _int_parts_differ(caps_card, caps_cpu, hdp)
+        logits = common.forward_with_attention(cfg, g["params"], batches[0],
+                                               attn_card).cpu()
+        logits_cpu = common.forward_with_attention(cfg, cpu_params,
+                                                   batches[0], attn_cpu)
+        tok, tok_cpu = logits.argmax(-1), logits_cpu.argmax(-1)
+        for b, i in (tok != tok_cpu).nonzero().tolist():
+            top2 = logits_cpu[b, i].topk(2).values
+            log(f"[examples] {label}: token at ({b}, {i}) card "
+                f"{int(tok[b, i])} CPU {int(tok_cpu[b, i])}, CPU top-2 "
+                f"margin {float(top2[0] - top2[1]):.3e}")
+        check(ag == ag_cpu and (diff_own == 0 or n_int > 0),
+              f"{label}: from the card's weights, agreement {ag} (card) vs "
+              f"{ag_cpu} (CPU); keep masks differ in {diff_own} entries with "
+              f"{n_int} integer parts of Q/K differing")
+        check(f"{net:.3f}" == printed[2] and f"{ag:.3f}" == printed[3],
+              f"{label}: recomputed {net:.3f} {ag:.3f}, printed {printed[2:]}")
+        out_rows[f"rho {rho} pct {pct}"] = {
+            "tau_card": tau, "tau_cpu": tau_cpu, "net": net,
+            "net_cpu_forward": net_own, "agreement": ag,
+            "mask_entries": n, "mask_entries_differing_cpu_forward": diff_own,
+            "int_parts_differing_cpu_forward": n_int}
+        log(f"[examples] {label}: on the card's Q/K/V the CPU's keep masks "
+            f"equal the card's ({n} entries), net {net_same:.6f} (card "
+            f"{net:.6f}); from the card's weights on the CPU: agreement "
+            f"{ag_cpu:.6f} (card {ag:.6f}), keep masks differ in "
+            f"{diff_own} of {n} entries (net {net_own:.6f}), {n_int} integer "
+            f"parts of the scout's Q/K differ, tau {tau_cpu:.6g} (card "
+            f"{tau:.6g})")
+    return {"loss": [first, last], "rows": rows, "checked": out_rows}
+
+
+def _serve_hdp(torch, common, scale, smi_line):
+    """serve_hdp.py on the card at ``scale``: the HDP serve's decode on
+    the FUM kernel, its runs on the card = layers x (decode steps +
+    warm-up); both serves' tokens equal the same serves on the CPU from
+    the card's weights."""
+    from repro_torch.attention import AttnSpec
+    from repro_torch.common import tree
+    from repro_torch.serving import Engine, Request
+    with torch.inference_mode():
+        zero_launches()
+    g, out = run_example("serve_hdp", "--device", "cuda", "--scale", scale)
+    with torch.inference_mode():
+        launches, runs = kernel_counts(torch)
+    cfg, s = g["cfg"], g["s_hdp"]
+    label = f"serve_hdp bench-{scale} HDP (paged, ps {s['page_size']})"
+    check(s["attn_backend_decode"] == "pallas_paged_decode"
+          and s["page_size"] == 2,
+          f"{label}: decode on {s['attn_backend_decode']}, page size "
+          f"{s['page_size']}")
+    check_decode_launches(s, launches, "fum", label, runs,
+                          n_layers=cfg.n_layers)
+    cpu_params = tree.tree_map(lambda t: t.cpu(), g["params"])
+    for run, with_hdp, layout in (("hdp", True, "paged"),
+                                  ("dense", False, "dense")):
+        c = cfg.replace(hdp=g["hdp"]) if with_hdp else cfg
+        eng = Engine(c, params=cpu_params, device="cpu", max_batch=4,
+                     max_len=96, prefill_buckets=(16, 32, 64),
+                     collect_stats=with_hdp, attn=AttnSpec(layout=layout))
+        for uid, p in enumerate(g["prompts"]):
+            eng.submit(Request(uid, p, max_new_tokens=g["args"].max_new))
+        host = {u: r.tokens for u, r in eng.run().items()}
+        card = {u: r.tokens for u, r in g[f"res_{run}"].items()}
+        check(card == host, f"serve_hdp bench-{scale} {run}: card tokens "
+              f"differ from the CPU's in uids "
+              f"{[u for u in card if card[u] != host.get(u)]}")
+    summary = {k: s[k] for k in (
+        "decode_tok_s", "block_sparsity", "head_sparsity", "page_sparsity",
+        "cache_bytes", "decode_steps", "graph_captures")}
+    summary.update(fum_runs=runs["fum"], fum_by_path=launches["fum"],
+                   dense_decode_tok_s=g["s_dense"]["decode_tok_s"],
+                   dense_cache_bytes=g["s_dense"]["cache_bytes"],
+                   agreement=float(g["agree"]))
+    log(f"[examples] serve_hdp bench-{scale}: {json.dumps(summary)}; card "
+        f"tokens == CPU tokens (HDP and dense serves); {smi_line}")
+    return summary
+
+
+def phase_examples(torch, smi_line):
+    """The examples (ROADMAP item 12), outside inference mode (they
+    train): ``examples_torch/`` run in this process through ``runpy``,
+    ``common.CACHE_DIR`` a fresh temporary directory, so every model is
+    trained on the card. quickstart; train_lm (20 steps into a temporary
+    checkpoint directory); pruning_sweep (bench-tiny, 300 steps); serve_hdp
+    at bench-tiny (the sweep's model) and bench-base (300 steps)."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, str(ROOT))
+    from examples_torch import common
+    tmp = tempfile.mkdtemp(prefix="examples_5n_")
+    old_cache = common.CACHE_DIR
+    common.CACHE_DIR = str(Path(tmp) / "cache")
+    out = {}
+    try:
+        out["quickstart"] = _quickstart(torch)
+        with torch.inference_mode():
+            zero_launches()
+        run_example("train_lm", "--device", "cuda", "--steps",
+                    str(EXAMPLE_LM_STEPS), "--checkpoint-dir",
+                    str(Path(tmp) / "train_lm"))
+        launched = all_kernel_launches(torch)
+        check(not any(launched.values()),
+              f"train_lm launched kernels {launched}")
+        log(f"[examples] train_lm: {EXAMPLE_LM_STEPS} steps, exit 0")
+        out["pruning_sweep"] = _pruning_sweep(torch, common)
+        for scale in ("tiny", "base"):
+            out[f"serve_hdp {scale}"] = _serve_hdp(torch, common, scale,
+                                                   smi_line)
+    finally:
+        common.CACHE_DIR = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def phase_timing_zamba2(torch, calls):
     """The scout, block and flash kernels, each on its path in
     ``ZAMBA_PATHS``, at zamba2-7b's aligned prefill's own inputs (B 1,
@@ -5111,6 +5462,8 @@ def main() -> int:
                                 torch, smi_line)
                 dry = timed("5m dry run", phase_dryrun, torch, trained,
                             sharded, smi_line)
+                examples = timed("5n examples", phase_examples, torch,
+                                 smi_line)
             fum_timed = timed("6 FUM timing", phase_timing, torch, main_case,
                               olmoe_case, tp_case)
             prefill_timed = timed("6 prefill kernels timing",
@@ -5264,6 +5617,19 @@ def main() -> int:
             kernels[-1]["launches_by_run"] = {
                 "qwen2-1.5b aligned prefill": n,
                 "olmoe-1b-7b aligned prefill": moe["prefill"][ename]}
+    # the examples (phase 5n): the FUM kernel at page size 2 (MHA, G 1)
+    # and the scout and block kernels at quickstart's section 3
+    for scale, hd in (("tiny", 64), ("base", 32)):
+        kernels[0]["launches_by_run"][
+            f"bench-{scale} serve_hdp example, ps 2, hd {hd}, graphed"] = \
+            examples[f"serve_hdp {scale}"]["fum_runs"]
+    for k in kernels:
+        if k["name"] == "hdp_block_sparse_attention[tile]":
+            k["launches_by_run"] = {
+                "qwen2-1.5b pallas_hdp_block decode route, graphed":
+                    k["launches"]}
+        if k["name"] in ("hdp_scout", "hdp_block_sparse_attention[tile]"):
+            k["launches_by_run"]["quickstart example, section 3"] = 1
     import repro_torch.kernels.flash_attention as fa_mod
     import repro_torch.kernels.hdp_block_attn as ba_mod
     import repro_torch.kernels.hdp_scout as sc_mod
@@ -5292,6 +5658,7 @@ def main() -> int:
             kernels[-1]["dp4a_ms"] = zamba_timed["hdp_scout[dp4a]"][0]
         if base in NO_LIBRARY_CALL:
             kernels[-1]["library_note"] = NO_LIBRARY_CALL[base]
+    log(f"[examples] phase 5n {json.dumps(examples)}")
     log(f"[train] phase 5j {json.dumps(trained)}")
     log(f"[shard] phase 5l {json.dumps(sharded)}")
     log(f"[dry] phase 5m {json.dumps(dry)}")
